@@ -34,7 +34,10 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_FLOPS = 67e12          # f32 outside the tensor cores, same source
+# bf16 on the tensor cores, dense, same source: every operand of these
+# kernels is bf16 or an int code that bf16 holds exactly, so this is the
+# card's peak for their type
+BF16_FLOPS = 989e12
 L2_FLUSH_BYTES = 64 << 20  # > the 50 MB L2
 
 
@@ -47,7 +50,7 @@ def card_line() -> str:
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / F32_FLOPS * 1e3
+    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / BF16_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -122,7 +125,24 @@ ATTN_TOL = dict(rtol=2e-2, atol=2e-3, why=(
     "move p by one bf16 ulp before the PV product"))
 
 
+def launched_variant(fn):
+    """Call fn, which launches one kernel once; return its result and
+    the "kernel/variant" key its wrapper counted."""
+    from llama_cu_awq_torch.ops.cuda import VARIANT_LAUNCHES, reset_launches
+
+    reset_launches()
+    out = fn()
+    keys = list(VARIANT_LAUNCHES)
+    if len(keys) != 1 or VARIANT_LAUNCHES[keys[0]] != 1:
+        raise AssertionError(f"expected one launch, counted {keys}")
+    return out, keys[0]
+
+
 def kernel_phase(torch, timer, rows):
+    """Every kernel and variant at 7B shapes. Each row names the run of
+    e2e_phase whose launches it reports (`path`), or None where no run
+    launches its variant: GQA attention (7B is MHA) and int4_matmul at
+    m=16 (prompts take the T=1 path in this slice) are checks only."""
     from llama_cu_awq_torch.ops.cuda.attention_step import (
         attention_step, rope_rows)
     from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
@@ -162,7 +182,8 @@ def kernel_phase(torch, timer, rows):
             if kind == "silu":
                 kw["silu_u"] = randn(1, n_in)
                 extra.append(kw["silu_u"])
-        out, ss_k = int4_matmul_fused(x, qt, **kw)
+        (out, ss_k), variant = launched_variant(
+            lambda: int4_matmul_fused(x, qt, **kw))
         ref, ss_p = int4_matmul_fused(x, qt, plain=True, **kw)
         torch.cuda.synchronize()
         chk = check_close(f"int4_matmul_fused/{tag}", out, ref, **INT4_TOL)
@@ -176,17 +197,18 @@ def kernel_phase(torch, timer, rows):
             name=f"int4_matmul_fused/{tag}", kernel="int4_matmul_fused",
             route="cuda", source="llama_cu_awq_torch/csrc/int4_gemv.cu",
             replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:543",
-            **chk, ms=timer(lambda: int4_matmul_fused(x, qt, **kw)),
+            variant=variant, path="main", **chk, ms=timer(lambda: int4_matmul_fused(x, qt, **kw)),
             plain_ms=timer(lambda: int4_matmul_fused(x, qt, plain=True,
                                                      **kw)),
             bound_ms=b, bound_by=src, library_ms=None))
 
     # --- int4_matmul: the w4 lm_head at m=1, a 16-row block on qkv ---
-    for tag, m, n_in, n_out in (("m1_lm_head", 1, dim, vocab),
-                                ("m16_qkv", 16, dim, 3 * dim)):
+    for tag, m, n_in, n_out, path in (
+            ("m1_lm_head", 1, dim, vocab, "lm_head_w4"),
+            ("m16_qkv", 16, dim, 3 * dim, None)):
         qt = random_qtensor(torch, QTensor, n_in, n_out, g)
         x = randn(m, n_in)
-        out = int4_matmul(x, qt)
+        out, variant = launched_variant(lambda: int4_matmul(x, qt))
         ref = int4_matmul(x, qt, plain=True)
         torch.cuda.synchronize()
         chk = check_close(f"int4_matmul/{tag}", out, ref, **INT4_TOL)
@@ -196,7 +218,7 @@ def kernel_phase(torch, timer, rows):
             name=f"int4_matmul/{tag}", kernel="int4_matmul", route="cuda",
             source="llama_cu_awq_torch/csrc/int4_gemv.cu",
             replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:281",
-            **chk, ms=timer(lambda: int4_matmul(x, qt)),
+            variant=variant, path=path, **chk, ms=timer(lambda: int4_matmul(x, qt)),
             plain_ms=timer(lambda: int4_matmul(x, qt, plain=True)),
             bound_ms=b, bound_by=src, library_ms=None))
 
@@ -204,8 +226,9 @@ def kernel_phase(torch, timer, rows):
     w = (randn(vocab, dim, dtype=torch.float32) * 0.02).bfloat16()
     w8 = quantize_dense_int8(w)
     x = randn(1, dim)
-    for tag, args in (("bf16", (w,)), ("int8", (w8.w8, w8.scale))):
-        out = dense_gemv(x, *args)
+    for tag, args, path in (("bf16", (w,), "main"),
+                            ("int8", (w8.w8, w8.scale), "lm_head_int8")):
+        out, variant = launched_variant(lambda: dense_gemv(x, *args))
         ref = dense_gemv(x, *args, plain=True)
         torch.cuda.synchronize()
         chk = check_close(f"dense_gemv/{tag}", out, ref, **GEMV_TOL)
@@ -216,7 +239,7 @@ def kernel_phase(torch, timer, rows):
             name=f"dense_gemv/{tag}", kernel="dense_gemv", route="cuda",
             source="llama_cu_awq_torch/csrc/dense_gemv.cu",
             replaces="llama_cu_awq_tpu/ops/pallas/dense_gemv.py:147",
-            **chk, ms=timer(lambda: dense_gemv(x, *args)),
+            variant=variant, path=path, **chk, ms=timer(lambda: dense_gemv(x, *args)),
             plain_ms=timer(lambda: dense_gemv(x, *args, plain=True)),
             bound_ms=b, bound_by=src, library_ms=lib))
 
@@ -242,7 +265,11 @@ def kernel_phase(torch, timer, rows):
                 kc, vc = randn(1, S, n_kv, D), randn(1, S, n_kv, D)
                 ks = vs = None
             args = (qkv, kc, vc, pos, cos2, sinm, ks, vs)
-            outs = attention_step(*args, n_heads=H)
+            outs, variant = launched_variant(
+                lambda: attention_step(*args, n_heads=H))
+            path = None
+            if n_kv == H:
+                path = "fused_step_int8kv" if quant else "fused_step_bf16"
             refs = attention_step(*args, n_heads=H, plain=True)
             torch.cuda.synchronize()
             chk = check_close(f"attention_step/{tag}", outs[0], refs[0],
@@ -263,7 +290,7 @@ def kernel_phase(torch, timer, rows):
                 route="cuda",
                 source="llama_cu_awq_torch/csrc/attention_step.cu",
                 replaces="llama_cu_awq_tpu/ops/pallas/attention_step.py:425",
-                **chk,
+                variant=variant, path=path, **chk,
                 ms=timer(lambda: attention_step(*args, n_heads=H)),
                 plain_ms=timer(lambda: attention_step(*args, n_heads=H,
                                                       plain=True), iters=5),
@@ -277,16 +304,18 @@ def kernel_phase(torch, timer, rows):
 
 
 def run_path(torch, name, fn, launches):
-    """Counters to 0 just before the path, read just after."""
-    from llama_cu_awq_torch.ops.cuda import LAUNCHES, reset_launches
+    """Counters to 0 just before the path, read just after: launches per
+    kernel and per kernel/variant."""
+    from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
+                                             reset_launches)
 
     torch.cuda.synchronize()
     reset_launches()
     result = fn()
     torch.cuda.synchronize()
-    launches[name] = dict(LAUNCHES)
-    print(json.dumps({"path": name, "launches": launches[name]}),
-          flush=True)
+    launches[name] = dict(kernels=dict(LAUNCHES),
+                          variants=dict(VARIANT_LAUNCHES))
+    print(json.dumps({"path": name, **launches[name]}), flush=True)
     return result
 
 
@@ -379,7 +408,7 @@ def e2e_phase(torch, launches):
                       "max_seq": 512, "tok_per_s": tps, "seconds": dt,
                       "first_tokens": toks[:8]}), flush=True)
     for kname in ("int4_matmul_fused", "dense_gemv"):
-        if launches["main"][kname] == 0:
+        if launches["main"]["kernels"][kname] == 0:
             raise AssertionError(f"main path never launched {kname}")
     profile_decode(torch, eng, prompt)
 
@@ -397,7 +426,7 @@ def e2e_phase(torch, launches):
             launches)
         print(json.dumps({"e2e": name, "steps": 32, "tok_per_s": tps_s,
                           "first_tokens": toks_s[:8]}), flush=True)
-        if launches[name][kname] == 0:
+        if launches[name]["kernels"][kname] == 0:
             raise AssertionError(f"{name} never launched {kname}")
         del eng_s
 
@@ -487,18 +516,22 @@ def main() -> int:
     kernel_phase(torch, timer, rows)
     launches: dict[str, dict] = {}
     e2e_phase(torch, launches)
-    # each kernel's launches on the path that carries it: the main run for
-    # int4_matmul_fused and dense_gemv, the option runs for the others
-    carrier = {"int4_matmul_fused": "main", "dense_gemv": "main",
-               "attention_step": "fused_step_bf16",
-               "int4_matmul": "lm_head_w4"}
+    # each row's launches of its own variant on the run that carries it;
+    # a check-only row (path None) reports what every run launched of its
+    # variant, which is none
     for r in rows:
-        r["launches"] = launches.get(carrier[r["kernel"]], {}).get(
-            r["kernel"], 0)
-        r["launch_path"] = carrier[r["kernel"]]
-    missing = [r["name"] for r in rows if r["launches"] == 0]
+        if r["path"] is None:
+            r["launches"] = sum(v["variants"].get(r["variant"], 0)
+                                for v in launches.values())
+        else:
+            r["launches"] = launches[r["path"]]["variants"].get(
+                r["variant"], 0)
+        r["check_only"] = r["path"] is None
+    missing = [r["name"] for r in rows
+               if not r["check_only"] and r["launches"] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched: {missing}")
+        raise AssertionError(f"variants never launched on their run: "
+                             f"{missing}")
     for r in rows:
         for k in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err"):
             v = r[k]

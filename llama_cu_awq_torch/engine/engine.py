@@ -223,13 +223,11 @@ class InferenceEngine:
             token = toks[-1]
         return generated, False
 
-    def generate_benchmark(self, prompt_tokens: list[int], steps: int,
-                           untimed_prefill: bool = False):
+    def generate_benchmark(self, prompt_tokens: list[int], steps: int):
         """Timed generation without per-chunk host syncs or text decoding:
         prompt + device-chained decode chunks, one host read at the end.
         Returns (tokens, seconds, tok_per_s) with the reference's
-        timed-token accounting (llama2_q4.cu:486-489); untimed_prefill
-        leaves the prompt phase off the clock and counts decode steps."""
+        timed-token accounting (llama2_q4.cu:486-489)."""
         self.reset()
         if self.device.type == "cuda":
             torch.cuda.synchronize()
@@ -239,10 +237,6 @@ class InferenceEngine:
             self._prefill(prompt_tokens[:n_pref - 1])
         token = torch.tensor([prompt_tokens[n_pref - 1]], dtype=torch.int32,
                              device=self.device)
-        if untimed_prefill:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize()
-            start = time.time()
         outs = []
         remaining = steps - n_pref + 1
         while remaining > 0 and self.pos < self.max_seq:
@@ -255,8 +249,7 @@ class InferenceEngine:
             remaining -= k
         tokens = torch.cat(outs)[:, 0].tolist()
         dt = time.time() - start
-        timed = len(tokens) if untimed_prefill else steps - 1
-        return tokens, dt, timed / dt
+        return tokens, dt, (steps - 1) / dt
 
     # ------------------------------------------------------------------
     # chat mode (llama2_q4.cu:507-601)

@@ -3,9 +3,9 @@
 The counterpart of llama_cu_awq_tpu/models/llama.py: embedding ->
 N x [rmsnorm, fused-qkv matmul, RoPE, GQA attention over the KV cache,
 o-proj + residual, rmsnorm, fused gate/up + SiLU, down-proj + residual]
--> final rmsnorm -> lm_head. On the fused path (the default) the rmsnorm
-apply, SwiGLU and residual adds run inside the int4 kernels and the rms
-scale chains from one kernel's epilogue to the next one's prologue.
+-> final rmsnorm -> lm_head. The rmsnorm apply, SwiGLU and residual adds
+run inside the int4 kernels, and the rms scale chains from one kernel's
+epilogue to the next one's prologue (the JAX package's fused=True path).
 Activations are bf16; accumulations and the softmax are f32.
 """
 
@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import warnings
 
 import numpy as np
 import torch
@@ -23,9 +22,10 @@ from llama_cu_awq_torch.device import resolve_device
 from llama_cu_awq_torch.io.checkpoint import RawCheckpoint, RawQWeight
 from llama_cu_awq_torch.ops.cuda.attention_step import (INV_127,
                                                         attention_step,
+                                                        kernel_takes,
                                                         rope_rows)
 from llama_cu_awq_torch.ops.linear import dense_matmul, qmatmul, qmatmul_fused
-from llama_cu_awq_torch.ops.norms import RMS_EPS, rmsnorm
+from llama_cu_awq_torch.ops.norms import RMS_EPS
 from llama_cu_awq_torch.ops.rope import apply_rope, rope_angles
 from llama_cu_awq_torch.quant.int8 import Int8Dense, quantize_dense_int8
 from llama_cu_awq_torch.quant.qtensor import QTensor
@@ -306,41 +306,32 @@ def _attention(q, k_cache, v_cache, mask, act_dtype) -> torch.Tensor:
     return out.reshape(B, T, H * D)
 
 
-def _post_attention(attn, x, ss, layer: LlamaLayer, fused: bool,
-                    plain: bool, act_dtype):
+def _post_attention(attn, x, layer: LlamaLayer, plain: bool, act_dtype):
     """o-proj + residual + FFN for one layer; returns (x, next rms ss)."""
-    if fused:
-        x, ss = qmatmul_fused(attn, layer.wo, plain, residual=x,
-                              emit_ss_eps=RMS_EPS, out_dtype=act_dtype)
-        gu, _ = qmatmul_fused(x, layer.w_gate_up, plain,
-                              prescale=(ss, layer.ffn_norm),
-                              out_dtype=act_dtype)
-        g, u = gu.chunk(2, dim=-1)
-        return qmatmul_fused(g, layer.w_down, plain, silu_u=u, residual=x,
-                             emit_ss_eps=RMS_EPS, out_dtype=act_dtype)
-    o = qmatmul(attn, layer.wo, plain)
-    x = (o + x.float()).to(act_dtype)
-    xb = rmsnorm(x, layer.ffn_norm)
-    g, u = qmatmul(xb, layer.w_gate_up, plain).chunk(2, dim=-1)
-    h = (g * torch.sigmoid(g) * u).to(act_dtype)
-    d = qmatmul(h, layer.w_down, plain)
-    return (d + x.float()).to(act_dtype), None
+    x, ss = qmatmul_fused(attn, layer.wo, plain, residual=x,
+                          emit_ss_eps=RMS_EPS, out_dtype=act_dtype)
+    gu, _ = qmatmul_fused(x, layer.w_gate_up, plain,
+                          prescale=(ss, layer.ffn_norm), out_dtype=act_dtype)
+    g, u = gu.chunk(2, dim=-1)
+    return qmatmul_fused(g, layer.w_down, plain, silu_u=u, residual=x,
+                         emit_ss_eps=RMS_EPS, out_dtype=act_dtype)
 
 
 def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
             pos: torch.Tensor, cache: KVCache, *,
             attn_len: int | None = None, act_dtype=torch.bfloat16,
             attn_impl: str | None = None, logits_all: bool = False,
-            no_logits: bool = False, fused: bool = True,
-            plain: bool = False):
+            no_logits: bool = False, plain: bool = False):
     """Run the network over a token block.
 
     tokens: (B, T) int; pos: (B,) int32 absolute position of tokens[:, 0],
     on the params' device; cache: KVCache with at least attn_len rows,
     updated in place. attn_len: attention window (>= max(pos) + T),
     default the whole cache. attn_impl: None or "einsum" (plain
-    attention), "fused_step" (the attention_step kernel, T == 1), "auto"
-    (fused_step from a FSTEP_MIN_WINDOW window on). plain: the kernels'
+    attention), "fused_step" (the attention_step kernel on T == 1 steps;
+    a T > 1 block takes plain attention; ValueError for head shapes the
+    kernel cannot take), "auto" (fused_step from a FSTEP_MIN_WINDOW window
+    on, where the kernel takes the head shapes). plain: the kernels'
     plain versions on any device.
     Returns (logits, cache): logits f32 (B, T, vocab) if logits_all else
     (B, vocab), None with no_logits.
@@ -359,24 +350,18 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
 
     x = params.embed[tokens.long()].to(act_dtype)  # (B, T, dim)
     positions = pos[:, None].long() + torch.arange(T, device=pos.device)
-    ss = None
-    if fused:
-        xf = x.float()
-        ss = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + RMS_EPS)
+    xf = x.float()
+    ss = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + RMS_EPS)
 
-    full_A0 = cache.k[0].shape[1]
-    shapes_ok = (T == 1 and D % 128 == 0 and full_A0 % 128 == 0
-                 and H % KV == 0)
+    step_ok = kernel_takes(H, KV, D)
+    if attn_impl == "fused_step" and not step_ok:
+        raise ValueError(
+            f"attn_impl='fused_step': the attention_step kernel cannot take "
+            f"n_heads={H}, n_kv_heads={KV}, head_dim={D}")
     if attn_impl == "auto":
-        attn_impl = ("fused_step"
-                     if shapes_ok and fused and A >= FSTEP_MIN_WINDOW
+        attn_impl = ("fused_step" if step_ok and A >= FSTEP_MIN_WINDOW
                      else None)
-    fstep = attn_impl == "fused_step" and shapes_ok
-    if attn_impl == "fused_step" and T == 1 and not fstep:
-        warnings.warn(
-            f"attn_impl='fused_step' needs head_dim % 128 == 0 and cache "
-            f"len % 128 == 0 (got head_dim={D}, cache len={full_A0}); "
-            f"using plain attention", stacklevel=2)
+    fstep = attn_impl == "fused_step" and T == 1
     # per-forward constants, shared by every layer
     rows = _cache_rows(positions, cache.k[0].shape[1])
     if fstep:
@@ -386,13 +371,9 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
         mask = _causal_mask(positions, A)
 
     for l, layer in enumerate(params.layers):
-        if fused:
-            qkv, _ = qmatmul_fused(x, layer.wqkv, plain,
-                                   prescale=(ss, layer.attn_norm),
-                                   out_dtype=act_dtype)
-        else:
-            xb = rmsnorm(x, layer.attn_norm)
-            qkv = qmatmul(xb, layer.wqkv, plain).to(act_dtype)
+        qkv, _ = qmatmul_fused(x, layer.wqkv, plain,
+                               prescale=(ss, layer.attn_norm),
+                               out_dtype=act_dtype)
         if fstep:
             attn_k, kn, vn, ksn, vsn = attention_step(
                 qkv[:, 0], cache.k[l], cache.v[l], pos, cos2, sinm,
@@ -429,14 +410,11 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
                 _update_cache(cache.v[l], vh, rows)
                 k_att, v_att = cache.k[l][:, :A], cache.v[l][:, :A]
             attn = _attention(qh, k_att, v_att, mask, act_dtype).to(act_dtype)
-        x, ss = _post_attention(attn, x, ss, layer, fused, plain, act_dtype)
+        x, ss = _post_attention(attn, x, layer, plain, act_dtype)
 
     if no_logits:
         return None, cache
-    if fused:
-        x = (x.float() * ss * params.final_norm.float()).to(act_dtype)
-    else:
-        x = rmsnorm(x, params.final_norm)
+    x = (x.float() * ss * params.final_norm.float()).to(act_dtype)
     if not logits_all:
         x = x[:, -1, :]
     if isinstance(params.lm_head, QTensor):

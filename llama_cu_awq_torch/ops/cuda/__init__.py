@@ -4,7 +4,9 @@ Every wrapper dispatches on the device of its input: a CUDA tensor goes
 to the kernel (or raises), a CPU tensor to the plain version. `plain=True`
 asks for the plain version on any device; it is how a caller holds a
 kernel against it. LAUNCHES counts, per kernel, the launches its wrapper
-made; nothing else touches it.
+made, and VARIANT_LAUNCHES the same launches per "kernel/variant" (the
+flags and shapes of the call); only count() touches them, and each
+wrapper calls it once where it launches its kernel.
 """
 
 from __future__ import annotations
@@ -13,11 +15,19 @@ import torch
 
 LAUNCHES = {"int4_matmul_fused": 0, "int4_matmul": 0, "dense_gemv": 0,
             "attention_step": 0}
+VARIANT_LAUNCHES: dict[str, int] = {}
+
+
+def count(kernel: str, variant: str) -> None:
+    LAUNCHES[kernel] += 1
+    key = f"{kernel}/{variant}"
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    VARIANT_LAUNCHES.clear()
 
 
 def use_plain(x: torch.Tensor, plain: bool) -> bool:

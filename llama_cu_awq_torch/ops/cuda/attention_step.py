@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from llama_cu_awq_torch.ops.cuda import (LAUNCHES, _build, check_tensor,
+from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
                                          require, stream_ptr, use_plain)
 from llama_cu_awq_torch.ops.rope import rope_angles
 
@@ -37,6 +37,14 @@ _NEG = -1e30
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = [_P] * 13 + [_I] * 5 + [_P]
+
+
+def kernel_takes(n_heads: int, n_kv: int, head_dim: int) -> bool:
+    """Whether csrc/attention_step.cu takes these head shapes (any cache
+    length): head_dim a multiple of 32 up to 256, at most 8 query heads
+    per kv head."""
+    return (head_dim % 32 == 0 and head_dim <= 256 and n_heads % n_kv == 0
+            and n_heads // n_kv <= 8)
 
 
 def rope_rows(pos: torch.Tensor, head_dim: int, theta: float):
@@ -138,8 +146,8 @@ def attention_step(qkv, k_cache, v_cache, pos, cos2, sinm, k_scale=None,
     dev = qkv.device
     quantized = k_scale is not None
     kv_dtype = torch.int8 if quantized else torch.bfloat16
-    require(D % 32 == 0 and D <= 256, f"head_dim {D} unsupported")
-    require(H % n_kv == 0 and H // n_kv <= 8, f"kv_mul {H}/{n_kv}")
+    require(kernel_takes(H, n_kv, D),
+            f"the kernel cannot take n_heads={H}, n_kv={n_kv}, head_dim={D}")
     check_tensor(qkv, "qkv", torch.bfloat16, (B, (H + 2 * n_kv) * D), dev)
     check_tensor(k_cache, "k_cache", kv_dtype, (B, S, n_kv, D), dev)
     check_tensor(v_cache, "v_cache", kv_dtype, (B, S, n_kv, D), dev)
@@ -167,5 +175,6 @@ def attention_step(qkv, k_cache, v_cache, pos, cos2, sinm, k_scale=None,
             v_new.data_ptr(), ptr(ks_new), ptr(vs_new), B, H, n_kv, D, S,
             stream_ptr())
     _build.check(rc, "attention_step", "attention_step")
-    LAUNCHES["attention_step"] += 1
+    count("attention_step",
+          f"{'int8' if quantized else 'bf16'}/B{B}/H{H}/kv{n_kv}/D{D}")
     return attn, k_new, v_new, ks_new, vs_new

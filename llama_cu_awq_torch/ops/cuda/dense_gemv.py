@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from llama_cu_awq_torch.ops.cuda import (LAUNCHES, _build, check_tensor,
+from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
                                          require, stream_ptr, use_plain)
 
 _SMEM_BUDGET = 200 * 1024
@@ -69,5 +69,5 @@ def dense_gemv(x: torch.Tensor, w: torch.Tensor,
             scale.data_ptr() if int8 else None, out.data_ptr(), m, d, v,
             rows_per_pass(m, d, int8), stream_ptr())
     _build.check(rc, "dense_gemv", "dense_gemv")
-    LAUNCHES["dense_gemv"] += 1
+    count("dense_gemv", f"{'int8' if int8 else 'bf16'}/m{m}/{v}x{d}")
     return out.reshape(*lead, v)

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from llama_cu_awq_torch.ops.cuda import (LAUNCHES, _build, check_tensor,
+from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
                                          require, stream_ptr, use_plain)
 from llama_cu_awq_torch.quant.qtensor import QTensor
 
@@ -121,7 +121,7 @@ def int4_matmul(x: torch.Tensor, qt: QTensor, *,
         return int4_matmul_plain(x, qt)
     lead, m = _rows(x, qt.n_in)
     out, _ = _launch(_as_rows(x, m, qt.n_in), qt, out_dtype=torch.float32)
-    LAUNCHES["int4_matmul"] += 1
+    count("int4_matmul", f"m{m}/{qt.n_in}x{qt.n_out}")
     return out.reshape(*lead, qt.n_out)
 
 
@@ -177,7 +177,12 @@ def int4_matmul_fused(x, qt: QTensor, *, prescale=None, silu_u=None,
            if residual is not None else None)
     out, ss_out = _launch(x2, qt, u2=u2, ss=ss, nw=nw, res=res,
                           out_dtype=out_dtype, eps=emit_ss_eps)
-    LAUNCHES["int4_matmul_fused"] += 1
+    flags = [f for f, on in (("prescale", ss is not None),
+                             ("silu", u2 is not None),
+                             ("residual", res is not None),
+                             ("ss", emit_ss_eps is not None)) if on]
+    count("int4_matmul_fused",
+          f"{'+'.join(flags) or 'plain'}/m{m}/{qt.n_in}x{qt.n_out}")
     out = out.reshape(*lead, qt.n_out)
     if ss_out is not None:
         ss_out = ss_out.reshape(*lead, 1)

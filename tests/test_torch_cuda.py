@@ -22,7 +22,8 @@ from llama_cu_awq_torch.engine import InferenceEngine
 from llama_cu_awq_torch.io.checkpoint import random_checkpoint
 from llama_cu_awq_torch.models import (forward, init_kv_cache,
                                        params_from_checkpoint)
-from llama_cu_awq_torch.ops.cuda import LAUNCHES, reset_launches
+from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
+                                         reset_launches)
 from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
                                                         rope_rows)
 from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
@@ -183,6 +184,14 @@ def test_forward_on_card_matches_cpu(gen, attn_impl, quantized):
     assert LAUNCHES["dense_gemv"] == 5
     assert LAUNCHES["attention_step"] == (
         5 * _CFG.n_layers if attn_impl == "fused_step" else 0)
+    # the same launches per variant: the qkv projection with its rmsnorm
+    # prologue, and the lm_head GEMV
+    assert VARIANT_LAUNCHES["int4_matmul_fused/prescale/m1/256x512"] == (
+        5 * _CFG.n_layers)
+    assert VARIANT_LAUNCHES["dense_gemv/bf16/m1/512x256"] == 5
+    for kernel, n in LAUNCHES.items():
+        assert n == sum(v for k, v in VARIANT_LAUNCHES.items()
+                        if k.startswith(kernel + "/"))
 
 
 def test_engine_generates_on_card(gen):

@@ -3,8 +3,7 @@
 The oracle is the JAX `forward(..., fused=True, matmul_impl="dequant")`
 (the JAX engine on the CPU would pick fused=False, which rounds
 differently), run step by step from the same weights: a checkpoint made
-with numpy from a seed, carried across with params_from_numpy. The
-port's unfused composite (fused=False) is held to the JAX fused=False.
+with numpy from a seed, carried across with params_from_numpy.
 """
 
 import dataclasses
@@ -34,7 +33,7 @@ def _params(cfg, seed=3, lm_head_bits=None):
 
 
 def _run_both(cfg, jp, tp, quantized, attn_impl, max_seq, tokens=TOKENS,
-              fused=True):
+              jax_attn_impl=None):
     jc = jl.init_kv_cache(cfg, 1, max_seq, quantized=quantized)
     tc = tl.init_kv_cache(cfg, 1, max_seq, quantized=quantized,
                           device="cpu")
@@ -42,11 +41,11 @@ def _run_both(cfg, jp, tp, quantized, attn_impl, max_seq, tokens=TOKENS,
     for step, t in enumerate(tokens):
         jlog, jc = jl.forward(jp, cfg, jnp.asarray([[t]], jnp.int32),
                               jnp.asarray([step], jnp.int32), jc,
-                              fused=fused, matmul_impl="dequant",
-                              attn_impl=attn_impl)
+                              fused=True, matmul_impl="dequant",
+                              attn_impl=jax_attn_impl or attn_impl)
         tlog, tc = tl.forward(tp, cfg, torch.tensor([[t]]),
                               torch.tensor([step], dtype=torch.int32), tc,
-                              attn_impl=attn_impl, fused=fused)
+                              attn_impl=attn_impl)
         out.append((np.asarray(jlog), tlog.numpy()))
     return out, jc, tc
 
@@ -58,16 +57,6 @@ def test_forward_logits_match_jax(request, cfg_name, quantized):
     jp, tp = _params(cfg)
     steps, jc, tc = _run_both(cfg, jp, tp, quantized, "auto", cfg.seq_len)
     _check_steps(cfg, steps, jc, tc, quantized)
-
-
-@pytest.mark.parametrize("quantized", [False, True])
-def test_forward_unfused_matches_jax(tiny_config, quantized):
-    """fused=False: the unfused composite (rmsnorm, int4_matmul, SwiGLU
-    and residual as separate steps) against the JAX unfused forward."""
-    jp, tp = _params(tiny_config)
-    steps, jc, tc = _run_both(tiny_config, jp, tp, quantized, "auto",
-                              tiny_config.seq_len, fused=False)
-    _check_steps(tiny_config, steps, jc, tc, quantized)
 
 
 def _check_steps(cfg, steps, jc, tc, quantized):
@@ -115,6 +104,39 @@ def test_forward_fused_step_matches_jax(quantized, n_heads, n_kv):
         # (tests/test_fused_path.py:51-52)
         np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
         assert got.argmax() == want.argmax()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_forward_fused_step_head_dim_64(quantized):
+    """attn_impl='fused_step' runs attention_step for every head shape
+    its CUDA kernel takes, here head_dim 64 over a 200-row cache, which the
+    JAX kernel does not take: held to the JAX einsum forward."""
+    cfg = ModelConfig(dim=256, hidden_dim=384, n_layers=2, n_heads=4,
+                      n_kv_heads=2, vocab_size=256, seq_len=200)
+    jp, tp = _params(cfg, seed=5)
+    steps, _, _ = _run_both(cfg, jp, tp, quantized, "fused_step", 200,
+                            TOKENS[:4], jax_attn_impl="einsum")
+    for want, got in steps:
+        # the einsum path stages scores through bf16, the kernel does not:
+        # the JAX package's bar for logits of two differently rounded paths
+        # (tests/test_fused_path.py:51-52)
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+        assert got.argmax() == want.argmax()
+
+
+def test_forward_fused_step_rejects_head_shapes(tiny_config):
+    """Asked for explicitly, fused_step raises on head shapes its kernel
+    cannot take (head_dim 16) rather than running other attention; "auto"
+    picks plain attention for them."""
+    _, tp = _params(tiny_config)
+    cache = tl.init_kv_cache(tiny_config, 1, 2048, device="cpu")
+    tok = torch.tensor([[5]])
+    pos = torch.tensor([0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim=16"):
+        tl.forward(tp, tiny_config, tok, pos, cache, attn_impl="fused_step")
+    logits, _ = tl.forward(tp, tiny_config, tok, pos, cache,
+                           attn_impl="auto")
+    assert logits.shape == (1, tiny_config.vocab_size)
 
 
 def test_forward_plain_flag_and_no_logits(tiny_config):

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from llama_cu_awq_torch.models.llama import quantize_kv as t_quantize_kv
-from llama_cu_awq_torch.ops.cuda import LAUNCHES
+from llama_cu_awq_torch.ops.cuda import LAUNCHES, VARIANT_LAUNCHES
 from llama_cu_awq_torch.ops.cuda.attention_step import (
     attention_step as t_attention_step)
 from llama_cu_awq_torch.ops.cuda.attention_step import rope_rows as t_rope_rows
@@ -259,12 +259,12 @@ def test_attention_step_plain_matches_pallas_interpret(rng, quantized, H,
 def test_wrappers_dispatch_by_device(rng):
     """A CPU tensor takes the plain version and launches nothing; a tensor
     on another device raises instead of falling back."""
-    before = dict(LAUNCHES)
+    before = dict(LAUNCHES), dict(VARIANT_LAUNCHES)
     _, tq = _qtensors(rng, 128, 64)
     x = torch.zeros(1, 128, dtype=torch.bfloat16)
     t_qmatmul_fused(x, tq)
     t_dense_matmul(x, torch.zeros(64, 128, dtype=torch.bfloat16))
-    assert LAUNCHES == before
+    assert (LAUNCHES, VARIANT_LAUNCHES) == before
     with pytest.raises(ValueError, match="device"):
         int4_matmul(x.to("meta"), tq)
     with pytest.raises(ValueError, match="inputs"):
