@@ -11,6 +11,9 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      plain PyTorch version on the same inputs on the card, within the
      stated tolerance, timed with CUDA events (median after warm-up, L2
      flushed before every timed launch) beside its bound;
+     The prefill kernels (prefill_attention at T=128 over a 2048-row
+     window at position 1024; the int4 GEMM at m=128) join them, with
+     the GEMV-against-GEMM sweep over m that sets GEMM_MIN_M;
   4. end to end: synthetic 7B w4-g128 weights on the card, 256 greedy
      decode steps through InferenceEngine.generate_benchmark, then short
      runs through the options that reach the other kernels (fused_step
@@ -18,13 +21,21 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      counters set to 0 just before and read just after; a profile of one
      16-token decode chunk (host wall time, device time per operation,
      device idle share); then one full 7B forward step through the
-     kernels and through the plain versions.
+     kernels and through the plain versions;
+  5. prefill end to end: a 1920-token prompt (15 blocks of 128) through
+     generate_benchmark (time to first token) and _prefill (prefill
+     tokens/s), a 256-token prompt with int8 KV, a profile of one
+     128-token block, the perplexity of a 1023-token sequence through the
+     kernels and through the plain versions (|delta ln ppl| <= 0.01), and
+     one full 7B 128-token block at position 1024, kernels against plain
+     versions, for bf16 and int8 KV.
 Prints the card line and a {"kernels": [...]} line, then
 {"ok": true, "device": {...}} as the last line.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -103,6 +114,12 @@ def check_close(name, got, want, rtol, atol, why):
     return dict(max_abs_err=float(err.max()), rtol=rtol, atol=atol)
 
 
+def int4_source(variant: str) -> str:
+    """The source an int4 variant key's route names (gemv/... or gemm/...)."""
+    kernel = "int4_gemm" if "/gemm/" in f"/{variant}" else "int4_gemv"
+    return f"llama_cu_awq_torch/csrc/{kernel}.cu"
+
+
 def random_qtensor(torch, QTensor, n_in, n_out, g):
     groups = -(-n_in // 128)
     qw = torch.randint(0, 256, (n_out, n_in // 2), dtype=torch.uint8,
@@ -140,9 +157,10 @@ def launched_variant(fn):
 
 def kernel_phase(torch, timer, rows):
     """Every kernel and variant at 7B shapes. Each row names the run of
-    e2e_phase whose launches it reports (`path`), or None where no run
-    launches its variant: GQA attention (7B is MHA) and int4_matmul at
-    m=16 (prompts take the T=1 path in this slice) are checks only."""
+    e2e_phase or prefill_phase whose launches it reports (`path`), or None
+    where no run launches its variant: GQA attention (7B is MHA) and
+    int4_matmul on the qkv shape (the forward takes int4_matmul_fused
+    there) are checks only."""
     from llama_cu_awq_torch.ops.cuda.attention_step import (
         attention_step, rope_rows)
     from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
@@ -158,54 +176,60 @@ def kernel_phase(torch, timer, rows):
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, device="cuda", generator=g).to(dtype)
 
-    # --- int4_matmul_fused, the four projections of a 7B layer ---
+    # --- int4_matmul_fused, the four projections of a 7B layer, at a
+    # decode step (m=1, the GEMV) and a prefill block (m=128, the GEMM) ---
     cases = [
         ("qkv_prescale", dim, 3 * dim, "prescale"),
         ("o_residual_ss", dim, dim, "residual"),
         ("gate_up_prescale", dim, 2 * hid, "prescale"),
         ("down_silu_residual_ss", hid, dim, "silu"),
     ]
-    for tag, n_in, n_out, kind in cases:
-        qt = random_qtensor(torch, QTensor, n_in, n_out, g)
-        x = randn(1, n_in)
-        kw = {}
-        extra = []
-        if kind == "prescale":
-            ss = torch.rand(1, 1, device="cuda", generator=g) + 0.5
-            nw = torch.rand(n_in, device="cuda", generator=g) + 0.5
-            kw = dict(prescale=(ss, nw))
-            extra = [ss, nw]
-        else:
-            res = randn(1, n_out)
-            kw = dict(residual=res, emit_ss_eps=1e-5)
-            extra = [res]
-            if kind == "silu":
-                kw["silu_u"] = randn(1, n_in)
-                extra.append(kw["silu_u"])
-        (out, ss_k), variant = launched_variant(
-            lambda: int4_matmul_fused(x, qt, **kw))
-        ref, ss_p = int4_matmul_fused(x, qt, plain=True, **kw)
-        torch.cuda.synchronize()
-        chk = check_close(f"int4_matmul_fused/{tag}", out, ref, **INT4_TOL)
-        if ss_p is not None:
-            check_close(f"int4_matmul_fused/{tag}/ss", ss_k, ss_p,
-                        **INT4_TOL)
-        b, src = bound_ms(
-            nbytes(qt.qw, qt.scales, qt.zeros, x, out, ss_k, *extra),
-            2 * n_in * n_out)
-        rows.append(dict(
-            name=f"int4_matmul_fused/{tag}", kernel="int4_matmul_fused",
-            route="cuda", source="llama_cu_awq_torch/csrc/int4_gemv.cu",
-            replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:543",
-            variant=variant, path="main", **chk, ms=timer(lambda: int4_matmul_fused(x, qt, **kw)),
-            plain_ms=timer(lambda: int4_matmul_fused(x, qt, plain=True,
-                                                     **kw)),
-            bound_ms=b, bound_by=src, library_ms=None))
+    for m, prefix, path in ((1, "", "main"), (128, "gemm_", "prefill")):
+        for tag, n_in, n_out, kind in cases:
+            tag = prefix + tag
+            qt = random_qtensor(torch, QTensor, n_in, n_out, g)
+            x = randn(m, n_in)
+            if kind == "prescale":
+                ss = torch.rand(m, 1, device="cuda", generator=g) + 0.5
+                nw = torch.rand(n_in, device="cuda", generator=g) + 0.5
+                kw = dict(prescale=(ss, nw))
+                extra = [ss, nw]
+            else:
+                res = randn(m, n_out)
+                kw = dict(residual=res, emit_ss_eps=1e-5)
+                extra = [res]
+                if kind == "silu":
+                    kw["silu_u"] = randn(m, n_in)
+                    extra.append(kw["silu_u"])
+            (out, ss_k), variant = launched_variant(
+                lambda: int4_matmul_fused(x, qt, **kw))
+            ref, ss_p = int4_matmul_fused(x, qt, plain=True, **kw)
+            torch.cuda.synchronize()
+            chk = check_close(f"int4_matmul_fused/{tag}", out, ref,
+                              **INT4_TOL)
+            if ss_p is not None:
+                check_close(f"int4_matmul_fused/{tag}/ss", ss_k, ss_p,
+                            **INT4_TOL)
+            b, src = bound_ms(
+                nbytes(qt.qw, qt.scales, qt.zeros, x, out, ss_k, *extra),
+                2 * m * n_in * n_out)
+            rows.append(dict(
+                name=f"int4_matmul_fused/{tag}", kernel="int4_matmul_fused",
+                route="cuda", source=int4_source(variant),
+                replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:543",
+                variant=variant, path=path, **chk,
+                ms=timer(lambda: int4_matmul_fused(x, qt, **kw)),
+                plain_ms=timer(lambda: int4_matmul_fused(x, qt, plain=True,
+                                                         **kw)),
+                bound_ms=b, bound_by=src, library_ms=None))
 
-    # --- int4_matmul: the w4 lm_head at m=1, a 16-row block on qkv ---
+    # --- int4_matmul: the w4 lm_head at m=1, 16- and 128-row blocks on
+    # qkv (no 7B run launches int4_matmul at the qkv shape: the forward
+    # takes int4_matmul_fused there) ---
     for tag, m, n_in, n_out, path in (
             ("m1_lm_head", 1, dim, vocab, "lm_head_w4"),
-            ("m16_qkv", 16, dim, 3 * dim, None)):
+            ("m16_qkv", 16, dim, 3 * dim, None),
+            ("gemm_m128_qkv", 128, dim, 3 * dim, None)):
         qt = random_qtensor(torch, QTensor, n_in, n_out, g)
         x = randn(m, n_in)
         out, variant = launched_variant(lambda: int4_matmul(x, qt))
@@ -216,7 +240,7 @@ def kernel_phase(torch, timer, rows):
                           2 * m * n_in * n_out)
         rows.append(dict(
             name=f"int4_matmul/{tag}", kernel="int4_matmul", route="cuda",
-            source="llama_cu_awq_torch/csrc/int4_gemv.cu",
+            source=int4_source(variant),
             replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:281",
             variant=variant, path=path, **chk, ms=timer(lambda: int4_matmul(x, qt)),
             plain_ms=timer(lambda: int4_matmul(x, qt, plain=True)),
@@ -225,16 +249,20 @@ def kernel_phase(torch, timer, rows):
     # --- dense_gemv: the 7B lm_head, bf16 and int8 rows ---
     w = (randn(vocab, dim, dtype=torch.float32) * 0.02).bfloat16()
     w8 = quantize_dense_int8(w)
-    x = randn(1, dim)
-    for tag, args, path in (("bf16", (w,), "main"),
-                            ("int8", (w8.w8, w8.scale), "lm_head_int8")):
+    x1, x128 = randn(1, dim), randn(128, dim)
+    # bf16_m128: every row of a prefill block (logits_all), in 16 passes
+    for tag, x, args, path in (
+            ("bf16", x1, (w,), "main"),
+            ("int8", x1, (w8.w8, w8.scale), "lm_head_int8"),
+            ("bf16_m128", x128, (w,), "prefill")):
         out, variant = launched_variant(lambda: dense_gemv(x, *args))
         ref = dense_gemv(x, *args, plain=True)
         torch.cuda.synchronize()
         chk = check_close(f"dense_gemv/{tag}", out, ref, **GEMV_TOL)
-        b, src = bound_ms(nbytes(*args, x, out), 2 * dim * vocab)
+        b, src = bound_ms(nbytes(*args, x, out),
+                          2 * x.shape[0] * dim * vocab)
         lib = (timer(lambda: torch.nn.functional.linear(x, w))
-               if tag == "bf16" else None)
+               if args[0] is w else None)
         rows.append(dict(
             name=f"dense_gemv/{tag}", kernel="dense_gemv", route="cuda",
             source="llama_cu_awq_torch/csrc/dense_gemv.cu",
@@ -295,12 +323,138 @@ def kernel_phase(torch, timer, rows):
                 plain_ms=timer(lambda: attention_step(*args, n_heads=H,
                                                       plain=True), iters=5),
                 bound_ms=b, bound_by=src, library_ms=None))
+    prefill_attention_rows(torch, timer, rows, g)
+    gemm_crossover(torch, timer, g)
     for r in rows:
         print(json.dumps({"kernel_check": r["name"], "kernel_ms": r["ms"],
                           **{k: r[k] for k in (
                               "max_abs_err", "rtol", "atol", "plain_ms",
                               "library_ms", "bound_ms", "bound_by")}}),
               flush=True)
+
+
+def prefill_attention_rows(torch, timer, rows, g):
+    """prefill_attention at 7B's head shape (and GQA 32/8, check only):
+    a 128-token block at position 1024 over a 2048-row cache. The bf16 MHA
+    row is also timed against F.scaled_dot_product_attention over the
+    window the block sees, with the causal mask."""
+    from llama_cu_awq_torch.ops.cuda.prefill_attention import (
+        prefill_attention)
+
+    B, T, S, D, H, pos_v = 1, 128, 2048, 128, 32, 1024
+    pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+    horizon = pos_v + T  # keys the block reads
+    for n_kv in (32, 8):
+        q = torch.randn(B, T, H, D, device="cuda", generator=g).bfloat16()
+        for quant in (False, True):
+            tag = f"{'mha' if n_kv == H else 'gqa'}{H}_{n_kv}_" + (
+                "int8" if quant else "bf16")
+            if quant:
+                kc, vc = (torch.randint(-127, 128, (B, S, n_kv, D),
+                                        dtype=torch.int8, device="cuda",
+                                        generator=g) for _ in range(2))
+                ks, vs = (torch.rand(B, S, n_kv, device="cuda", generator=g)
+                          * 0.02 for _ in range(2))
+            else:
+                kc, vc = (torch.randn(B, S, n_kv, D, device="cuda",
+                                      generator=g).bfloat16()
+                          for _ in range(2))
+                ks = vs = None
+            args = (q, kc, vc, pos, ks, vs)
+            out, variant = launched_variant(
+                lambda: prefill_attention(*args, attn_len=S))
+            ref = prefill_attention(*args, attn_len=S, plain=True)
+            torch.cuda.synchronize()
+            chk = check_close(f"prefill_attention/{tag}", out, ref,
+                              **ATTN_TOL)
+            kv_bytes = horizon * n_kv * (D * kc.element_size()
+                                         + (4 if quant else 0)) * 2
+            causal_keys = T * pos_v + T * (T + 1) // 2
+            b, src = bound_ms(kv_bytes + nbytes(q, out),
+                              4 * causal_keys * H * D)
+            lib = None
+            if not quant and n_kv == H:
+                qh = q.transpose(1, 2).contiguous()
+                kh = kc[:, :horizon].transpose(1, 2).contiguous()
+                vh = vc[:, :horizon].transpose(1, 2).contiguous()
+                s_idx = torch.arange(horizon, device="cuda")
+                t_idx = torch.arange(T, device="cuda")
+                mask = s_idx[None, :] <= pos_v + t_idx[:, None]
+                lib = timer(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(qh, kh, vh,
+                                                          attn_mask=mask))
+            rows.append(dict(
+                name=f"prefill_attention/{tag}", kernel="prefill_attention",
+                route="cuda",
+                source="llama_cu_awq_torch/csrc/prefill_attention.cu",
+                replaces="llama_cu_awq_tpu/ops/pallas/prefill_attention.py"
+                         ":189",
+                variant=variant,
+                path=(None if n_kv != H else
+                      "prefill_int8kv" if quant else "prefill"), **chk,
+                ms=timer(lambda: prefill_attention(*args, attn_len=S)),
+                plain_ms=timer(lambda: prefill_attention(
+                    *args, attn_len=S, plain=True), iters=5),
+                bound_ms=b, bound_by=src, library_ms=lib))
+
+
+def gemm_crossover(torch, timer, g):
+    """The GEMV and the GEMM on 7B's qkv shape at m rows, each launched
+    directly (these launches are not counted): the data behind
+    GEMM_MIN_M."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import GEMM_MIN_M, _launch
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    qt = random_qtensor(torch, QTensor, 4096, 3 * 4096, g)
+    sweep = []
+    for m in (1, 2, 4, 8, 12, 16, 24, 32, 64, 128):
+        x = torch.randn(m, 4096, device="cuda", generator=g).bfloat16()
+        gemv = _launch(x, qt, out_dtype=torch.float32, kernel="gemv")[0]
+        gemm = _launch(x, qt, out_dtype=torch.float32, kernel="gemm")[0]
+        torch.cuda.synchronize()
+        check_close(f"gemm_crossover/m{m}", gemm, gemv, **INT4_TOL)
+        sweep.append({"m": m, "gemv_ms": timer(lambda: _launch(
+            x, qt, out_dtype=torch.float32, kernel="gemv")),
+            "gemm_ms": timer(lambda: _launch(
+                x, qt, out_dtype=torch.float32, kernel="gemm"))})
+    print(json.dumps({"gemm_crossover": "int4 qkv 4096x12288",
+                      "GEMM_MIN_M": GEMM_MIN_M, "sweep": sweep}), flush=True)
+
+
+def unported_bounds() -> list[dict]:
+    """bound_ms of the TPU kernels not ported yet, from 7B shapes (dim
+    4096, hidden 11008, 32 MHA heads of 128, w4-g128: half a byte a
+    weight plus an fp16 scale and a uint8 zero per 128-row group and
+    column). Arithmetic only: no launch."""
+    dim, hid, H, D = 4096, 11008, 32, 128
+
+    def w4(n_in, n_out):
+        return n_in * n_out // 2 + -(-n_in // 128) * n_out * 3
+
+    qkv, o, gu, down = (w4(dim, 3 * dim), w4(dim, dim), w4(dim, 2 * hid),
+                        w4(hid, dim))
+    hist = 1500  # history rows, as the attention_step rows
+    out = []
+    for name, shape, n_bytes, n_flops in (
+            ("attention_step.py:569 _attention_step_kv4",
+             "MHA 32/32, int4 KV, pos 1500",
+             hist * H * (D // 2 + 4) * 2, 4 * (hist + 1) * H * D),
+            ("batched_attention.py:179 batched_decode_attention",
+             "8 slots at pos 1024, bf16 KV",
+             8 * 1024 * H * D * 2 * 2, 4 * 8 * 1025 * H * D),
+            ("down_qkv.py:147 _down_qkv_2d", "down then next qkv, m=1",
+             down + qkv, 2 * (hid * dim + dim * 3 * dim)),
+            ("int4_chain.py:479 ffn_chain", "o + gate_up + down + next qkv, "
+             "m=1", o + gu + down + qkv,
+             2 * (dim * dim + dim * 2 * hid + hid * dim + dim * 3 * dim)),
+            ("int4_chain.py:627 mono_layer", "a whole layer, m=1, pos 1500",
+             qkv + o + gu + down + hist * H * D * 2 * 2,
+             2 * (dim * 3 * dim + dim * dim + dim * 2 * hid + hid * dim)
+             + 4 * (hist + 1) * H * D)):
+        b, src = bound_ms(n_bytes, n_flops)
+        out.append(dict(tpu_kernel=name, shape=shape, bytes=n_bytes,
+                        flops=n_flops, bound_ms=b, bound_by=src))
+    return out
 
 
 def run_path(torch, name, fn, launches):
@@ -319,33 +473,25 @@ def run_path(torch, name, fn, launches):
     return result
 
 
-def profile_decode(torch, eng, prompt, steps=16):
-    """Where a decode chunk's time goes: one chunk of `steps` tokens after
-    the prompt, timed on the host clock without the profiler (median of
-    3), then traced once with torch.profiler for the device's own time per
+def profile_run(torch, label, prepare, run, n, per):
+    """Where the time of run(*prepare()) goes, for n units of `per`
+    (tokens, blocks): the host clock without the profiler (median of 3),
+    then one run traced with torch.profiler for the device's own time per
     kernel name. Device idle share = 1 - device busy / unprofiled wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def prepare():
-        eng.reset()
-        eng._prefill(prompt[:-1])
-        token = torch.tensor([prompt[-1]], dtype=torch.int32, device="cuda")
-        coins = eng._coins(steps)
-        torch.cuda.synchronize()
-        return token, coins
-
-    def run(token, coins):
+    def timed(*args):
         t0 = time.perf_counter()
-        eng._decode_chunk(token, coins, eng._bucket_for(eng.pos + steps))
+        run(*args)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    wall = statistics.median(run(*prepare()) for _ in range(3))
+    wall = statistics.median(timed(*prepare()) for _ in range(3))
     args = prepare()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        traced_wall = run(*args)
+        traced_wall = timed(*args)
     by_name: dict[str, list] = {}
     host: dict[str, list] = {}
     for e in prof.events():
@@ -361,27 +507,109 @@ def profile_decode(torch, eng, prompt, steps=16):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     top_host = sorted(host.items(), key=lambda kv: -kv[1][1])[:10]
     print(json.dumps({
-        "profile": "decode_chunk", "steps": steps,
-        "wall_ms_per_token": wall / steps * 1e3,
-        "traced_wall_ms_per_token": traced_wall / steps * 1e3,
-        "device_ops_per_token": sum(v[0] for v in by_name.values()) / steps,
-        "device_busy_ms_per_token": busy_ms / steps,
+        "profile": label, per + "s": n,
+        f"wall_ms_per_{per}": wall / n * 1e3,
+        f"traced_wall_ms_per_{per}": traced_wall / n * 1e3,
+        f"device_ops_per_{per}": sum(v[0] for v in by_name.values()) / n,
+        f"device_busy_ms_per_{per}": busy_ms / n,
         "device_idle_share": (1 - busy_ms / (wall * 1e3)
                               if busy_ms else None),
-        "top_device_ops": [{"name": n[:80], "count": c, "ms": us / 1e3}
-                           for n, (c, us) in top],
-        "top_host_ops_self_cpu": [{"name": n[:60], "count": c,
+        "top_device_ops": [{"name": n_[:80], "count": c, "ms": us / 1e3}
+                           for n_, (c, us) in top],
+        "top_host_ops_self_cpu": [{"name": n_[:60], "count": c,
                                    "ms": us / 1e3}
-                                  for n, (c, us) in top_host]}),
+                                  for n_, (c, us) in top_host]}),
           flush=True)
+
+
+def profile_decode(torch, eng, prompt, steps=16):
+    """One decode chunk of `steps` tokens after the prompt."""
+
+    def prepare():
+        eng.reset()
+        eng._prefill(prompt[:-1])
+        token = torch.tensor([prompt[-1]], dtype=torch.int32, device="cuda")
+        coins = eng._coins(steps)
+        torch.cuda.synchronize()
+        return token, coins
+
+    def run(token, coins):
+        eng._decode_chunk(token, coins, eng._bucket_for(eng.pos + steps))
+
+    profile_run(torch, "decode_chunk", prepare, run, steps, "token")
+
+
+def random_cache(torch, cfg, kv_quant, g):
+    """A 2048-row KV cache of random rows (bf16, or int8 codes and
+    scales), as a kernels-against-plain check starts from."""
+    from llama_cu_awq_torch.models import init_kv_cache
+
+    cache = init_kv_cache(cfg, 1, 2048, quantized=kv_quant)
+    for l in range(cfg.n_layers):
+        for buf, sc in ((cache.k[l], cache.k_scale),
+                        (cache.v[l], cache.v_scale)):
+            if kv_quant:
+                buf.copy_(torch.randint(-127, 128, buf.shape,
+                                        dtype=torch.int8, device="cuda",
+                                        generator=g))
+                sc[l].copy_(torch.rand(sc[l].shape, device="cuda",
+                                       generator=g) * 0.02)
+            else:
+                buf.copy_(torch.randn(buf.shape, device="cuda",
+                                      generator=g).bfloat16())
+    return cache
+
+
+def forward_check(torch, params, cfg, label, tok, pos, kv_quant, g,
+                  **kw):
+    """One 7B forward from the same random cache through the kernels and
+    through the plain versions: the largest logit difference within 2 %
+    of the largest logit, and the same argmax on every row whose plain
+    top-2 gap is wider than that."""
+    from llama_cu_awq_torch.models import forward, init_kv_cache
+
+    cache = random_cache(torch, cfg, kv_quant, g)
+    logits = {}
+    for plain in (False, True):
+        c = init_kv_cache(cfg, 1, 2048, quantized=kv_quant)
+        for dst, src in zip(c.k + c.v + c.k_scale + c.v_scale,
+                            cache.k + cache.v + cache.k_scale
+                            + cache.v_scale):
+            dst.copy_(src)
+        out, _ = forward(params, cfg, tok, pos, c, plain=plain, **kw)
+        logits[plain] = out.float().reshape(-1, cfg.vocab_size)
+        del c
+    k, p = logits[False], logits[True]
+    if not bool(k.isfinite().all()):
+        raise AssertionError(f"{label}: non-finite logits from the kernels")
+    diff = float((k - p).abs().max())
+    scale = float(p.abs().max())
+    tol = 2e-2 * max(1.0, scale)
+    top2 = p.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > tol
+    same = k.argmax(-1) == p.argmax(-1)
+    print(json.dumps({
+        "forward_7b": label, "rows": k.shape[0],
+        "max_abs_logit_diff": diff, "max_abs_logit": scale,
+        "tolerance": tol, "rows_with_top2_gap_over_tol": int(decided.sum()),
+        "argmax_equal_rows": int(same.sum()),
+        "argmax_kernel_first": int(k[0].argmax()),
+        "argmax_plain_first": int(p[0].argmax()),
+        "why": "32 layers of bf16 activations: one-ulp roundings in "
+               "either path propagate; bound 2% of the largest logit"}),
+        flush=True)
+    if diff > tol:
+        raise AssertionError(f"{label}: kernel and plain logits differ by "
+                             f"{diff} > {tol}")
+    if not bool(same[decided].all()):
+        raise AssertionError(f"{label}: argmax differs on a row whose "
+                             f"plain top-2 gap exceeds {tol}")
 
 
 def e2e_phase(torch, launches):
     from llama_cu_awq_torch.config import LLAMA2_7B
     from llama_cu_awq_torch.engine import InferenceEngine
-    from llama_cu_awq_torch.models import (forward, init_kv_cache,
-                                           quantize_lm_head,
-                                           synthetic_params)
+    from llama_cu_awq_torch.models import quantize_lm_head, synthetic_params
 
     cfg = LLAMA2_7B
     t0 = time.time()
@@ -436,48 +664,116 @@ def e2e_phase(torch, launches):
     g.manual_seed(1)
     pos = torch.tensor([1500], dtype=torch.int32, device="cuda")
     tok = torch.tensor([[7]], dtype=torch.int32, device="cuda")
-    logits = {}
     for kv_quant in (False, True):
-        cache = init_kv_cache(cfg, 1, 2048, quantized=kv_quant)
-        for l in range(cfg.n_layers):
-            for buf, sc in ((cache.k[l], cache.k_scale), (cache.v[l],
-                                                          cache.v_scale)):
-                if kv_quant:
-                    buf.copy_(torch.randint(-127, 128, buf.shape,
-                                            dtype=torch.int8, device="cuda",
-                                            generator=g))
-                    sc[l].copy_(torch.rand(sc[l].shape, device="cuda",
-                                           generator=g) * 0.02)
-                else:
-                    buf.copy_(torch.randn(buf.shape, device="cuda",
-                                          generator=g).bfloat16())
-        for plain in (False, True):
-            c = init_kv_cache(cfg, 1, 2048, quantized=kv_quant)
-            for dst, src in zip(c.k + c.v + c.k_scale + c.v_scale,
-                                cache.k + cache.v + cache.k_scale
-                                + cache.v_scale):
-                dst.copy_(src)
-            out, _ = forward(params, cfg, tok, pos, c,
-                             attn_impl="fused_step", plain=plain)
-            logits[plain] = out.float()
-            del c
-        k, p = logits[False], logits[True]
-        if not bool(k.isfinite().all()):
-            raise AssertionError("non-finite logits from the kernel path")
-        diff = float((k - p).abs().max())
-        scale = float(p.abs().max())
-        tol = 2e-2 * max(1.0, scale)
-        print(json.dumps({
-            "forward_7b": "int8_kv" if kv_quant else "bf16_kv",
-            "max_abs_logit_diff": diff, "max_abs_logit": scale,
-            "tolerance": tol, "argmax_kernel": int(k.argmax()),
-            "argmax_plain": int(p.argmax()),
-            "why": "32 layers of bf16 activations: one-ulp roundings in "
-                   "either path propagate; bound 2% of the largest logit"}),
-            flush=True)
-        if diff > tol:
-            raise AssertionError(f"7B forward: kernel and plain logits "
-                                 f"differ by {diff} > {tol}")
+        forward_check(torch, params, cfg, "int8_kv" if kv_quant else
+                      "bf16_kv", tok, pos, kv_quant, g,
+                      attn_impl="fused_step")
+    return params
+
+
+def prefill_phase(torch, params, launches):
+    """Block prefill and perplexity at 7B: time to first token and prefill
+    tokens/s on a 1920-token prompt, a 256-token prompt with int8 KV, a
+    profile of one 128-token block at position 1024, the perplexity of a
+    1023-token sequence through the kernels and the plain versions, and a
+    7B 128-token block against its plain twin for bf16 and int8 KV."""
+    from llama_cu_awq_torch.config import LLAMA2_7B
+    from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.engine import engine as engine_mod
+    from llama_cu_awq_torch.engine.perplexity import token_perplexity
+
+    cfg = LLAMA2_7B
+    prompt = [1] + [3 + (7919 * i) % 31990 for i in range(1919)]
+
+    def engine(**kw):
+        return InferenceEngine(params, cfg, None, temperature=0.0,
+                               seed=1234, max_seq=2048, **kw)
+
+    eng = engine()
+    eng.generate_benchmark(prompt[:256], 256)  # warm-up: 2 blocks, 1 step
+
+    def prefill_run():
+        # generate_benchmark: 1919 prompt tokens in 15 blocks (the last
+        # padded), then the first sampled token: time to first token
+        toks, ttft, _ = eng.generate_benchmark(prompt, len(prompt))
+        eng.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._prefill(prompt[:-1])
+        torch.cuda.synchronize()
+        return toks, ttft, time.perf_counter() - t0
+
+    toks, ttft, t_pref = run_path(torch, "prefill", prefill_run, launches)
+    if len(toks) != 1 or not 0 <= toks[0] < cfg.vocab_size:
+        raise AssertionError(f"bad first token: {toks}")
+    print(json.dumps({
+        "e2e": "prefill", "model": "llama2-7b", "quant": "w4-g128",
+        "prompt_tokens": len(prompt), "blocks": 15, "max_seq": 2048,
+        "time_to_first_token_s": ttft, "prefill_s": t_pref,
+        "prefill_tok_per_s": (len(prompt) - 1) / t_pref,
+        "first_token": toks[0]}), flush=True)
+    variants = launches["prefill"]["variants"]
+    if launches["prefill"]["kernels"]["prefill_attention"] == 0 or not any(
+            k.startswith("int4_matmul_fused/gemm/") for k in variants):
+        raise AssertionError("the prefill run never launched "
+                             "prefill_attention or the int4 GEMM")
+
+    eng8 = engine(kv_quant=True)
+    toks8, dt8, _ = run_path(
+        torch, "prefill_int8kv",
+        lambda: eng8.generate_benchmark(prompt[:256], 256), launches)
+    print(json.dumps({"e2e": "prefill_int8kv", "prompt_tokens": 256,
+                      "time_to_first_token_s": dt8, "first_token": toks8[0]}),
+          flush=True)
+    if launches["prefill_int8kv"]["kernels"]["prefill_attention"] == 0:
+        raise AssertionError("prefill_int8kv never launched "
+                             "prefill_attention")
+    del eng8
+
+    def prepare_block():
+        eng.reset()
+        eng._prefill(prompt[:1024])
+        torch.cuda.synchronize()
+        return (prompt[1024:1152],)
+
+    profile_run(torch, "prefill_block_pos1024", prepare_block, eng._prefill,
+                1, "block")
+
+    # perplexity of a 1023-token sequence: 8 blocks with every row's
+    # logits, through the kernels, then with the engine's forward bound
+    # to the plain versions on the card
+    seq = [3 + (104729 * i) % 31990 for i in range(1023)]
+    t0 = time.perf_counter()
+    ppl_k = run_path(torch, "perplexity",
+                     lambda: token_perplexity(eng, seq), launches)
+    dt_k = time.perf_counter() - t0
+    kernel_forward = engine_mod.forward
+    engine_mod.forward = functools.partial(kernel_forward, plain=True)
+    try:
+        ppl_p = token_perplexity(eng, seq)
+    finally:
+        engine_mod.forward = kernel_forward
+    d = abs(math.log(ppl_k) - math.log(ppl_p))
+    print(json.dumps({"e2e": "perplexity", "tokens": len(seq),
+                      "ppl_kernel": ppl_k, "ppl_plain": ppl_p,
+                      "abs_delta_ln_ppl": d, "tolerance": 0.01,
+                      "seconds_kernel": dt_k}), flush=True)
+    if not (math.isfinite(ppl_k) and d <= 0.01):
+        raise AssertionError(f"perplexity: kernels {ppl_k}, plain {ppl_p}")
+    if launches["perplexity"]["kernels"]["prefill_attention"] == 0:
+        raise AssertionError("perplexity never launched prefill_attention")
+    del eng
+
+    # one full 7B block of 128 tokens at position 1024, every row's logits
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    tok = torch.randint(3, cfg.vocab_size, (1, 128), dtype=torch.int32,
+                        device="cuda", generator=g)
+    pos = torch.tensor([1024], dtype=torch.int32, device="cuda")
+    for kv_quant in (False, True):
+        forward_check(torch, params, cfg, "block128_" + (
+            "int8_kv" if kv_quant else "bf16_kv"), tok, pos, kv_quant, g,
+            attn_len=2048, logits_all=True)
 
 
 def main() -> int:
@@ -515,7 +811,8 @@ def main() -> int:
     timer = Timer(torch)
     kernel_phase(torch, timer, rows)
     launches: dict[str, dict] = {}
-    e2e_phase(torch, launches)
+    params = e2e_phase(torch, launches)
+    prefill_phase(torch, params, launches)
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none
@@ -537,6 +834,7 @@ def main() -> int:
             v = r[k]
             if v is not None and not math.isfinite(v):
                 raise AssertionError(f"{r['name']}: {k} = {v}")
+    print(json.dumps({"unported_bounds": unported_bounds()}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ supports: positional checkpoint plus
   -p <float>  top-p, default 0.6 (out-of-range values reset to 0.9)
   -s <int>    random seed, default time(NULL)
   -z <string> path to custom tokenizer (default: tokenizer.bin)
-  -m <string> mode: generate|chat (perplexity is not ported yet)
+  -m <string> mode: generate|chat|perplexity, default generate
   -y <string> system prompt for chat mode
+  -q <string> dataset file for perplexity mode (sequences separated by
+              <|endoftext|>)
   --device {cuda,cpu}  default cuda; cpu runs the kernels' plain versions
 """
 
@@ -70,8 +72,6 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
 
     # the options of the JAX package that the port has not reached yet
-    if args.mode == "perplexity":
-        raise NotImplementedError("-m perplexity is not ported yet")
     if args.spec:
         raise NotImplementedError("--spec is not ported yet")
     if args.kv_bits == 4:
@@ -90,7 +90,8 @@ def main(argv=None) -> int:
         args.temperature = 0.0
     if args.topp < 0.0 or args.topp > 1.0:
         args.topp = 0.9
-    if args.dataset:
+    perplexity = args.mode == "perplexity"
+    if not perplexity and args.dataset:
         print("Warning: dataset path is ignored in non-perplexity mode")
 
     prompt = args.prompt
@@ -102,6 +103,7 @@ def main(argv=None) -> int:
 
     from llama_cu_awq_torch.device import resolve_device
     from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.engine.perplexity import dataset_perplexity
     from llama_cu_awq_torch.io.checkpoint import load_checkpoint
     from llama_cu_awq_torch.models import (params_from_checkpoint,
                                            quantize_lm_head)
@@ -122,7 +124,18 @@ def main(argv=None) -> int:
         topp=args.topp, seed=args.seed,
         max_seq=args.max_seq or ckpt.config.seq_len, device=device)
 
-    if args.mode == "generate":
+    if perplexity:
+        if not args.dataset:
+            print("perplexity mode requires -q <dataset file>",
+                  file=sys.stderr)
+            return 1
+        print("\nLoading Dataset...", end="", flush=True)
+        with open(args.dataset, "rb") as f:
+            text = f.read().decode("utf-8", errors="replace")
+        print("done!")
+        geo, count, _ = dataset_perplexity(engine, text, verbose=True)
+        print(f"\nGeomean perplexity on {count} sequences: {geo:f}\n")
+    elif args.mode == "generate":
         print("\nEncoding Prompt... Done!")
 
         def emit(piece):

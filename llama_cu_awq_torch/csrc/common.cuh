@@ -36,6 +36,30 @@ __device__ __forceinline__ int xs_index(int k) {
   return (k >> 5) * 34 + (k & 31);
 }
 
+// D += A * B on the tensor cores, one warp: A 16x16 bf16 (row), B 16x8
+// bf16 (col), D 16x8 f32. Fragments as the PTX ISA lays them out for
+// mma.m16n8k16 (g = lane / 4, c = lane % 4):
+//   a[0] = A[g][2c..2c+1]   a[1] = A[g+8][2c..]   a[2] = A[g][2c+8..]
+//   a[3] = A[g+8][2c+8..]   b[0] = B[2c..2c+1][g] b[1] = B[2c+8..][g]
+//   d[0..1] = D[g][2c..2c+1]  d[2..3] = D[g+8][2c..2c+1]
+// Each 32-bit register holds two bf16, the lower index in the low half.
+__device__ __forceinline__ void mma_bf16_16x8x16(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two f32 -> one register of two bf16 (round to nearest even), lo first
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 LLAMA_EXPORT const char* llama_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

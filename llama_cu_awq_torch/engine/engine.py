@@ -5,9 +5,12 @@ a Python loop of forward + sample steps in which the sampled token stays on
 the device and feeds the next step's embedding lookup; the chunk's coins
 are one device tensor, and the host syncs once per chunk, when it reads the
 chunk's tokens (the role the JAX package's lax.scan chunk plays). Prompts
-are fed through the same T=1 path, teacher-forced and without the lm_head
-(the reference's token-by-token prefill). The xorshift coin stream and the
-reference's one-step print lag follow the JAX engine exactly.
+of PREFILL_BLOCK // 2 tokens and more go through blocks of PREFILL_BLOCK
+tokens, one forward each (the JAX package's per-block loop; its scanned
+multi-block prefill has no counterpart yet); shorter ones through the T=1
+path, teacher-forced and without the lm_head (the reference's
+token-by-token prefill). The xorshift coin stream and the reference's
+one-step print lag follow the JAX engine exactly.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from llama_cu_awq_torch.models.llama import (LlamaParams, forward,
                                              init_kv_cache)
 from llama_cu_awq_torch.sampling import XorshiftRNG, sample_token
 from llama_cu_awq_torch.tokenizer import EOS_TOKEN, Tokenizer
+
+# teacher-forced prefill block width (the JAX engine's PREFILL_BLOCK)
+PREFILL_BLOCK = 128
 
 
 def attn_buckets(seq_len: int, first: int = 128, n_bins: int = 8):
@@ -108,19 +114,50 @@ class InferenceEngine:
         self.cache = self._init_cache()
         self.pos = 0
 
-    def _prefill(self, tokens: list[int]) -> None:
-        """Feed prompt tokens one by one, teacher-forced, without the
-        lm_head; only the cache matters (callers seed decoding with the
-        last prompt token)."""
+    def _prefill(self, tokens: list[int], *, collect_logits: bool = False):
+        """Feed prompt tokens at the current position (the JAX engine's
+        _prefill, engine.py:496-580).
+
+        Fewer than PREFILL_BLOCK // 2 tokens without collect_logits: one
+        teacher-forced T=1 step each, without the lm_head; returns None
+        (callers seed decoding with the last prompt token). Otherwise
+        blocks of PREFILL_BLOCK tokens, the last one padded with token 0
+        (the mask keeps real rows from reading the padded rows' cache
+        writes, which later steps overwrite), or single steps where a
+        block would pass max_seq. Returns the last token's f32 logits
+        (vocab,) on the device, or with collect_logits the (len(tokens),
+        vocab) f32 rows on the host, moved one block at a time.
+        """
         assert tokens
-        attn_len = self._bucket_for(self.pos + len(tokens))
-        toks = torch.tensor(tokens, dtype=torch.int32, device=self.device)
-        positions = self._positions(len(tokens))
-        for i in range(len(tokens)):
-            forward(self.params, self.cfg, toks[i:i + 1, None],
-                    positions[i:i + 1], self.cache, attn_len=attn_len,
-                    attn_impl=self.attn_impl, no_logits=True)
-        self.pos += len(tokens)
+        if not collect_logits and len(tokens) < PREFILL_BLOCK // 2:
+            attn_len = self._bucket_for(self.pos + len(tokens))
+            toks = torch.tensor(tokens, dtype=torch.int32,
+                                device=self.device)
+            positions = self._positions(len(tokens))
+            for i in range(len(tokens)):
+                forward(self.params, self.cfg, toks[i:i + 1, None],
+                        positions[i:i + 1], self.cache, attn_len=attn_len,
+                        attn_impl=self.attn_impl, no_logits=True)
+            self.pos += len(tokens)
+            return None
+        rows, last, i = [], None, 0
+        while i < len(tokens):
+            chunk = tokens[i:i + PREFILL_BLOCK]
+            block = 1 if len(chunk) == 1 else PREFILL_BLOCK
+            if self.pos + block > self.max_seq:
+                block, chunk = 1, tokens[i:i + 1]
+            padded = torch.tensor([chunk + [0] * (block - len(chunk))],
+                                  dtype=torch.int32, device=self.device)
+            logits, _ = forward(self.params, self.cfg, padded,
+                                self._positions(1), self.cache,
+                                attn_len=self._bucket_for(self.pos + block),
+                                attn_impl=self.attn_impl, logits_all=True)
+            if collect_logits:
+                rows.append(logits[0, :len(chunk)].cpu())
+            last = logits[0, len(chunk) - 1]
+            self.pos += len(chunk)
+            i += len(chunk)
+        return torch.cat(rows) if collect_logits else last
 
     def _consume_coins(self, n: int):
         """One xorshift coin per teacher-forced step (sampler.h:45)."""

@@ -20,6 +20,7 @@ import torch
 from llama_cu_awq_torch.config import ModelConfig
 from llama_cu_awq_torch.device import resolve_device
 from llama_cu_awq_torch.io.checkpoint import RawCheckpoint, RawQWeight
+from llama_cu_awq_torch.ops.cuda import prefill_attention as pfa
 from llama_cu_awq_torch.ops.cuda.attention_step import (INV_127,
                                                         attention_step,
                                                         kernel_takes,
@@ -33,6 +34,10 @@ from llama_cu_awq_torch.quant.qtensor import QTensor
 # attn_impl "auto": plain attention below this window, the attention_step
 # kernel at and above it (the JAX package's rule, models/llama.py:605-608)
 FSTEP_MIN_WINDOW = 1024
+# blocks of at least this many tokens take the prefill_attention kernel;
+# smaller T > 1 blocks take plain attention (the JAX package's
+# LLAMA_TPU_PFK_MIN_T default, models/llama.py:650)
+PFK_MIN_T = 64
 
 
 @dataclasses.dataclass
@@ -327,12 +332,14 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
     tokens: (B, T) int; pos: (B,) int32 absolute position of tokens[:, 0],
     on the params' device; cache: KVCache with at least attn_len rows,
     updated in place. attn_len: attention window (>= max(pos) + T),
-    default the whole cache. attn_impl: None or "einsum" (plain
-    attention), "fused_step" (the attention_step kernel on T == 1 steps;
-    a T > 1 block takes plain attention; ValueError for head shapes the
-    kernel cannot take), "auto" (fused_step from a FSTEP_MIN_WINDOW window
-    on, where the kernel takes the head shapes). plain: the kernels'
-    plain versions on any device.
+    default the whole cache. attn_impl: "einsum" (plain attention
+    throughout), "fused_step" (the attention_step kernel on T == 1 steps;
+    ValueError for head shapes the kernel cannot take), "auto"
+    (fused_step from a FSTEP_MIN_WINDOW window on, where the kernel takes
+    the head shapes) or None (plain attention on T == 1 steps). Under
+    every choice but "einsum", a block of T >= PFK_MIN_T tokens takes the
+    prefill_attention kernel where it takes the head shapes. plain: the
+    kernels' plain versions on any device.
     Returns (logits, cache): logits f32 (B, T, vocab) if logits_all else
     (B, vocab), None with no_logits.
     """
@@ -362,13 +369,17 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
         attn_impl = ("fused_step" if step_ok and A >= FSTEP_MIN_WINDOW
                      else None)
     fstep = attn_impl == "fused_step" and T == 1
+    # T > 1 blocks (prefill, perplexity): the flash kernel over the
+    # unsliced cache (models/llama.py:637-661 of the JAX package)
+    pfk = (T >= PFK_MIN_T and attn_impl in (None, "fused_step")
+           and pfa.kernel_takes(H, KV, D, T))
     # per-forward constants, shared by every layer
     rows = _cache_rows(positions, cache.k[0].shape[1])
     if fstep:
         cos2, sinm = rope_rows(pos, D, cfg.rope_theta)
     else:
         angles = rope_angles(positions, D, cfg.rope_theta)
-        mask = _causal_mask(positions, A)
+        mask = None if pfk else _causal_mask(positions, A)
 
     for l, layer in enumerate(params.layers):
         qkv, _ = qmatmul_fused(x, layer.wqkv, plain,
@@ -400,16 +411,28 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
                 _update_cache(cache.v[l], vq, rows)
                 _update_cache(cache.k_scale[l], ks, rows)
                 _update_cache(cache.v_scale[l], vs, rows)
+            else:
+                _update_cache(cache.k[l], kh, rows)
+                _update_cache(cache.v[l], vh, rows)
+            if pfk:
+                # codes and scales straight from the whole cache; the
+                # kernel reads only rows below each slot's horizon
+                attn = pfa.prefill_attention(
+                    qh, cache.k[l], cache.v[l], pos,
+                    cache.k_scale[l] if cache.quantized else None,
+                    cache.v_scale[l] if cache.quantized else None,
+                    attn_len=A, plain=plain).reshape(B, T, H * D)
+            elif cache.quantized:
                 # dequantized window, rounded to act_dtype as the JAX path
                 k_att = (cache.k[l][:, :A].to(act_dtype)
                          * cache.k_scale[l][:, :A, :, None].to(act_dtype))
                 v_att = (cache.v[l][:, :A].to(act_dtype)
                          * cache.v_scale[l][:, :A, :, None].to(act_dtype))
+                attn = _attention(qh, k_att, v_att, mask, act_dtype)
             else:
-                _update_cache(cache.k[l], kh, rows)
-                _update_cache(cache.v[l], vh, rows)
-                k_att, v_att = cache.k[l][:, :A], cache.v[l][:, :A]
-            attn = _attention(qh, k_att, v_att, mask, act_dtype).to(act_dtype)
+                attn = _attention(qh, cache.k[l][:, :A], cache.v[l][:, :A],
+                                  mask, act_dtype)
+            attn = attn.to(act_dtype)
         x, ss = _post_attention(attn, x, layer, plain, act_dtype)
 
     if no_logits:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"int4_matmul_fused": 0, "int4_matmul": 0, "dense_gemv": 0,
-            "attention_step": 0}
+            "attention_step": 0, "prefill_attention": 0}
 VARIANT_LAUNCHES: dict[str, int] = {}
 
 

@@ -1,8 +1,11 @@
 """w4-g128 dequant matmul: `int4_matmul` and `int4_matmul_fused`.
 
-Counterparts of llama_cu_awq_tpu/ops/pallas/int4_matmul.py. Both launch
-`csrc/int4_gemv.cu` (one warp per output column, see its header);
-`int4_matmul_fused` adds a prologue on x and an epilogue on the output:
+Counterparts of llama_cu_awq_tpu/ops/pallas/int4_matmul.py. Both take one
+of two kernels by the number of rows m (`route`): below GEMM_MIN_M rows
+`csrc/int4_gemv.cu` (one warp per output column, decode), from GEMM_MIN_M
+rows on `csrc/int4_gemm.cu` (tensor-core tiles of 128 rows, prefill
+blocks); see their headers. `int4_matmul_fused` adds a prologue on x and
+an epilogue on the output:
 
   prologue  x_eff = bf16(x * ss * norm_w)      (rmsnorm apply)
          or x_eff = bf16(silu(x) * u)          (SwiGLU gate)
@@ -26,6 +29,10 @@ from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
                                          require, stream_ptr, use_plain)
 from llama_cu_awq_torch.quant.qtensor import QTensor
 
+# rows from which a CUDA call takes the GEMM: below it the GEMV, whose
+# passes of 8 rows each read the whole weight, is faster (chip_smoke.py's
+# gemm_crossover line; PERF.md)
+GEMM_MIN_M = 9
 # shared-memory budget of one pass's staged x (of the card's 227 KB)
 _SMEM_BUDGET = 200 * 1024
 _MAX_ROWS = 8  # matches MAX_ROWS in csrc/int4_gemv.cu
@@ -34,6 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _GEMV_ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
               _I, _I, _P]
+_GEMM_ARGS = _GEMV_ARGS[:-2] + [_P]
 _RMS_ARGS = [_P, _I, _P, _I, _I, ctypes.c_float, _P]
 
 
@@ -45,20 +53,31 @@ def _rows(x: torch.Tensor, n_in: int):
     return lead, math.prod(lead)
 
 
+def route(m: int) -> str:
+    """The kernel a CUDA call with m rows of x launches: "gemm" from
+    GEMM_MIN_M rows on, else "gemv". Both take any n_in % 32 == 0."""
+    return "gemm" if m >= GEMM_MIN_M else "gemv"
+
+
 def rows_per_pass(m: int, n_in: int) -> int:
     per_row = (n_in // 32) * 34 * 2  # padded bf16 staging (csrc/common.cuh)
     return max(1, min(m, _MAX_ROWS, _SMEM_BUDGET // per_row))
 
 
 def _as_rows(a: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    """(..., n) bf16 -> (m, n) with unit element stride, as a view when
-    possible (the gate and up halves of gate_up keep their row stride)."""
+    """(..., n) bf16 -> (m, n) with unit element stride and 16-byte aligned
+    rows (the GEMM's vector loads), as a view when possible (the gate and
+    up halves of gate_up keep their row stride)."""
     a2 = a.to(torch.bfloat16).reshape(m, n)
-    return a2 if a2.stride(1) == 1 else a2.contiguous()
+    ok = (a2.stride(1) == 1 and a2.stride(0) % 8 == 0
+          and a2.data_ptr() % 16 == 0)
+    return a2 if ok else a2.contiguous()
 
 
 def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
-            out_dtype, eps=None):
+            out_dtype, eps=None, kernel: str):
+    """One launch of `kernel` ("gemv" or "gemm"; callers pass route(m)),
+    plus the rms_scale launch when eps is given."""
     m, n_in = x2.shape
     dev = x2.device
     require(n_in % 32 == 0, f"the kernel needs n_in % 32 == 0, got {n_in}")
@@ -81,17 +100,21 @@ def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
     out = torch.empty(m, qt.n_out, dtype=out_dtype, device=dev)
     out_bf16 = int(out_dtype == torch.bfloat16)
     stream = stream_ptr()
-    fn = _build.function("int4_gemv", "int4_gemv", _GEMV_ARGS)
-    rc = fn(x2.data_ptr(), x2.stride(0),
+    args = [x2.data_ptr(), x2.stride(0),
             u2.data_ptr() if u2 is not None else None,
             u2.stride(0) if u2 is not None else 0,
             ss.data_ptr() if ss is not None else None,
             nw.data_ptr() if nw is not None else None,
             qt.qw.data_ptr(), qt.scales.data_ptr(), qt.zeros.data_ptr(),
             res.data_ptr() if res is not None else None, out.data_ptr(),
-            out_bf16, m, n_in, qt.n_out, qt.n_groups,
-            rows_per_pass(m, n_in), stream)
-    _build.check(rc, "int4_gemv", "int4_gemv")
+            out_bf16, m, n_in, qt.n_out, qt.n_groups]
+    if kernel == "gemm":
+        fn = _build.function("int4_gemm", "int4_gemm", _GEMM_ARGS)
+        rc = fn(*args, stream)
+    else:
+        fn = _build.function("int4_gemv", "int4_gemv", _GEMV_ARGS)
+        rc = fn(*args, rows_per_pass(m, n_in), stream)
+    _build.check(rc, f"int4_{kernel}", f"int4_{kernel}")
     ss_out = None
     if eps is not None:
         ss_out = torch.empty(m, 1, dtype=torch.float32, device=dev)
@@ -120,8 +143,10 @@ def int4_matmul(x: torch.Tensor, qt: QTensor, *,
     if use_plain(x, plain):
         return int4_matmul_plain(x, qt)
     lead, m = _rows(x, qt.n_in)
-    out, _ = _launch(_as_rows(x, m, qt.n_in), qt, out_dtype=torch.float32)
-    count("int4_matmul", f"m{m}/{qt.n_in}x{qt.n_out}")
+    kernel = route(m)
+    out, _ = _launch(_as_rows(x, m, qt.n_in), qt, out_dtype=torch.float32,
+                     kernel=kernel)
+    count("int4_matmul", f"{kernel}/m{m}/{qt.n_in}x{qt.n_out}")
     return out.reshape(*lead, qt.n_out)
 
 
@@ -173,16 +198,19 @@ def int4_matmul_fused(x, qt: QTensor, *, prescale=None, silu_u=None,
     if prescale is not None:
         ss = prescale[0].reshape(m).contiguous()
         nw = prescale[1].reshape(qt.n_in).contiguous()
+        if nw.data_ptr() % 16:  # the GEMM reads it in 16-byte vectors
+            nw = nw.clone()
     res = (residual.reshape(m, qt.n_out).contiguous()
            if residual is not None else None)
+    kernel = route(m)
     out, ss_out = _launch(x2, qt, u2=u2, ss=ss, nw=nw, res=res,
-                          out_dtype=out_dtype, eps=emit_ss_eps)
+                          out_dtype=out_dtype, eps=emit_ss_eps, kernel=kernel)
     flags = [f for f, on in (("prescale", ss is not None),
                              ("silu", u2 is not None),
                              ("residual", res is not None),
                              ("ss", emit_ss_eps is not None)) if on]
-    count("int4_matmul_fused",
-          f"{'+'.join(flags) or 'plain'}/m{m}/{qt.n_in}x{qt.n_out}")
+    count("int4_matmul_fused", f"{kernel}/{'+'.join(flags) or 'plain'}"
+          f"/m{m}/{qt.n_in}x{qt.n_out}")
     out = out.reshape(*lead, qt.n_out)
     if ss_out is not None:
         ss_out = ss_out.reshape(*lead, 1)

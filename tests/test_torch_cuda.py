@@ -7,11 +7,12 @@ without jax it runs with the repository's conftest left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Shapes are small but ragged (partial last group, column tails, more rows
-of x than one pass holds, position 0), where chip_smoke.py checks the 7B
-shapes. Tolerances: the int4 bar of tests/test_pallas_int4.py:68 (rtol
-2e-2, atol 2e-3) where a bf16 output or a bf16 p may round one ulp apart
-after f32 sums in another order; f32 sum order only for the dense GEMV;
-bit-equal for the new cache rows, int8 codes and scales.
+of x than one pass or one GEMM tile holds, a partial query tile, position
+0), where chip_smoke.py checks the 7B shapes. Tolerances: the int4 bar of
+tests/test_pallas_int4.py:68 (rtol 2e-2, atol 2e-3) where a bf16 output or
+a bf16 p may round one ulp apart after f32 sums in another order; f32 sum
+order only for the dense GEMV; bit-equal for the new cache rows, int8
+codes and scales.
 """
 
 import pytest
@@ -27,8 +28,10 @@ from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
 from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
                                                         rope_rows)
 from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
-from llama_cu_awq_torch.ops.cuda.int4_matmul import (int4_matmul,
+from llama_cu_awq_torch.ops.cuda.int4_matmul import (GEMM_MIN_M,
+                                                     int4_matmul,
                                                      int4_matmul_fused)
+from llama_cu_awq_torch.ops.cuda.prefill_attention import prefill_attention
 from llama_cu_awq_torch.quant.int8 import quantize_dense_int8
 from llama_cu_awq_torch.quant.qtensor import QTensor
 
@@ -68,12 +71,7 @@ def _close(got, want, rtol, atol):
                                atol=atol)
 
 
-@pytest.mark.parametrize("variant", ["prescale", "residual", "silu"])
-@pytest.mark.parametrize("m", [1, 3, 11])
-def test_int4_matmul_fused_matches_plain(gen, variant, m):
-    n_in, n_out = 320, 200  # a partial last group; a tail of columns
-    qt = _qtensor(gen, n_in, n_out)
-    x = _randn(gen, m, n_in)
+def _fused_kwargs(gen, variant, m, n_in, n_out):
     kw = {}
     if variant == "prescale":
         kw["prescale"] = (torch.rand(m, 1, device="cuda", generator=gen)
@@ -83,6 +81,16 @@ def test_int4_matmul_fused_matches_plain(gen, variant, m):
         kw.update(residual=_randn(gen, m, n_out), emit_ss_eps=1e-5)
         if variant == "silu":
             kw["silu_u"] = _randn(gen, m, n_in)
+    return kw
+
+
+@pytest.mark.parametrize("variant", ["prescale", "residual", "silu"])
+@pytest.mark.parametrize("m", [1, 3, 11])
+def test_int4_matmul_fused_matches_plain(gen, variant, m):
+    n_in, n_out = 320, 200  # a partial last group; a tail of columns
+    qt = _qtensor(gen, n_in, n_out)
+    x = _randn(gen, m, n_in)
+    kw = _fused_kwargs(gen, variant, m, n_in, n_out)
     before = LAUNCHES["int4_matmul_fused"]
     out, ss = int4_matmul_fused(x, qt, **kw)
     ref, ss_ref = int4_matmul_fused(x, qt, plain=True, **kw)
@@ -91,6 +99,48 @@ def test_int4_matmul_fused_matches_plain(gen, variant, m):
     _close(out, ref, **INT4)
     if ss_ref is not None:
         _close(ss, ss_ref, **INT4)
+
+
+@pytest.mark.parametrize("variant", ["prescale", "residual", "silu",
+                                     "silu_gate_up_halves"])
+@pytest.mark.parametrize("m", [GEMM_MIN_M, 128, 200])
+def test_int4_gemm_matches_plain(gen, variant, m):
+    """The tensor-core GEMM from GEMM_MIN_M rows on: the four prologue and
+    epilogue forms, a whole 128-row tile, and 200 rows (a partial second
+    tile), over a partial last group and a tail of columns; the SwiGLU
+    form also from the gate and up halves of one (m, 2 * n_in) tensor,
+    as the forward passes them."""
+    n_in, n_out = 320, 200
+    qt = _qtensor(gen, n_in, n_out)
+    if variant == "silu_gate_up_halves":
+        x, up = _randn(gen, m, 2 * n_in).chunk(2, dim=-1)
+        kw = dict(silu_u=up, residual=_randn(gen, m, n_out), emit_ss_eps=1e-5)
+    else:
+        x = _randn(gen, m, n_in)
+        kw = _fused_kwargs(gen, variant, m, n_in, n_out)
+    reset_launches()
+    out, ss = int4_matmul_fused(x, qt, **kw)
+    ref, ss_ref = int4_matmul_fused(x, qt, plain=True, **kw)
+    torch.cuda.synchronize()
+    (key,) = VARIANT_LAUNCHES
+    assert key.startswith("int4_matmul_fused/gemm/") and key.endswith(
+        f"/m{m}/{n_in}x{n_out}")
+    _close(out, ref, **INT4)
+    if ss_ref is not None:
+        _close(ss, ss_ref, **INT4)
+
+
+def test_int4_matmul_route_by_rows(gen):
+    """The documented rule on shapes: fewer than GEMM_MIN_M rows take the
+    GEMV, GEMM_MIN_M and more the GEMM, as the variant counters show."""
+    qt = _qtensor(gen, 256, 96)
+    reset_launches()
+    for m in (GEMM_MIN_M - 1, GEMM_MIN_M):
+        x = _randn(gen, m, 256)
+        _close(int4_matmul(x, qt), int4_matmul(x, qt, plain=True), **INT4)
+    assert VARIANT_LAUNCHES == {
+        f"int4_matmul/gemv/m{GEMM_MIN_M - 1}/256x96": 1,
+        f"int4_matmul/gemm/m{GEMM_MIN_M}/256x96": 1}
 
 
 @pytest.mark.parametrize("m", [1, 16])
@@ -142,6 +192,36 @@ def test_attention_step_matches_plain(gen, quant, H, n_kv, D):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("H,n_kv,D", [(4, 4, 128), (8, 2, 128), (32, 4, 64)])
+@pytest.mark.parametrize("positions", [(0,), (150,), (0, 201)])
+def test_prefill_attention_matches_plain(gen, quant, H, n_kv, D, positions):
+    """MHA and GQA, bf16 and int8, a block at position 0, one mid-window,
+    and two slots at different positions; T = 80 leaves a partial query
+    tile, and attn_len 320 stops short of the 384-row cache."""
+    B, S, T, attn_len = len(positions), 384, 80, 320
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    q = _randn(gen, B, T, H, D)
+    if quant:
+        kc = torch.randint(-127, 128, (B, S, n_kv, D), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        vc = torch.randint(-127, 128, (B, S, n_kv, D), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        ks = torch.rand(B, S, n_kv, device="cuda", generator=gen) * 0.02
+        vs = torch.rand(B, S, n_kv, device="cuda", generator=gen) * 0.02
+    else:
+        kc, vc = _randn(gen, B, S, n_kv, D), _randn(gen, B, S, n_kv, D)
+        ks = vs = None
+    args = (q, kc, vc, pos, ks, vs)
+    reset_launches()
+    got = prefill_attention(*args, attn_len=attn_len)
+    want = prefill_attention(*args, attn_len=attn_len, plain=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["prefill_attention"] == 1
+    assert got.shape == (B, T, H, D) and got.dtype == torch.float32
+    _close(got, want, **INT4)
+
+
 def test_wrappers_raise_on_bad_input(gen):
     qt = _qtensor(gen, 256, 64)
     x = _randn(gen, 1, 256)
@@ -186,12 +266,32 @@ def test_forward_on_card_matches_cpu(gen, attn_impl, quantized):
         5 * _CFG.n_layers if attn_impl == "fused_step" else 0)
     # the same launches per variant: the qkv projection with its rmsnorm
     # prologue, and the lm_head GEMV
-    assert VARIANT_LAUNCHES["int4_matmul_fused/prescale/m1/256x512"] == (
+    assert VARIANT_LAUNCHES["int4_matmul_fused/gemv/prescale/m1/256x512"] == (
         5 * _CFG.n_layers)
     assert VARIANT_LAUNCHES["dense_gemv/bf16/m1/512x256"] == 5
     for kernel, n in LAUNCHES.items():
         assert n == sum(v for k, v in VARIANT_LAUNCHES.items()
                         if k.startswith(kernel + "/"))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_block_prefill_on_card_matches_cpu(gen, quantized):
+    """A 150-token prompt through block prefill (a full block and a padded
+    one): the kernels on the card against the plain versions on the CPU,
+    with prefill_attention and the GEMM on the path."""
+    ckpt = random_checkpoint(_CFG, seed=3)
+    prompt = [1 + (7 * i) % 500 for i in range(150)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = InferenceEngine(params_from_checkpoint(ckpt, device=dev), _CFG,
+                              None, kv_quant=quantized, device=dev)
+        reset_launches()
+        out[dev] = eng._prefill(prompt, collect_logits=True)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=2e-2, atol=2e-2)
+    assert LAUNCHES["prefill_attention"] == 2 * _CFG.n_layers
+    assert VARIANT_LAUNCHES[
+        "int4_matmul_fused/gemm/prescale/m128/256x512"] == 2 * _CFG.n_layers
+    assert VARIANT_LAUNCHES["dense_gemv/bf16/m128/512x256"] == 2
 
 
 def test_engine_generates_on_card(gen):

@@ -8,6 +8,7 @@ burnt per prompt step), then each sampled token fed back. Token streams
 must be identical.
 """
 
+import functools
 import io
 import sys
 
@@ -172,7 +173,46 @@ def test_cli_chat_on_cpu(tmp_path, tiny_config, capsys, monkeypatch):
     assert reply.split("\nUser: ")[0].strip()
 
 
-@pytest.mark.parametrize("extra", [["-m", "perplexity"], ["--spec", "ngram"],
+def test_cli_perplexity_on_cpu(tmp_path, tiny_config, capsys, monkeypatch):
+    """-m perplexity -q: the port's CLI and the JAX CLI (its engine bound
+    to the fused forward the port runs, as _jax_replay steps it) print the
+    same sequence count and perplexities that agree to f32 sum order."""
+    from llama_cu_awq_tpu.cli import main as j_main
+    from llama_cu_awq_tpu.engine import engine as j_engine_mod
+
+    path, tok_path = _write_model(tmp_path, tiny_config)
+    data = tmp_path / "data.txt"
+    # three sequences, the last longer than seq_len (truncated)
+    data.write_text("the cat sat on the mat<|endoftext|>a cat<|endoftext|>"
+                    + "the cat sat " * 40)
+    args = [path, "-m", "perplexity", "-q", str(data), "-z", tok_path]
+
+    def geomean_line():
+        out = capsys.readouterr().out
+        (line,) = [ln for ln in out.splitlines()
+                   if ln.startswith("Geomean perplexity on ")]
+        assert "Truncated to 95 tokens" in out
+        head, value = line.rsplit(" ", 1)
+        return head, float(value)
+
+    assert t_main([*args, "--device", "cpu"]) == 0
+    t_head, t_val = geomean_line()
+    monkeypatch.setattr(j_engine_mod, "forward",
+                        functools.partial(jl.forward, fused=True))
+    assert j_main(args) == 0
+    j_head, j_val = geomean_line()
+    assert t_head == j_head == "Geomean perplexity on 3 sequences:"
+    assert t_val == pytest.approx(j_val, rel=1e-4)
+
+
+def test_cli_perplexity_needs_dataset(tmp_path, tiny_config, capsys):
+    path, tok_path = _write_model(tmp_path, tiny_config)
+    assert t_main([path, "-m", "perplexity", "-z", tok_path,
+                   "--device", "cpu"]) == 1
+    assert "perplexity mode requires -q" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [["--spec", "ngram"],
                                    ["--kv-bits", "4"], ["--tp", "2"],
                                    ["--attn-impl", "batched"]])
 def test_cli_unported_options_raise(tmp_path, tiny_config, extra):
