@@ -28,7 +28,20 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      128-token block, the perplexity of a 1023-token sequence through the
      kernels and through the plain versions (|delta ln ppl| <= 0.01), and
      one full 7B 128-token block at position 1024, kernels against plain
-     versions, for bf16 and int8 KV.
+     versions, for bf16 and int8 KV;
+  6. the int4 KV cache, batched attention and speculative decoding end to
+     end: the 1920-token prompt with kv_bits=4 (prefill through plain
+     split-plane attention) and 32 decode steps through attention_step_kv4
+     at the 2048 bucket (time to first token, decode tokens/s, cache
+     bytes); 32 steps each of attn_impl="batched" over bf16 and int8 KV
+     and 16 of "batched_static" after a 1024-token prompt; 256 greedy
+     steps with spec="ngram" on a repetitive prompt beside the plain
+     stream, replayed step by step through plain decode; and one 7B
+     forward step at position 1500 through attention_step_kv4 and through
+     batched_decode_attention, kernels against plain versions.
+The kernel phase also times one PyTorch call that computes each row's
+product where there is one (library_ms): F.linear, F.scaled_dot_product_
+attention, torch._weight_int4pack_mm; the port never calls them.
 Prints the card line and a {"kernels": [...]} line, then
 {"ok": true, "device": {...}} as the last line.
 """
@@ -131,6 +144,36 @@ def random_qtensor(torch, QTensor, n_in, n_out, g):
     return QTensor(qw, scales, zeros, n_in, n_out)
 
 
+def int4pack_library(torch, qt, x):
+    """torch._weight_int4pack_mm on qt's weight, converted once here,
+    outside the timed call: the library's w4-g128 matmul (bf16 x, nibbles
+    packed two a byte, bf16 scale and offset per group and column, with
+    w = (q - 8) * s + (8 - z) * s). Returns the call; it computes x @ W
+    with the scales and offsets rounded to bf16, and none of the fused
+    kernels' prologue or epilogue."""
+    shifts = 4 * torch.arange(8, device="cuda", dtype=torch.int32)
+    q = ((qt.qw[:, :, None] >> shifts) & 0xF).reshape(qt.n_out, -1)
+    w_u8 = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
+    packed = torch._convert_weight_to_int4pack(w_u8, 8)
+    s, z = qt.scales.float(), qt.zeros.float()
+    sz = torch.stack([s, (8 - z) * s], -1).transpose(0, 1).contiguous()
+    sz = sz.bfloat16()
+    xb = x.bfloat16().contiguous()
+    return lambda: torch._weight_int4pack_mm(xb, packed, 128, sz)
+
+
+def sdpa_library(torch, q, k_rows, v_rows, mask=None):
+    """F.scaled_dot_product_attention of bf16 q (B, H, D) over the given
+    rows (B, rows, Hkv, D), laid out as it wants them outside the timed
+    call (GQA through enable_gqa); no RoPE and no row quantize."""
+    qh = q.bfloat16()[:, :, None, :].contiguous()
+    kh = k_rows.bfloat16().transpose(1, 2).contiguous()
+    vh = v_rows.bfloat16().transpose(1, 2).contiguous()
+    gqa = kh.shape[1] != qh.shape[1]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=gqa)
+
+
 INT4_TOL = dict(rtol=2e-2, atol=2e-3, why=(
     "the int4 bar of tests/test_pallas_int4.py:68; kernel and plain "
     "dequantize exactly alike, sum in f32 in another order, and a bf16 "
@@ -221,7 +264,8 @@ def kernel_phase(torch, timer, rows):
                 ms=timer(lambda: int4_matmul_fused(x, qt, **kw)),
                 plain_ms=timer(lambda: int4_matmul_fused(x, qt, plain=True,
                                                          **kw)),
-                bound_ms=b, bound_by=src, library_ms=None))
+                bound_ms=b, bound_by=src,
+                library_ms=timer(int4pack_library(torch, qt, x))))
 
     # --- int4_matmul: the w4 lm_head at m=1, 16- and 128-row blocks on
     # qkv (no 7B run launches int4_matmul at the qkv shape: the forward
@@ -238,13 +282,22 @@ def kernel_phase(torch, timer, rows):
         chk = check_close(f"int4_matmul/{tag}", out, ref, **INT4_TOL)
         b, src = bound_ms(nbytes(qt.qw, qt.scales, qt.zeros, x, out),
                           2 * m * n_in * n_out)
+        lib = int4pack_library(torch, qt, x)
+        lib_out = lib()
+        torch.cuda.synchronize()
+        print(json.dumps({"library_check": f"int4_matmul/{tag}",
+                          "call": "torch._weight_int4pack_mm",
+                          "max_abs_err_vs_plain": float(
+                              (lib_out.float() - ref).abs().max()),
+                          "max_abs_plain": float(ref.abs().max())}),
+              flush=True)
         rows.append(dict(
             name=f"int4_matmul/{tag}", kernel="int4_matmul", route="cuda",
             source=int4_source(variant),
             replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:281",
             variant=variant, path=path, **chk, ms=timer(lambda: int4_matmul(x, qt)),
             plain_ms=timer(lambda: int4_matmul(x, qt, plain=True)),
-            bound_ms=b, bound_by=src, library_ms=None))
+            bound_ms=b, bound_by=src, library_ms=timer(lib)))
 
     # --- dense_gemv: the 7B lm_head, bf16 and int8 rows ---
     w = (randn(vocab, dim, dtype=torch.float32) * 0.02).bfloat16()
@@ -261,8 +314,14 @@ def kernel_phase(torch, timer, rows):
         chk = check_close(f"dense_gemv/{tag}", out, ref, **GEMV_TOL)
         b, src = bound_ms(nbytes(*args, x, out),
                           2 * x.shape[0] * dim * vocab)
-        lib = (timer(lambda: torch.nn.functional.linear(x, w))
-               if args[0] is w else None)
+        # the library's product: F.linear on the bf16 head, and
+        # torch._weight_int8pack_mm (bf16 x, int8 rows, f32 row scales)
+        # on the int8 one
+        if args[0] is w:
+            lib = timer(lambda: torch.nn.functional.linear(x, w))
+        else:
+            s8 = w8.scale.reshape(-1).contiguous()
+            lib = timer(lambda: torch._weight_int8pack_mm(x, w8.w8, s8))
         rows.append(dict(
             name=f"dense_gemv/{tag}", kernel="dense_gemv", route="cuda",
             source="llama_cu_awq_torch/csrc/dense_gemv.cu",
@@ -313,6 +372,10 @@ def kernel_phase(torch, timer, rows):
             hist += pos_v * n_kv * 4 * 2 if quant else 0
             b, src = bound_ms(hist + nbytes(qkv, cos2, sinm, *outs),
                               4 * (pos_v + 1) * H * D)
+            # the window's pos + 1 keys (history and the current row)
+            lib = None if quant else timer(sdpa_library(
+                torch, qkv[:, :H * D].reshape(1, H, D), kc[:, :pos_v + 1],
+                vc[:, :pos_v + 1]))
             rows.append(dict(
                 name=f"attention_step/{tag}", kernel="attention_step",
                 route="cuda",
@@ -322,7 +385,9 @@ def kernel_phase(torch, timer, rows):
                 ms=timer(lambda: attention_step(*args, n_heads=H)),
                 plain_ms=timer(lambda: attention_step(*args, n_heads=H,
                                                       plain=True), iters=5),
-                bound_ms=b, bound_by=src, library_ms=None))
+                bound_ms=b, bound_by=src, library_ms=lib))
+    attention_step_kv4_rows(torch, timer, rows, g)
+    batched_attention_rows(torch, timer, rows, g)
     prefill_attention_rows(torch, timer, rows, g)
     gemm_crossover(torch, timer, g)
     for r in rows:
@@ -333,11 +398,127 @@ def kernel_phase(torch, timer, rows):
               flush=True)
 
 
+def attention_step_kv4_rows(torch, timer, rows, g):
+    """attention_step over the int4 cache at 7B's head shape (and GQA
+    32/8, check only): position 1500 over a 2048-row cache of random
+    packed bytes (every code -8..7) and scales. No PyTorch call reads an
+    int4-packed cache, so there is no library time."""
+    from llama_cu_awq_torch.ops.cuda.attention_step import (
+        attention_step, rope_rows)
+
+    S, D, H, pos_v = 2048, 128, 32, 1500
+    pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+    cos2, sinm = rope_rows(pos, D, 10000.0)
+    for n_kv in (32, 8):
+        qkv = torch.randn(1, (H + 2 * n_kv) * D, device="cuda",
+                          generator=g).bfloat16()
+        kc, vc = (torch.randint(-128, 128, (1, S, n_kv, D // 2),
+                                dtype=torch.int8, device="cuda", generator=g)
+                  for _ in range(2))
+        ks, vs = (torch.rand(1, S, n_kv, device="cuda", generator=g) * 0.2
+                  for _ in range(2))
+        tag = f"{'mha' if n_kv == H else 'gqa'}{H}_{n_kv}_int4"
+        args = (qkv, kc, vc, pos, cos2, sinm, ks, vs)
+        outs, variant = launched_variant(
+            lambda: attention_step(*args, n_heads=H, kv_bits=4))
+        refs = attention_step(*args, n_heads=H, kv_bits=4, plain=True)
+        torch.cuda.synchronize()
+        chk = check_close(f"attention_step/{tag}", outs[0], refs[0],
+                          **ATTN_TOL)
+        for i, part in ((1, "k_new"), (2, "v_new"), (3, "k_s"), (4, "v_s")):
+            if not torch.equal(outs[i], refs[i]):
+                raise AssertionError(
+                    f"attention_step/{tag}: {part} differs from the plain "
+                    f"version (must be bit-equal: same IEEE rope, scale, "
+                    f"round-half-even, clip and packing)")
+        hist = pos_v * n_kv * (D // 2 + 4) * 2
+        b, src = bound_ms(hist + nbytes(qkv, cos2, sinm, *outs),
+                          4 * (pos_v + 1) * H * D)
+        rows.append(dict(
+            name=f"attention_step/{tag}", kernel="attention_step_kv4",
+            route="cuda", source="llama_cu_awq_torch/csrc/attention_step.cu",
+            replaces="llama_cu_awq_tpu/ops/pallas/attention_step.py:569",
+            variant=variant, path="kv4" if n_kv == H else None, **chk,
+            ms=timer(lambda: attention_step(*args, n_heads=H, kv_bits=4)),
+            plain_ms=timer(lambda: attention_step(
+                *args, n_heads=H, kv_bits=4, plain=True), iters=5),
+            bound_ms=b, bound_by=src, library_ms=None))
+
+
+def batched_attention_rows(torch, timer, rows, g):
+    """batched_decode_attention at 7B's head shape over a 2048-row cache
+    that holds the current row: one slot at position 1500 (bf16 and int8
+    early exit, bf16 static, the variants the batched runs launch), and 8
+    slots at positions around 1024 (bf16 and int8, check only). The bound
+    counts the rows each slot's answer depends on (rows <= pos[b]) for
+    both variants: the static one reads the whole window by design. The
+    bf16 rows are also timed against F.scaled_dot_product_attention over
+    the same rows (a boolean mask for mixed positions)."""
+    from llama_cu_awq_torch.ops.cuda.batched_attention import (
+        batched_decode_attention)
+
+    S, D, H = 2048, 128, 32
+    cases = (
+        ("b1_bf16", (1500,), False, True, "batched_bf16"),
+        ("b1_int8", (1500,), True, True, "batched_int8kv"),
+        ("b1_bf16_static", (1500,), False, False, "batched_static"),
+        ("b8_bf16", (1024, 1000, 1100, 990, 1050, 1020, 1075, 960), False,
+         True, None),
+        ("b8_int8", (1024, 1000, 1100, 990, 1050, 1020, 1075, 960), True,
+         True, None))
+    for tag, positions, quant, early, path in cases:
+        B = len(positions)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        q = torch.randn(B, H, D, device="cuda", generator=g)
+        if quant:
+            kc, vc = (torch.randint(-127, 128, (B, S, H, D), dtype=torch.int8,
+                                    device="cuda", generator=g)
+                      for _ in range(2))
+            ks, vs = (torch.rand(B, S, H, device="cuda", generator=g) * 0.02
+                      for _ in range(2))
+        else:
+            kc, vc = (torch.randn(B, S, H, D, device="cuda",
+                                  generator=g).bfloat16() for _ in range(2))
+            ks = vs = None
+        args = (q, kc, vc, pos, ks, vs)
+        kw = dict(attn_len=S, early_exit=early)
+        out, variant = launched_variant(
+            lambda: batched_decode_attention(*args, **kw))
+        ref = batched_decode_attention(*args, plain=True, **kw)
+        torch.cuda.synchronize()
+        chk = check_close(f"batched_decode_attention/{tag}", out, ref,
+                          **ATTN_TOL)
+        n_rows = sum(p + 1 for p in positions)
+        b, src = bound_ms(n_rows * H * (D * kc.element_size()
+                                        + (4 if quant else 0)) * 2
+                          + nbytes(q, pos, out), 4 * n_rows * H * D)
+        lib = None
+        if not quant:
+            top = max(positions) + 1
+            mask = None
+            if B > 1:
+                s_idx = torch.arange(top, device="cuda")
+                mask = (s_idx[None, :] <= pos[:, None])[:, None, None, :]
+            lib = timer(sdpa_library(torch, q, kc[:, :top], vc[:, :top],
+                                     mask))
+        rows.append(dict(
+            name=f"batched_decode_attention/{tag}",
+            kernel="batched_decode_attention", route="cuda",
+            source="llama_cu_awq_torch/csrc/batched_attention.cu",
+            replaces="llama_cu_awq_tpu/ops/pallas/batched_attention.py:179",
+            variant=variant, path=path, **chk,
+            ms=timer(lambda: batched_decode_attention(*args, **kw)),
+            plain_ms=timer(lambda: batched_decode_attention(
+                *args, plain=True, **kw), iters=5),
+            bound_ms=b, bound_by=src, library_ms=lib))
+
+
 def prefill_attention_rows(torch, timer, rows, g):
     """prefill_attention at 7B's head shape (and GQA 32/8, check only):
-    a 128-token block at position 1024 over a 2048-row cache. The bf16 MHA
-    row is also timed against F.scaled_dot_product_attention over the
-    window the block sees, with the causal mask."""
+    a 128-token block at position 1024 over a 2048-row cache. The bf16
+    rows are also timed against F.scaled_dot_product_attention over the
+    window the block sees, with the causal mask (GQA through
+    enable_gqa)."""
     from llama_cu_awq_torch.ops.cuda.prefill_attention import (
         prefill_attention)
 
@@ -373,7 +554,7 @@ def prefill_attention_rows(torch, timer, rows, g):
             b, src = bound_ms(kv_bytes + nbytes(q, out),
                               4 * causal_keys * H * D)
             lib = None
-            if not quant and n_kv == H:
+            if not quant:
                 qh = q.transpose(1, 2).contiguous()
                 kh = kc[:, :horizon].transpose(1, 2).contiguous()
                 vh = vc[:, :horizon].transpose(1, 2).contiguous()
@@ -381,8 +562,9 @@ def prefill_attention_rows(torch, timer, rows, g):
                 t_idx = torch.arange(T, device="cuda")
                 mask = s_idx[None, :] <= pos_v + t_idx[:, None]
                 lib = timer(lambda: torch.nn.functional
-                            .scaled_dot_product_attention(qh, kh, vh,
-                                                          attn_mask=mask))
+                            .scaled_dot_product_attention(
+                                qh, kh, vh, attn_mask=mask,
+                                enable_gqa=n_kv != H))
             rows.append(dict(
                 name=f"prefill_attention/{tag}", kernel="prefill_attention",
                 route="cuda",
@@ -436,12 +618,6 @@ def unported_bounds() -> list[dict]:
     hist = 1500  # history rows, as the attention_step rows
     out = []
     for name, shape, n_bytes, n_flops in (
-            ("attention_step.py:569 _attention_step_kv4",
-             "MHA 32/32, int4 KV, pos 1500",
-             hist * H * (D // 2 + 4) * 2, 4 * (hist + 1) * H * D),
-            ("batched_attention.py:179 batched_decode_attention",
-             "8 slots at pos 1024, bf16 KV",
-             8 * 1024 * H * D * 2 * 2, 4 * 8 * 1025 * H * D),
             ("down_qkv.py:147 _down_qkv_2d", "down then next qkv, m=1",
              down + qkv, 2 * (hid * dim + dim * 3 * dim)),
             ("int4_chain.py:479 ffn_chain", "o + gate_up + down + next qkv, "
@@ -539,21 +715,23 @@ def profile_decode(torch, eng, prompt, steps=16):
     profile_run(torch, "decode_chunk", prepare, run, steps, "token")
 
 
-def random_cache(torch, cfg, kv_quant, g):
-    """A 2048-row KV cache of random rows (bf16, or int8 codes and
-    scales), as a kernels-against-plain check starts from."""
+def random_cache(torch, cfg, kv_quant, g, kv_bits=8):
+    """A 2048-row KV cache of random rows (bf16; int8 codes and scales;
+    or with kv_bits=4 random packed bytes and scales), as a
+    kernels-against-plain check starts from."""
     from llama_cu_awq_torch.models import init_kv_cache
 
-    cache = init_kv_cache(cfg, 1, 2048, quantized=kv_quant)
+    cache = init_kv_cache(cfg, 1, 2048, quantized=kv_quant, kv_bits=kv_bits)
+    lo, smax = (-128, 0.2) if kv_bits == 4 else (-127, 0.02)
     for l in range(cfg.n_layers):
         for buf, sc in ((cache.k[l], cache.k_scale),
                         (cache.v[l], cache.v_scale)):
             if kv_quant:
-                buf.copy_(torch.randint(-127, 128, buf.shape,
+                buf.copy_(torch.randint(lo, 128, buf.shape,
                                         dtype=torch.int8, device="cuda",
                                         generator=g))
                 sc[l].copy_(torch.rand(sc[l].shape, device="cuda",
-                                       generator=g) * 0.02)
+                                       generator=g) * smax)
             else:
                 buf.copy_(torch.randn(buf.shape, device="cuda",
                                       generator=g).bfloat16())
@@ -561,17 +739,17 @@ def random_cache(torch, cfg, kv_quant, g):
 
 
 def forward_check(torch, params, cfg, label, tok, pos, kv_quant, g,
-                  **kw):
+                  kv_bits=8, **kw):
     """One 7B forward from the same random cache through the kernels and
     through the plain versions: the largest logit difference within 2 %
     of the largest logit, and the same argmax on every row whose plain
     top-2 gap is wider than that."""
     from llama_cu_awq_torch.models import forward, init_kv_cache
 
-    cache = random_cache(torch, cfg, kv_quant, g)
+    cache = random_cache(torch, cfg, kv_quant, g, kv_bits)
     logits = {}
     for plain in (False, True):
-        c = init_kv_cache(cfg, 1, 2048, quantized=kv_quant)
+        c = init_kv_cache(cfg, 1, 2048, quantized=kv_quant, kv_bits=kv_bits)
         for dst, src in zip(c.k + c.v + c.k_scale + c.v_scale,
                             cache.k + cache.v + cache.k_scale
                             + cache.v_scale):
@@ -776,6 +954,169 @@ def prefill_phase(torch, params, launches):
             attn_len=2048, logits_all=True)
 
 
+# the largest logit gap to the replayed argmax a speculative token may
+# have: tests/test_spec_decode.py:44-63's tol
+SPEC_GAP = 0.1
+
+
+def decode_run(torch, eng, prompt, steps):
+    """prompt[:-1] through _prefill, then `steps` plain decode chunks from
+    prompt[-1] (a host sync a chunk), the decode timed alone on the host
+    clock. Returns (tokens, decode tokens/s)."""
+    eng.reset()
+    eng._prefill(prompt[:-1])
+    token = torch.tensor([prompt[-1]], dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = eng._decode_tokens(token, steps, stop_at_eos=False)
+    torch.cuda.synchronize()
+    return toks, steps / (time.perf_counter() - t0)
+
+
+def replay_check(torch, params, cfg, prompt, stream, base, max_seq):
+    """tests/test_spec_decode.py's replay_consistent on the card: plain
+    T=1 decode is fed the speculative stream token by token, and every
+    token of it must be within SPEC_GAP of that step's argmax. Where the
+    stream parts from the plain stream `base`, the replayed top-2 margin
+    must be below SPEC_GAP (a near tie, not a fault)."""
+    from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.models import forward
+
+    eng = InferenceEngine(params, cfg, None, temperature=0.0,
+                          max_seq=max_seq)
+    eng._prefill(prompt[:-1])
+    feed = [prompt[-1]] + stream[:-1]
+    gaps, margins = [], []
+    for t_in, t_out in zip(feed, stream):
+        logits, _ = forward(
+            params, cfg, torch.tensor([[t_in]], dtype=torch.int32,
+                                      device="cuda"), eng._positions(1),
+            eng.cache, attn_len=eng._bucket_for(eng.pos + 1),
+            attn_impl=eng.attn_impl)
+        top2 = logits[0].topk(2).values
+        gaps.append(top2[0] - logits[0, t_out])
+        margins.append(top2[0] - top2[1])
+        eng.pos += 1
+    gaps = torch.stack(gaps).tolist()
+    margins = torch.stack(margins).tolist()
+    split = next((i for i, (a, b) in enumerate(zip(stream, base)) if a != b),
+                 None)
+    print(json.dumps({
+        "spec_replay": len(stream), "max_gap": max(gaps),
+        "tolerance": SPEC_GAP, "first_divergence_from_plain": split,
+        "margin_there": None if split is None else margins[split],
+        "why": "tests/test_spec_decode.py:44-63: near-tie flips between the "
+               "T=8 verify and T=1 decode are allowed, faults give large "
+               "gaps"}), flush=True)
+    if max(gaps) >= SPEC_GAP:
+        raise AssertionError(f"spec token {gaps.index(max(gaps))} is "
+                             f"{max(gaps)} below the replayed argmax")
+    if split is not None and margins[split] >= SPEC_GAP:
+        raise AssertionError(f"spec stream parts from plain at {split} "
+                             f"where the top-2 margin is {margins[split]}")
+
+
+def slice3_phase(torch, params, launches):
+    """The int4 KV cache, batched attention and speculative decoding at 7B
+    (see the module docstring, phase 6)."""
+    from llama_cu_awq_torch.config import LLAMA2_7B
+    from llama_cu_awq_torch.engine import InferenceEngine
+
+    cfg = LLAMA2_7B
+    prompt = [1] + [3 + (7919 * i) % 31990 for i in range(1919)]
+
+    def engine(**kw):
+        return InferenceEngine(params, cfg, None, temperature=0.0,
+                               seed=1234, **kw)
+
+    def valid(toks):
+        return toks and all(0 <= t < cfg.vocab_size for t in toks)
+
+    # --- int4 KV: 15 prefill blocks through plain split-plane attention,
+    # then decode at the 2048 bucket through attention_step_kv4 ---
+    eng4 = engine(kv_quant=4, max_seq=2048)
+    eng4.generate_benchmark(prompt[:256], 256)  # warm-up: 2 blocks, 1 step
+
+    def kv4_run():
+        toks, ttft, _ = eng4.generate_benchmark(prompt, len(prompt))
+        return toks, ttft, *decode_run(torch, eng4, prompt, 32)
+
+    toks, ttft, dtoks, tps = run_path(torch, "kv4", kv4_run, launches)
+    kv_bytes = nbytes(*eng4.cache.k, *eng4.cache.v, *eng4.cache.k_scale,
+                      *eng4.cache.v_scale)
+    bf16_bytes = 2 * cfg.n_layers * 2048 * cfg.n_kv_heads * cfg.head_dim * 2
+    print(json.dumps({
+        "e2e": "kv4", "model": "llama2-7b", "prompt_tokens": len(prompt),
+        "max_seq": 2048, "time_to_first_token_s": ttft,
+        "decode_steps": 32, "decode_tok_per_s": tps,
+        "kv_cache_bytes": kv_bytes, "bf16_kv_cache_bytes": bf16_bytes,
+        "first_tokens": dtoks[:8]}), flush=True)
+    if not (valid(toks) and valid(dtoks)):
+        raise AssertionError(f"kv4: bad tokens {toks} {dtoks[:8]}")
+    if launches["kv4"]["kernels"]["attention_step_kv4"] == 0:
+        raise AssertionError("kv4 never launched attention_step_kv4")
+    del eng4
+
+    # --- batched attention after a 1024-token prompt ---
+    for name, impl, kv_quant, steps in (
+            ("batched_bf16", "batched", False, 32),
+            ("batched_int8kv", "batched", True, 32),
+            ("batched_static", "batched_static", False, 16)):
+        eng_b = engine(attn_impl=impl, kv_quant=kv_quant, max_seq=2048)
+        dtoks, tps = run_path(
+            torch, name, lambda e=eng_b, n=steps: decode_run(
+                torch, e, prompt[:1024], n), launches)
+        print(json.dumps({"e2e": name, "prompt_tokens": 1024,
+                          "max_seq": 2048, "decode_steps": steps,
+                          "decode_tok_per_s": tps,
+                          "first_tokens": dtoks[:8]}), flush=True)
+        if not valid(dtoks):
+            raise AssertionError(f"{name}: bad tokens {dtoks[:8]}")
+        if launches[name]["kernels"]["batched_decode_attention"] == 0:
+            raise AssertionError(f"{name} never launched "
+                                 f"batched_decode_attention")
+        del eng_b
+
+    # --- speculative decoding: 256 greedy steps on a repetitive prompt,
+    # beside the plain stream, then replayed through plain decode ---
+    rep_prompt = [1] + [5 + i % 11 for i in range(32)]
+    plain_eng = engine(max_seq=512)
+    base, _, tps_plain = plain_eng.generate_benchmark(rep_prompt, 256)
+    spec_eng = engine(max_seq=512, spec="ngram")
+    spec_eng.generate_benchmark(rep_prompt, 48)  # warm-up
+    spec_eng.spec_stats = {k: 0 for k in spec_eng.spec_stats}
+    got, dt, tps_spec = run_path(
+        torch, "spec", lambda: spec_eng.generate_benchmark(rep_prompt, 256),
+        launches)
+    st = spec_eng.spec_stats
+    print(json.dumps({
+        "e2e": "spec_ngram", "model": "llama2-7b", "steps": 256,
+        "spec_k": spec_eng.spec_k, "max_seq": 512, "tok_per_s": tps_spec,
+        "plain_tok_per_s_same_prompt": tps_plain, "seconds": dt,
+        "spec_stats": st, "acceptance_rate": (
+            st["accepted"] / st["proposed"] if st["proposed"] else 0.0),
+        "tokens_equal_to_plain": got == base, "first_tokens": got[:8]}),
+        flush=True)
+    if len(got) != 256 - len(rep_prompt) + 1 or not valid(got):
+        raise AssertionError(f"spec: bad stream of {len(got)} tokens")
+    if st["verifies"] == 0:
+        raise AssertionError("spec: no proposal was verified")
+    replay_check(torch, params, cfg, rep_prompt, got, base, 512)
+    del plain_eng, spec_eng
+
+    # one 7B step at position 1500, kernels against plain versions
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    pos = torch.tensor([1500], dtype=torch.int32, device="cuda")
+    tok = torch.tensor([[7]], dtype=torch.int32, device="cuda")
+    forward_check(torch, params, cfg, "kv4_fused_step", tok, pos, True, g,
+                  kv_bits=4, attn_impl="fused_step")
+    for kv_quant in (False, True):
+        forward_check(torch, params, cfg, "batched_" + (
+            "int8_kv" if kv_quant else "bf16_kv"), tok, pos, kv_quant, g,
+            attn_impl="batched")
+
+
 def main() -> int:
     import torch
 
@@ -813,6 +1154,7 @@ def main() -> int:
     launches: dict[str, dict] = {}
     params = e2e_phase(torch, launches)
     prefill_phase(torch, params, launches)
+    slice3_phase(torch, params, launches)
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

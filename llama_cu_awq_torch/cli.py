@@ -14,6 +14,9 @@ supports: positional checkpoint plus
   -q <string> dataset file for perplexity mode (sequences separated by
               <|endoftext|>)
   --device {cuda,cpu}  default cuda; cpu runs the kernels' plain versions
+
+and the JAX CLI's options --max-seq, --kv-quant, --kv-bits, --attn-impl,
+--spec, --spec-k and --lm-head-bits; --tp is not ported yet.
 """
 
 from __future__ import annotations
@@ -49,15 +52,23 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="cap the KV cache length below the model seq_len")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8-quantize the KV cache")
-    ap.add_argument("--kv-bits", type=int, default=8, choices=[8, 4])
+    ap.add_argument("--kv-bits", type=int, default=8, choices=[8, 4],
+                    help="quantized KV width: 8 (default) or 4 (two codes "
+                         "a byte; implies --kv-quant)")
     ap.add_argument("--attn-impl", default=None,
                     choices=["auto", "einsum", "batched", "batched_static",
                              "fused_step"],
                     help="decode attention: einsum (plain), fused_step "
-                         "(the attention_step kernel) or auto (fused_step "
-                         "at windows of 1024 and more)")
-    ap.add_argument("--spec", default=None, choices=["ngram"])
-    ap.add_argument("--spec-k", type=int, default=7, metavar="K")
+                         "(the attention_step kernel), batched (the "
+                         "batched_decode_attention kernel; batched_static "
+                         "reads the whole window) or auto (fused_step at "
+                         "windows of 1024 and more)")
+    ap.add_argument("--spec", default=None, choices=["ngram"],
+                    help="speculative decoding: prompt-lookup n-gram "
+                         "proposals verified in one teacher-forced pass; "
+                         "the same tokens as plain decode")
+    ap.add_argument("--spec-k", type=int, default=7, metavar="K",
+                    help="proposed tokens per verify (default 7)")
     ap.add_argument("--tp", type=int, default=1, metavar="N")
     ap.add_argument("--lm-head-8bit", dest="lm_head_bits",
                     action="store_const", const=8,
@@ -71,15 +82,9 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
 
-    # the options of the JAX package that the port has not reached yet
-    if args.spec:
-        raise NotImplementedError("--spec is not ported yet")
-    if args.kv_bits == 4:
-        raise NotImplementedError("--kv-bits 4 is not ported yet")
+    # the option of the JAX package that the port has not reached yet
     if args.tp > 1:
         raise NotImplementedError("--tp is not ported yet")
-    if args.attn_impl in ("batched", "batched_static"):
-        raise NotImplementedError("--attn-impl batched is not ported yet")
     if args.act_dtype != "bfloat16":
         raise NotImplementedError("the port runs bf16 activations only")
 
@@ -120,8 +125,9 @@ def main(argv=None) -> int:
     tokenizer = Tokenizer(args.tokenizer, ckpt.config.vocab_size)
     engine = InferenceEngine(
         params, ckpt.config, tokenizer, attn_impl=args.attn_impl,
-        kv_quant=args.kv_quant, temperature=args.temperature,
-        topp=args.topp, seed=args.seed,
+        kv_quant=4 if args.kv_bits == 4 else args.kv_quant,
+        temperature=args.temperature, topp=args.topp, seed=args.seed,
+        spec=args.spec, spec_k=args.spec_k,
         max_seq=args.max_seq or ckpt.config.seq_len, device=device)
 
     if perplexity:
@@ -145,6 +151,12 @@ def main(argv=None) -> int:
                                    echo=True)
         print(f"\n\nachieved tok/s: {stats['tok_per_s']:f}. "
               f"Tokens: {stats['tokens']}, seconds: {stats['seconds']:g}")
+        if engine.spec:
+            ss = engine.spec_stats
+            rate = ss["accepted"] / ss["proposed"] if ss["proposed"] else 0.0
+            print(f"spec: {ss['verifies']} verifies, "
+                  f"{ss['accepted']}/{ss['proposed']} proposals "
+                  f"accepted ({rate:.0%})")
     else:
         engine.chat_loop(prompt, args.system_prompt, args.steps)
     return 0

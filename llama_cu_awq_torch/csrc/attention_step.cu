@@ -1,10 +1,12 @@
 // One decode attention step straight from the fused qkv row: split, RoPE,
-// bf16 rounding of q and k, optional int8 quantization of the new k/v row,
-// then online-softmax GQA attention over the cache rows below pos[b] plus
-// the current token.
+// bf16 rounding of q and k, optional quantization of the new k/v row (int8,
+// or int4 packed two to a byte), then online-softmax GQA attention over the
+// cache rows below pos[b] plus the current token.
 //
 // Replaces: llama_cu_awq_tpu/ops/pallas/attention_step.py, attention_step
-//   (kernel _make_kernel), for the bf16 and the int8 cache.
+//   (kernel _make_kernel), for the bf16 and the int8 cache, and
+//   _attention_step_kv4 (kernel _make_kernel_kv4, unpack _unpack4) for the
+//   int4 cache.
 //
 // What bounds it on the H100: the cache bytes. A step reads every history
 //   row of k and v once: at 7B with a bf16 cache at position 1500 that is
@@ -29,6 +31,21 @@
 //   models/llama.py:408); this follows the JAX attention_step kernel.
 //   Single-block-per-head parallelism leaves most SMs idle at batch 1;
 //   splitting the history across blocks is later work.
+//
+// The int4 cache (attention_step_kv4): a head's row is D/2 bytes, byte i
+//   holding lane i in its low nibble and lane i + D/2 in its high nibble
+//   (quant/kv.py's halves packing, the JAX package's quantize_kv4), read
+//   back with the sign rule ((c & 0xF) ^ 8) - 8 of _unpack4. It moves a
+//   quarter of the
+//   bf16 cache's bytes plus the scales: 1500 rows x 32 heads x (64 + 4) B
+//   x 2 = 6.5 MB per layer at 7B, 1.95 us. The new row is quantized and
+//   packed here (the JAX package does it in XLA before its kernel only
+//   because Mosaic could not lower the pack): scale absmax * f32(1/7)
+//   (what XLA makes of absmax/7 in a jit), floor 1e-10, codes rintf and
+//   clipped to [-7, 7]. The current row enters the softmax as its codes,
+//   the same values a later step unpacks from the cache; ks folds into the
+//   scores and vs into p before p's bf16 rounding (attention_step.py:293,
+//   307), exactly as for int8.
 
 #include "common.cuh"
 
@@ -39,16 +56,29 @@ constexpr int MAX_KV_MUL = 8;   // query heads per kv head
 constexpr int MAX_D = 256;      // head_dim (one thread per element)
 constexpr float NEG = -1e30f;
 
-template <bool QUANT>
-__device__ __forceinline__ float load_kv(const void* p, size_t i) {
-  if constexpr (QUANT) {
-    return static_cast<float>(static_cast<const int8_t*>(p)[i]);
+// cache formats
+constexpr int KV_BF16 = 0;
+constexpr int KV_INT8 = 1;
+constexpr int KV_INT4 = 2;
+
+// element e of cache row `row` (row = (b * S + s) * n_kv + kv head) as the
+// softmax sees it: the bf16 value, or the int8 / int4 code
+template <int KV>
+__device__ __forceinline__ float load_kv(const void* p, size_t row, int e,
+                                         int D) {
+  if constexpr (KV == KV_INT4) {
+    const int half = D / 2;
+    const int c = static_cast<const int8_t*>(p)[row * half + (e % half)];
+    const int nib = e < half ? (c & 0xF) : ((c >> 4) & 0xF);
+    return static_cast<float>((nib ^ 8) - 8);
+  } else if constexpr (KV == KV_INT8) {
+    return static_cast<float>(static_cast<const int8_t*>(p)[row * D + e]);
   } else {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[row * D + e]);
   }
 }
 
-template <bool QUANT>
+template <int KV>
 __global__ void __launch_bounds__(MAX_D)
 attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
                       const void* __restrict__ k_cache,
@@ -73,7 +103,9 @@ attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
   __shared__ float l_s[MAX_KV_MUL];
   __shared__ float alpha_s[MAX_KV_MUL];
   __shared__ float red[2][MAX_D / 32];
+  __shared__ int code_s[2][MAX_D];  // the new int4 row before packing
 
+  constexpr bool QUANT = KV != KV_BF16;
   const int t = threadIdx.x;  // blockDim.x == D
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -113,13 +145,32 @@ attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
       ksc = fmaxf(ksc, red[0][w]);
       vsc = fmaxf(vsc, red[1][w]);
     }
-    // absmax * f32(1/127): XLA rewrites the JAX package's absmax/127 so
-    ksc = fmaxf(ksc * (1.0f / 127.0f), 1e-10f);
-    vsc = fmaxf(vsc * (1.0f / 127.0f), 1e-10f);
+    // absmax * f32(1/127) or f32(1/7): XLA rewrites the JAX package's
+    // absmax/127 and absmax/7 so
+    const float inv = KV == KV_INT4 ? 1.0f / 7.0f : 1.0f / 127.0f;
+    ksc = fmaxf(ksc * inv, 1e-10f);
+    vsc = fmaxf(vsc * inv, 1e-10f);
     kcur = rintf(kb / ksc);
     vcur = rintf(vb / vsc);
-    static_cast<int8_t*>(k_new)[nrow * D + t] = static_cast<int8_t>(kcur);
-    static_cast<int8_t*>(v_new)[nrow * D + t] = static_cast<int8_t>(vcur);
+    if constexpr (KV == KV_INT4) {
+      kcur = fminf(fmaxf(kcur, -7.0f), 7.0f);
+      vcur = fminf(fmaxf(vcur, -7.0f), 7.0f);
+      code_s[0][t] = static_cast<int>(kcur);
+      code_s[1][t] = static_cast<int>(vcur);
+      __syncthreads();
+      if (t < half) {
+        // byte t: lane t in the low nibble, lane t + D/2 in the high one
+        auto pack = [&](const int* code) {
+          return static_cast<int8_t>(static_cast<uint8_t>(
+              (code[t] & 0xF) | ((code[t + half] & 0xF) << 4)));
+        };
+        static_cast<int8_t*>(k_new)[nrow * half + t] = pack(code_s[0]);
+        static_cast<int8_t*>(v_new)[nrow * half + t] = pack(code_s[1]);
+      }
+    } else {
+      static_cast<int8_t*>(k_new)[nrow * D + t] = static_cast<int8_t>(kcur);
+      static_cast<int8_t*>(v_new)[nrow * D + t] = static_cast<int8_t>(vcur);
+    }
     if (t == 0) {
       ks_new[nrow] = ksc;
       vs_new[nrow] = vsc;
@@ -187,8 +238,7 @@ attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
     for (int j = 0; j < n; ++j) {
       const float vv = current
           ? vcur_s[t]
-          : load_kv<QUANT>(v_cache,
-                           (((size_t)b * S + r0 + j) * n_kv + kvh) * D + t);
+          : load_kv<KV>(v_cache, ((size_t)b * S + r0 + j) * n_kv + kvh, t, D);
 #pragma unroll
       for (int h = 0; h < MAX_KV_MUL; ++h)
         if (h < kv_mul) pv[h] = fmaf(p_s[h * CHUNK + j], vv, pv[h]);
@@ -221,10 +271,10 @@ attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
       __syncthreads();
     }
     for (int j = warp; j < n; j += nwarps) {
-      const size_t base = (((size_t)b * S + r0 + j) * n_kv + kvh) * D;
+      const size_t krow = ((size_t)b * S + r0 + j) * n_kv + kvh;
       float kv[MAX_D / 32];
       for (int i = 0, e = lane; e < D; ++i, e += 32)
-        kv[i] = load_kv<QUANT>(k_cache, base + e);
+        kv[i] = load_kv<KV>(k_cache, krow, e, D);
       score_row(kv, j);
     }
     __syncthreads();
@@ -235,6 +285,27 @@ attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
   for (int h = 0; h < MAX_KV_MUL; ++h)
     if (h < kv_mul)
       attn[((size_t)b * H + kvh * kv_mul + h) * D + t] = acc[h] / l_s[h];
+}
+
+template <int KV>
+int launch(const void* qkv, const void* k_cache, const void* v_cache,
+           const void* k_scale, const void* v_scale, const void* pos,
+           const void* cos2, const void* sinm, void* attn, void* k_new,
+           void* v_new, void* ks_new, void* vs_new, int B, int H, int n_kv,
+           int D, int S, void* stream) {
+  if (D % 32 != 0 || D > MAX_D || H % n_kv != 0 ||
+      H / n_kv > MAX_KV_MUL || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+  attention_step_kernel<KV><<<dim3(n_kv, B), D, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(qkv), k_cache, v_cache,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(pos), static_cast<const float*>(cos2),
+      static_cast<const float*>(sinm), static_cast<float*>(attn), k_new, v_new,
+      static_cast<float*>(ks_new), static_cast<float*>(vs_new), H, n_kv, D, S,
+      scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -251,26 +322,28 @@ LLAMA_EXPORT int attention_step(const void* qkv, const void* k_cache,
                                 void* attn, void* k_new, void* v_new,
                                 void* ks_new, void* vs_new, int B, int H,
                                 int n_kv, int D, int S, void* stream) {
-  if (D % 32 != 0 || D > MAX_D || H % n_kv != 0 ||
-      H / n_kv > MAX_KV_MUL || B < 1)
+  if (k_scale != nullptr)
+    return launch<KV_INT8>(qkv, k_cache, v_cache, k_scale, v_scale, pos, cos2,
+                           sinm, attn, k_new, v_new, ks_new, vs_new, B, H,
+                           n_kv, D, S, stream);
+  return launch<KV_BF16>(qkv, k_cache, v_cache, nullptr, nullptr, pos, cos2,
+                         sinm, attn, k_new, v_new, nullptr, nullptr, B, H,
+                         n_kv, D, S, stream);
+}
+
+// The int4 cache: k_cache/v_cache (B, S, n_kv, D/2) int8, packed in halves,
+// with k_scale/v_scale (B, S, n_kv) f32 required; k_new/v_new come back
+// packed, (B, n_kv, D/2) int8, with ks_new/vs_new (B, n_kv) f32.
+LLAMA_EXPORT int attention_step_kv4(const void* qkv, const void* k_cache,
+                                    const void* v_cache, const void* k_scale,
+                                    const void* v_scale, const void* pos,
+                                    const void* cos2, const void* sinm,
+                                    void* attn, void* k_new, void* v_new,
+                                    void* ks_new, void* vs_new, int B, int H,
+                                    int n_kv, int D, int S, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  const dim3 grid(n_kv, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(qkv);
-  if (k_scale != nullptr) {
-    attention_step_kernel<true><<<grid, D, 0, st>>>(
-        q, k_cache, v_cache, static_cast<const float*>(k_scale),
-        static_cast<const float*>(v_scale), static_cast<const int*>(pos),
-        static_cast<const float*>(cos2), static_cast<const float*>(sinm),
-        static_cast<float*>(attn), k_new, v_new, static_cast<float*>(ks_new),
-        static_cast<float*>(vs_new), H, n_kv, D, S, scale);
-  } else {
-    attention_step_kernel<false><<<grid, D, 0, st>>>(
-        q, k_cache, v_cache, nullptr, nullptr, static_cast<const int*>(pos),
-        static_cast<const float*>(cos2), static_cast<const float*>(sinm),
-        static_cast<float*>(attn), k_new, v_new, nullptr, nullptr, H, n_kv,
-        D, S, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<KV_INT4>(qkv, k_cache, v_cache, k_scale, v_scale, pos, cos2,
+                         sinm, attn, k_new, v_new, ks_new, vs_new, B, H, n_kv,
+                         D, S, stream);
 }

@@ -11,6 +11,15 @@ multi-block prefill has no counterpart yet); shorter ones through the T=1
 path, teacher-forced and without the lm_head (the reference's
 token-by-token prefill). The xorshift coin stream and the reference's
 one-step print lag follow the JAX engine exactly.
+
+Speculative decoding (spec="ngram", the JAX engine's prompt lookup):
+propose_ngram takes the spec_k tokens that followed the latest earlier
+occurrence of the history's trailing n-gram, one teacher-forced forward
+over [last token, proposal] gives the model's choice at every position,
+and the longest agreeing prefix plus the model's token at the first
+mismatch is emitted: the plain stream, up to spec_k + 1 tokens for one
+pass over the weights. Sampled verify positions use the coins plain
+decode would draw there (peeked, then consumed only for emitted tokens).
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from __future__ import annotations
 import sys
 import time
 
+import numpy as np
 import torch
 
 from llama_cu_awq_torch.config import ModelConfig
@@ -29,6 +39,26 @@ from llama_cu_awq_torch.tokenizer import EOS_TOKEN, Tokenizer
 
 # teacher-forced prefill block width (the JAX engine's PREFILL_BLOCK)
 PREFILL_BLOCK = 128
+
+
+def propose_ngram(hist, k: int, ns=(3, 2)) -> list[int] | None:
+    """The k tokens that followed the most recent earlier occurrence of
+    the trailing n-gram of hist (the largest n in ns first), padded by
+    repeating the last when the match lands near the end; None without a
+    match. Host-side numpy, O(len(hist)) a call."""
+    h = np.asarray(hist, np.int32)
+    for n in ns:
+        if len(h) <= n:
+            continue
+        win = np.lib.stride_tricks.sliding_window_view(h[:-1], n)
+        hits = np.nonzero((win == h[-n:]).all(axis=1))[0]
+        if hits.size:
+            s = int(hits[-1]) + n
+            prop = [int(t) for t in h[s:s + k]]
+            if prop:
+                # a padded token is emitted only if the model agrees
+                return prop + [prop[-1]] * (k - len(prop))
+    return None
 
 
 def attn_buckets(seq_len: int, first: int = 128, n_bins: int = 8):
@@ -50,22 +80,25 @@ class InferenceEngine:
                  attn_impl: str | None = None, kv_quant: bool | int = False,
                  max_seq: int | None = None, temperature: float = 0.5,
                  topp: float = 0.6, seed: int = 0, chunk_size: int = 16,
-                 spec: str | None = None, device="cuda"):
+                 spec: str | None = None, spec_k: int = 7, device="cuda"):
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
                              f"runs on {self.device}")
-        if spec is not None:
-            raise NotImplementedError("speculative decoding (--spec) is "
-                                      "not ported yet")
-        if kv_quant == 4:
-            raise NotImplementedError("the int4 KV cache (--kv-bits 4) is "
-                                      "not ported yet")
+        if spec not in (None, "ngram"):
+            raise ValueError(f"unknown spec mode {spec!r} "
+                             "(supported: 'ngram')")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.attn_impl = attn_impl if attn_impl is not None else "auto"
+        # kv_quant: False -> bf16 cache, True or 8 -> int8, 4 -> int4
         self.kv_quant = bool(kv_quant)
+        self.kv_bits = 4 if kv_quant == 4 else 8
+        self.spec = spec
+        self.spec_k = spec_k
+        self.spec_stats = {"proposed": 0, "accepted": 0, "verifies": 0}
+        self._hist: list[int] = []  # prompt and emitted tokens (spec)
         self.max_seq = max_seq or cfg.seq_len
         self.temperature = temperature
         self.topp = topp
@@ -77,7 +110,8 @@ class InferenceEngine:
 
     def _init_cache(self):
         return init_kv_cache(self.cfg, 1, self.max_seq,
-                             quantized=self.kv_quant, device=self.device)
+                             quantized=self.kv_quant, kv_bits=self.kv_bits,
+                             device=self.device)
 
     def _bucket_for(self, seq: int) -> int:
         for b in self._buckets:
@@ -113,6 +147,7 @@ class InferenceEngine:
     def reset(self):
         self.cache = self._init_cache()
         self.pos = 0
+        self._hist = []
 
     def _prefill(self, tokens: list[int], *, collect_logits: bool = False):
         """Feed prompt tokens at the current position (the JAX engine's
@@ -129,6 +164,7 @@ class InferenceEngine:
         vocab) f32 rows on the host, moved one block at a time.
         """
         assert tokens
+        self._hist.extend(tokens)
         if not collect_logits and len(tokens) < PREFILL_BLOCK // 2:
             attn_len = self._bucket_for(self.pos + len(tokens))
             toks = torch.tensor(tokens, dtype=torch.int32,
@@ -202,7 +238,7 @@ class InferenceEngine:
         prev_token = prompt_tokens[n_pref - 1]
         token = torch.tensor([prev_token], dtype=torch.int32,
                              device=self.device)
-        generated, hit_eos = self._decode_tokens(token, steps - n_pref + 1)
+        generated, hit_eos = self._decode_auto(token, steps - n_pref + 1)
 
         # the reference prints the token from the previous iteration, so the
         # final generated token is never printed unless EOS stopped it
@@ -260,6 +296,93 @@ class InferenceEngine:
             token = toks[-1]
         return generated, False
 
+    # ------------------------------------------------------------------
+    # speculative decoding (the JAX engine's engine.py:343-453,483-494)
+
+    def _decode_auto(self, token: torch.Tensor, max_steps: int,
+                     stop_at_eos: bool = True, on_token=None):
+        """The speculative loop when spec is on, else the plain chunks."""
+        if self.spec:
+            self._hist.append(int(token[0]))
+            return self._decode_tokens_spec(token, max_steps,
+                                            stop_at_eos=stop_at_eos,
+                                            on_token=on_token)
+        return self._decode_tokens(token, max_steps, stop_at_eos=stop_at_eos,
+                                   on_token=on_token)
+
+    def _spec_verify(self, tokens: list[int], coins: torch.Tensor,
+                     attn_len: int) -> list[int]:
+        """One teacher-forced forward over [last, p_1..p_k] at self.pos:
+        out[t] is the model's token after consuming p_1..p_t (argmax at
+        temperature 0, else the sampler on coins[t]). Cache rows written
+        past what is later accepted lie beyond the rolled-back position
+        and are overwritten before any step reads them."""
+        toks = torch.tensor([tokens], dtype=torch.int32, device=self.device)
+        logits, _ = forward(self.params, self.cfg, toks, self._positions(1),
+                            self.cache, attn_len=attn_len,
+                            attn_impl=self.attn_impl, logits_all=True)
+        if self.temperature == 0.0:
+            out = torch.argmax(logits, dim=-1)
+        else:
+            out = sample_token(logits, coins, self.temperature, self.topp)
+        return out[0].tolist()  # the host sync of a verify
+
+    def _decode_tokens_spec(self, token: torch.Tensor, max_steps: int,
+                            stop_at_eos: bool = True, on_token=None):
+        """Speculative _decode_tokens (B=1): the same token stream, one
+        host sync per verify, or short plain chunks while nothing
+        matches. Returns (tokens list, hit_eos)."""
+        generated: list[int] = []
+        last = int(token[0])
+        while len(generated) < max_steps:
+            k = self.spec_k
+            prop = (propose_ngram(self._hist, k)
+                    if self.pos + k + 1 <= self.max_seq else None)
+            if prop is None:
+                # a short plain chunk, so the n-gram check comes back
+                # every spec_k steps
+                budget = min(k, self.chunk_size, max_steps - len(generated))
+                new, hit = self._decode_tokens(
+                    torch.tensor([last], dtype=torch.int32,
+                                 device=self.device), budget,
+                    stop_at_eos=stop_at_eos, on_token=on_token)
+                generated.extend(new)
+                self._hist.extend(new)
+                if hit or not new:
+                    return generated, hit
+                last = new[-1]
+                continue
+            if self.temperature > 0.0:
+                # peek the next k+1 coins without consuming them: coin t
+                # is the one plain decode draws at emitted step t
+                saved = self.rng.state
+                coins = self._coins(k + 1).T
+                self.rng.state = saved
+            else:
+                coins = torch.zeros(1, k + 1, device=self.device)
+            out = self._spec_verify([last] + prop, coins,
+                                    self._bucket_for(self.pos + k + 1))
+            m = 0
+            while m < k and out[m] == prop[m]:
+                m += 1
+            self.spec_stats["proposed"] += k
+            self.spec_stats["accepted"] += m
+            self.spec_stats["verifies"] += 1
+            emitted = out[:m + 1][:max_steps - len(generated)]
+            hit = stop_at_eos and EOS_TOKEN in emitted
+            if hit:
+                emitted = emitted[:emitted.index(EOS_TOKEN) + 1]
+            self.pos += len(emitted)
+            self._consume_coins(len(emitted))
+            generated.extend(emitted)
+            self._hist.extend(emitted)
+            if on_token:
+                on_token(emitted)
+            if hit:
+                return generated, True
+            last = emitted[-1]
+        return generated, False
+
     def generate_benchmark(self, prompt_tokens: list[int], steps: int):
         """Timed generation without per-chunk host syncs or text decoding:
         prompt + device-chained decode chunks, one host read at the end.
@@ -274,6 +397,12 @@ class InferenceEngine:
             self._prefill(prompt_tokens[:n_pref - 1])
         token = torch.tensor([prompt_tokens[n_pref - 1]], dtype=torch.int32,
                              device=self.device)
+        if self.spec:
+            # the same accounting: the loop emits steps - n_pref + 1 tokens
+            tokens, _ = self._decode_auto(token, steps - n_pref + 1,
+                                          stop_at_eos=False)
+            dt = time.time() - start
+            return tokens, dt, (steps - 1) / dt
         outs = []
         remaining = steps - n_pref + 1
         while remaining > 0 and self.pos < self.max_seq:
@@ -325,7 +454,7 @@ class InferenceEngine:
                 pieces.append(piece)
                 state["prev"] = nxt
 
-        self._decode_tokens(token, budget, on_token=emit)
+        self._decode_auto(token, budget, on_token=emit)
         return "".join(pieces)
 
     def chat_loop(self, cli_user_prompt=None, cli_system_prompt=None,

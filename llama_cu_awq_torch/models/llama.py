@@ -20,15 +20,16 @@ import torch
 from llama_cu_awq_torch.config import ModelConfig
 from llama_cu_awq_torch.device import resolve_device
 from llama_cu_awq_torch.io.checkpoint import RawCheckpoint, RawQWeight
+from llama_cu_awq_torch.ops.cuda import batched_attention as bda
 from llama_cu_awq_torch.ops.cuda import prefill_attention as pfa
-from llama_cu_awq_torch.ops.cuda.attention_step import (INV_127,
-                                                        attention_step,
+from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
                                                         kernel_takes,
                                                         rope_rows)
 from llama_cu_awq_torch.ops.linear import dense_matmul, qmatmul, qmatmul_fused
 from llama_cu_awq_torch.ops.norms import RMS_EPS
 from llama_cu_awq_torch.ops.rope import apply_rope, rope_angles
 from llama_cu_awq_torch.quant.int8 import Int8Dense, quantize_dense_int8
+from llama_cu_awq_torch.quant.kv import quantize_kv, quantize_kv4, unpack_kv4
 from llama_cu_awq_torch.quant.qtensor import QTensor
 
 # attn_impl "auto": plain attention below this window, the attention_step
@@ -68,7 +69,9 @@ class LlamaParams:
 class KVCache:
     """Per-layer lists of (B, max_seq, n_kv_heads, head_dim) buffers: bf16,
     or int8 codes with (B, max_seq, n_kv_heads) f32 scales (symmetric
-    per-vector, absmax/127)."""
+    per-vector, quant/kv.py), or int4 codes packed two to a byte,
+    (B, max_seq, n_kv_heads, head_dim // 2) int8, with the same scales.
+    A last dim of head_dim // 2 is how forward tells the int4 cache."""
 
     k: list
     v: list
@@ -84,10 +87,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype=torch.bfloat16, quantized: bool = False,
                   kv_bits: int = 8, device="cuda") -> KVCache:
     dev = resolve_device(device)
-    if quantized and kv_bits == 4:
-        raise NotImplementedError("the int4 KV cache (--kv-bits 4) is not "
-                                  "ported yet")
-    if kv_bits != 8:
+    if kv_bits not in (4, 8):
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     n = cfg.n_layers
@@ -97,22 +97,14 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                        [torch.zeros(shape, dtype=dtype, device=dev)
                         for _ in range(n)])
     sshape = shape[:-1]
+    if kv_bits == 4:
+        shape = sshape + (cfg.head_dim // 2,)
 
     def zeros(s, dt):
         return [torch.zeros(s, dtype=dt, device=dev) for _ in range(n)]
 
     return KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
                    zeros(sshape, torch.float32), zeros(sshape, torch.float32))
-
-
-def quantize_kv(x: torch.Tensor):
-    """Symmetric per-vector int8: (..., D) float -> (int8 codes, f32 scales
-    (...)). The scale is absmax * f32(1/127), as XLA computes the JAX
-    package's absmax/127; torch.round rounds half to even, as jnp.round."""
-    xf = x.float()
-    s = torch.clamp(xf.abs().amax(dim=-1) * INV_127, min=1e-10)
-    q = torch.round(xf / s[..., None]).to(torch.int8)
-    return q, s
 
 
 # ---------------------------------------------------------------------------
@@ -298,16 +290,35 @@ def _attention(q, k_cache, v_cache, mask, act_dtype) -> torch.Tensor:
     1/sqrt(D), causal mask (_causal_mask), scores staged through act_dtype
     (the reference's half att buffer), f32 softmax, probabilities in
     act_dtype, f32 accumulation. q: (B, T, H, D); caches (B, A, Hkv, D)
-    holding the current block. Returns (B, T, H*D) f32."""
+    holding the current block, or for the int4 cache (codes, scales)
+    pairs, whose nibble planes run as split dots, one per plane, each
+    code times its scale in act_dtype. Returns (B, T, H*D) f32."""
     B, T, H, D = q.shape
-    n_kv = k_cache.shape[2]
+    kv4 = isinstance(k_cache, tuple)
+    n_kv = (k_cache[0] if kv4 else k_cache).shape[2]
     qg = q.reshape(B, T, n_kv, H // n_kv, D).float()
-    scores = torch.einsum("bthgd,bshd->bthgs", qg, k_cache.float())
+
+    def dot(a, b):
+        return torch.einsum("bthgd,bshd->bthgs", a, b.float())
+
+    def av(att, v):
+        return torch.einsum("bthgs,bshd->bthgd", att, v.float())
+
+    if kv4:
+        d2 = D // 2
+        k_lo, k_hi = unpack_kv4(*k_cache, act_dtype)
+        scores = dot(qg[..., :d2], k_lo) + dot(qg[..., d2:], k_hi)
+    else:
+        scores = dot(qg, k_cache)
     scores = scores * (1.0 / math.sqrt(D))
     scores = scores.masked_fill(~mask, float("-inf"))
     scores = scores.to(act_dtype).float()
-    att = torch.softmax(scores, dim=-1).to(act_dtype)
-    out = torch.einsum("bthgs,bshd->bthgd", att.float(), v_cache.float())
+    att = torch.softmax(scores, dim=-1).to(act_dtype).float()
+    if kv4:
+        v_lo, v_hi = unpack_kv4(*v_cache, act_dtype)
+        out = torch.cat([av(att, v_lo), av(att, v_hi)], dim=-1)
+    else:
+        out = av(att, v_cache)
     return out.reshape(B, T, H * D)
 
 
@@ -331,29 +342,38 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
 
     tokens: (B, T) int; pos: (B,) int32 absolute position of tokens[:, 0],
     on the params' device; cache: KVCache with at least attn_len rows,
-    updated in place. attn_len: attention window (>= max(pos) + T),
-    default the whole cache. attn_impl: "einsum" (plain attention
-    throughout), "fused_step" (the attention_step kernel on T == 1 steps;
-    ValueError for head shapes the kernel cannot take), "auto"
-    (fused_step from a FSTEP_MIN_WINDOW window on, where the kernel takes
-    the head shapes) or None (plain attention on T == 1 steps). Under
-    every choice but "einsum", a block of T >= PFK_MIN_T tokens takes the
-    prefill_attention kernel where it takes the head shapes. plain: the
-    kernels' plain versions on any device.
+    updated in place (bf16, int8, or the int4 cache, told by its halved
+    last dim). attn_len: attention window (>= max(pos) + T), default the
+    whole cache. attn_impl on T == 1 steps:
+      None      plain attention;
+      "einsum"  plain attention throughout, T > 1 blocks included;
+      "fused_step"  the attention_step kernel (any cache format);
+      "auto"    fused_step from a FSTEP_MIN_WINDOW window on, where the
+                kernel takes the head shapes, else plain attention;
+      "batched", "batched_static"  the cache row is written first, then
+                the batched_decode_attention kernel reads rows <= pos[b]
+                ("batched", per-slot early exit) or walks the whole
+                window under the mask ("batched_static"); bf16 and int8
+                caches only.
+    An explicit fused_step or batched that its kernel cannot take (head
+    shapes outside the kernel's rule, or batched with the int4 cache)
+    raises ValueError, where the JAX package warns and runs its einsum
+    path. Under every choice but "einsum", a block of T >= PFK_MIN_T
+    tokens takes the prefill_attention kernel where it takes the head
+    shapes and the cache is not int4; other T > 1 blocks take plain
+    attention. plain: the kernels' plain versions on any device.
     Returns (logits, cache): logits f32 (B, T, vocab) if logits_all else
     (B, vocab), None with no_logits.
     """
     if act_dtype != torch.bfloat16:
         raise NotImplementedError("the port runs bf16 activations only")
-    if attn_impl in ("batched", "batched_static"):
-        raise NotImplementedError(
-            "attn_impl='batched' (batched_decode_attention) is not ported "
-            "yet")
-    if attn_impl not in (None, "auto", "einsum", "fused_step"):
+    if attn_impl not in (None, "auto", "einsum", "fused_step", "batched",
+                         "batched_static"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     B, T = tokens.shape
     A = attn_len or cache.k[0].shape[1]
     H, D, KV = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
+    kv4 = cache.quantized and cache.k[0].shape[-1] == D // 2
 
     x = params.embed[tokens.long()].to(act_dtype)  # (B, T, dim)
     positions = pos[:, None].long() + torch.arange(T, device=pos.device)
@@ -365,13 +385,24 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(
             f"attn_impl='fused_step': the attention_step kernel cannot take "
             f"n_heads={H}, n_kv_heads={KV}, head_dim={D}")
+    batched = attn_impl in ("batched", "batched_static")
+    if batched and kv4:
+        raise ValueError(
+            f"attn_impl={attn_impl!r}: the batched_decode_attention kernel "
+            f"does not take the int4 KV cache (kv_bits=4)")
+    if batched and not bda.kernel_takes(H, KV, D):
+        raise ValueError(
+            f"attn_impl={attn_impl!r}: the batched_decode_attention kernel "
+            f"cannot take n_heads={H}, n_kv_heads={KV}, head_dim={D}")
     if attn_impl == "auto":
         attn_impl = ("fused_step" if step_ok and A >= FSTEP_MIN_WINDOW
                      else None)
     fstep = attn_impl == "fused_step" and T == 1
+    bstep = batched and T == 1
     # T > 1 blocks (prefill, perplexity): the flash kernel over the
-    # unsliced cache (models/llama.py:637-661 of the JAX package)
-    pfk = (T >= PFK_MIN_T and attn_impl in (None, "fused_step")
+    # unsliced cache (models/llama.py:637-661 of the JAX package); the
+    # int4 cache takes plain attention there, as in the JAX package
+    pfk = (T >= PFK_MIN_T and not kv4 and attn_impl != "einsum"
            and pfa.kernel_takes(H, KV, D, T))
     # per-forward constants, shared by every layer
     rows = _cache_rows(positions, cache.k[0].shape[1])
@@ -379,23 +410,23 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
         cos2, sinm = rope_rows(pos, D, cfg.rope_theta)
     else:
         angles = rope_angles(positions, D, cfg.rope_theta)
-        mask = None if pfk else _causal_mask(positions, A)
+        mask = None if pfk or bstep else _causal_mask(positions, A)
 
     for l, layer in enumerate(params.layers):
         qkv, _ = qmatmul_fused(x, layer.wqkv, plain,
                                prescale=(ss, layer.attn_norm),
                                out_dtype=act_dtype)
+        ks_l = cache.k_scale[l] if cache.quantized else None
+        vs_l = cache.v_scale[l] if cache.quantized else None
         if fstep:
             attn_k, kn, vn, ksn, vsn = attention_step(
-                qkv[:, 0], cache.k[l], cache.v[l], pos, cos2, sinm,
-                cache.k_scale[l] if cache.quantized else None,
-                cache.v_scale[l] if cache.quantized else None,
-                n_heads=H, plain=plain)
+                qkv[:, 0], cache.k[l], cache.v[l], pos, cos2, sinm, ks_l,
+                vs_l, n_heads=H, kv_bits=4 if kv4 else 8, plain=plain)
             _update_cache(cache.k[l], kn[:, None], rows)
             _update_cache(cache.v[l], vn[:, None], rows)
             if cache.quantized:
-                _update_cache(cache.k_scale[l], ksn[:, None], rows)
-                _update_cache(cache.v_scale[l], vsn[:, None], rows)
+                _update_cache(ks_l, ksn[:, None], rows)
+                _update_cache(vs_l, vsn[:, None], rows)
             attn = attn_k.reshape(B, 1, H * D).to(act_dtype)
         else:
             # q and k heads rotate in one call (rope is per element)
@@ -405,29 +436,38 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
             qh, kh = qk[:, :, :H], qk[:, :, H:]
             vh = heads[:, :, H + KV:]
             if cache.quantized:
-                kq, ks = quantize_kv(kh)
-                vq, vs = quantize_kv(vh)
+                quantize = quantize_kv4 if kv4 else quantize_kv
+                kq, ks = quantize(kh)
+                vq, vs = quantize(vh)
                 _update_cache(cache.k[l], kq, rows)
                 _update_cache(cache.v[l], vq, rows)
-                _update_cache(cache.k_scale[l], ks, rows)
-                _update_cache(cache.v_scale[l], vs, rows)
+                _update_cache(ks_l, ks, rows)
+                _update_cache(vs_l, vs, rows)
             else:
                 _update_cache(cache.k[l], kh, rows)
                 _update_cache(cache.v[l], vh, rows)
-            if pfk:
+            if bstep:
+                # the whole cache, unsliced; the kernel reads rows <= pos
+                attn = bda.batched_decode_attention(
+                    qh[:, 0], cache.k[l], cache.v[l], pos, ks_l, vs_l,
+                    attn_len=A, early_exit=attn_impl == "batched",
+                    plain=plain).reshape(B, 1, H * D)
+            elif pfk:
                 # codes and scales straight from the whole cache; the
                 # kernel reads only rows below each slot's horizon
                 attn = pfa.prefill_attention(
-                    qh, cache.k[l], cache.v[l], pos,
-                    cache.k_scale[l] if cache.quantized else None,
-                    cache.v_scale[l] if cache.quantized else None,
+                    qh, cache.k[l], cache.v[l], pos, ks_l, vs_l,
                     attn_len=A, plain=plain).reshape(B, T, H * D)
+            elif kv4:
+                attn = _attention(qh, (cache.k[l][:, :A], ks_l[:, :A]),
+                                  (cache.v[l][:, :A], vs_l[:, :A]), mask,
+                                  act_dtype)
             elif cache.quantized:
                 # dequantized window, rounded to act_dtype as the JAX path
                 k_att = (cache.k[l][:, :A].to(act_dtype)
-                         * cache.k_scale[l][:, :A, :, None].to(act_dtype))
+                         * ks_l[:, :A, :, None].to(act_dtype))
                 v_att = (cache.v[l][:, :A].to(act_dtype)
-                         * cache.v_scale[l][:, :A, :, None].to(act_dtype))
+                         * vs_l[:, :A, :, None].to(act_dtype))
                 attn = _attention(qh, k_att, v_att, mask, act_dtype)
             else:
                 attn = _attention(qh, cache.k[l][:, :A], cache.v[l][:, :A],

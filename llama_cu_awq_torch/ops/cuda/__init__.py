@@ -11,10 +11,13 @@ wrapper calls it once where it launches its kernel.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 LAUNCHES = {"int4_matmul_fused": 0, "int4_matmul": 0, "dense_gemv": 0,
-            "attention_step": 0, "prefill_attention": 0}
+            "attention_step": 0, "attention_step_kv4": 0,
+            "prefill_attention": 0, "batched_decode_attention": 0}
 VARIANT_LAUNCHES: dict[str, int] = {}
 
 
@@ -52,6 +55,12 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     require(tuple(t.shape) == tuple(shape),
             f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     require(t.is_contiguous(), f"{name} must be contiguous")
+
+
+def attn_scale(head_dim: int) -> float:
+    """f32(1/sqrt(D)), as the JAX kernels' Python float meets f32 scores."""
+    return float(torch.tensor(1.0 / math.sqrt(head_dim),
+                              dtype=torch.float32))
 
 
 def stream_ptr() -> int:

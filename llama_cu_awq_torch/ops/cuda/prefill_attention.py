@@ -20,12 +20,12 @@ against it the two agree to bf16 rounding of p.)
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
-from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
-                                         require, stream_ptr, use_plain)
+from llama_cu_awq_torch.ops.cuda import (_build, attn_scale, check_tensor,
+                                         count, require, stream_ptr,
+                                         use_plain)
 
 CHUNK = 64  # matches KC in csrc/prefill_attention.cu
 _NEG = -1e30
@@ -42,12 +42,6 @@ def kernel_takes(n_heads: int, n_kv: int, head_dim: int, T: int) -> bool:
             and T >= 1)
 
 
-def _scale(head_dim: int) -> float:
-    """f32(1/sqrt(D)), as the JAX kernel's Python float meets f32 scores."""
-    return float(torch.tensor(1.0 / math.sqrt(head_dim),
-                              dtype=torch.float32))
-
-
 def prefill_attention_plain(q, k, v, pos, k_scale=None, v_scale=None, *,
                             attn_len: int | None = None) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch (see the module docstring)."""
@@ -56,7 +50,7 @@ def prefill_attention_plain(q, k, v, pos, k_scale=None, v_scale=None, *,
     kv_mul = H // n_kv
     window = min(attn_len or S, S)
     quantized = k_scale is not None
-    scale = _scale(D)
+    scale = attn_scale(D)
     dev = q.device
     qg = q.to(torch.bfloat16).float().reshape(B, T, n_kv, kv_mul, D)
     t_idx = torch.arange(T, device=dev)
@@ -123,7 +117,7 @@ def prefill_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
     rc = fn(qb.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None, pos.data_ptr(),
-            out.data_ptr(), B, T, H, n_kv, D, S, window, _scale(D),
+            out.data_ptr(), B, T, H, n_kv, D, S, window, attn_scale(D),
             stream_ptr())
     _build.check(rc, "prefill_attention", "prefill_attention")
     count("prefill_attention",

@@ -12,7 +12,8 @@ of x than one pass or one GEMM tile holds, a partial query tile, position
 tests/test_pallas_int4.py:68 (rtol 2e-2, atol 2e-3) where a bf16 output or
 a bf16 p may round one ulp apart after f32 sums in another order; f32 sum
 order only for the dense GEMV; bit-equal for the new cache rows, int8
-codes and scales.
+and int4 codes and scales; token for token for the speculative stream
+against the plain one.
 """
 
 import pytest
@@ -27,6 +28,8 @@ from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
                                          reset_launches)
 from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
                                                         rope_rows)
+from llama_cu_awq_torch.ops.cuda.batched_attention import (
+    batched_decode_attention)
 from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
 from llama_cu_awq_torch.ops.cuda.int4_matmul import (GEMM_MIN_M,
                                                      int4_matmul,
@@ -192,6 +195,61 @@ def test_attention_step_matches_plain(gen, quant, H, n_kv, D):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("H,n_kv,D", [(4, 4, 128), (8, 2, 128), (32, 4, 64)])
+def test_attention_step_kv4_matches_plain(gen, H, n_kv, D):
+    """The int4 cache: every byte value in the history (codes -8..7), the
+    new row packed and scaled bit-equal to the plain version."""
+    B, S = 3, 320
+    pos = torch.tensor([0, 77, 319], dtype=torch.int32, device="cuda")
+    cos2, sinm = rope_rows(pos, D, 10000.0)
+    qkv = _randn(gen, B, (H + 2 * n_kv) * D)
+    kc, vc = (torch.randint(-128, 128, (B, S, n_kv, D // 2),
+                            dtype=torch.int8, device="cuda", generator=gen)
+              for _ in range(2))
+    ks, vs = (torch.rand(B, S, n_kv, device="cuda", generator=gen) * 0.2
+              for _ in range(2))
+    args = (qkv, kc, vc, pos, cos2, sinm, ks, vs)
+    reset_launches()
+    got = attention_step(*args, n_heads=H, kv_bits=4)
+    want = attention_step(*args, n_heads=H, kv_bits=4, plain=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attention_step_kv4"] == 1
+    assert LAUNCHES["attention_step"] == 0
+    _close(got[0], want[0], **INT4)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("H,n_kv,D", [(4, 4, 128), (8, 2, 128), (32, 4, 64)])
+def test_batched_attention_matches_plain(gen, early_exit, quant, H, n_kv, D):
+    """Three slots at position 0, mid-window and the window's last row,
+    attn_len 320 short of the 384-row cache."""
+    B, S, attn_len = 3, 384, 320
+    pos = torch.tensor([0, 150, 319], dtype=torch.int32, device="cuda")
+    q = _randn(gen, B, H, D)
+    if quant:
+        kc, vc = (torch.randint(-127, 128, (B, S, n_kv, D), dtype=torch.int8,
+                                device="cuda", generator=gen)
+                  for _ in range(2))
+        ks, vs = (torch.rand(B, S, n_kv, device="cuda", generator=gen)
+                  * 0.02 for _ in range(2))
+    else:
+        kc, vc = _randn(gen, B, S, n_kv, D), _randn(gen, B, S, n_kv, D)
+        ks = vs = None
+    args = (q, kc, vc, pos, ks, vs)
+    reset_launches()
+    got = batched_decode_attention(*args, attn_len=attn_len,
+                                   early_exit=early_exit)
+    want = batched_decode_attention(*args, attn_len=attn_len,
+                                    early_exit=early_exit, plain=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["batched_decode_attention"] == 1
+    assert got.shape == (B, H, D) and got.dtype == torch.float32
+    _close(got, want, **INT4)
+
+
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("H,n_kv,D", [(4, 4, 128), (8, 2, 128), (32, 4, 64)])
 @pytest.mark.parametrize("positions", [(0,), (150,), (0, 201)])
@@ -272,6 +330,54 @@ def test_forward_on_card_matches_cpu(gen, attn_impl, quantized):
     for kernel, n in LAUNCHES.items():
         assert n == sum(v for k, v in VARIANT_LAUNCHES.items()
                         if k.startswith(kernel + "/"))
+
+
+@pytest.mark.parametrize("attn_impl,kv", [
+    ("fused_step", 4), ("auto", 4), ("batched", 0), ("batched", 8),
+    ("batched_static", 0)])
+def test_forward_new_paths_on_card_matches_cpu(gen, attn_impl, kv):
+    """The int4 cache (attention_step_kv4 under fused_step, plain
+    split-plane attention under auto at this window) and the batched
+    kernel over bf16 and int8 caches, five steps on the card against the
+    CPU; the same bar as test_forward_on_card_matches_cpu."""
+    ckpt = random_checkpoint(_CFG, seed=3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params_from_checkpoint(ckpt, device=dev)
+        c = init_kv_cache(_CFG, 1, 256, quantized=kv > 0,
+                          kv_bits=4 if kv == 4 else 8, device=dev)
+        reset_launches()
+        logits = []
+        for step, t in enumerate([1, 7, 42, 3, 200]):
+            lg, c = forward(p, _CFG, torch.tensor([[t]], device=dev),
+                            torch.tensor([step], dtype=torch.int32,
+                                         device=dev), c,
+                            attn_impl=attn_impl)
+            logits.append(lg.float().cpu())
+        out[dev] = torch.stack(logits)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=2e-2,
+                               atol=2e-2)
+    want = 5 * _CFG.n_layers
+    assert LAUNCHES["attention_step_kv4"] == (
+        want if attn_impl == "fused_step" else 0)
+    assert LAUNCHES["batched_decode_attention"] == (
+        want if attn_impl.startswith("batched") else 0)
+    assert LAUNCHES["attention_step"] == 0
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_spec_engine_on_card_matches_plain(gen, temperature):
+    """The speculative stream on the card is the plain stream on the card:
+    verify blocks of T = 5 against T = 1 steps, greedy and sampled."""
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    prompt = [1, 5, 9, 13, 7, 5, 9, 13]
+    streams = []
+    for spec in (None, "ngram"):
+        eng = InferenceEngine(params, _CFG, None, temperature=temperature,
+                              seed=7, spec=spec, spec_k=4, max_seq=128)
+        streams.append(eng.generate_benchmark(prompt, 80)[0])
+    assert streams[0] == streams[1]
+    assert eng.spec_stats["verifies"] > 0
 
 
 @pytest.mark.parametrize("quantized", [False, True])

@@ -26,6 +26,11 @@ from llama_cu_awq_tpu.io.checkpoint import load_checkpoint as j_load
 from llama_cu_awq_tpu.io.checkpoint import random_checkpoint, save_checkpoint
 from llama_cu_awq_tpu.quant.packing import dequantize_np as j_dequant_np
 
+# one intra-op thread per process: the suite runs in several worker
+# processes, and torch's default pool in each oversubscribes the cores
+# (tens of times slower on small tensors); it also fixes the CPU sum order
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _QNAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 

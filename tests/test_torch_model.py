@@ -19,6 +19,11 @@ from llama_cu_awq_tpu.config import ModelConfig
 from llama_cu_awq_tpu.io.checkpoint import random_checkpoint
 from llama_cu_awq_tpu.models import llama as jl
 
+# one intra-op thread per process: the suite runs in several worker
+# processes, and torch's default pool in each oversubscribes the cores
+# (tens of times slower on small tensors); it also fixes the CPU sum order
+torch.set_num_threads(1)
+
 TOKENS = [1, 7, 42, 3, 200, 99]
 
 
@@ -174,13 +179,26 @@ def test_kv_cache_from_numpy_continues_jax_state(tiny_config):
 
 
 def test_unported_options_raise(tiny_config):
+    """What forward and the cache still refuse: a KV width other than 4 or
+    8, an unknown attn_impl, activations other than bf16, and an explicit
+    batched that its kernel cannot take (the int4 cache, head_dim 16)."""
     _, tp = _params(tiny_config)
-    with pytest.raises(NotImplementedError):
-        tl.init_kv_cache(tiny_config, 1, 16, quantized=True, kv_bits=4,
+    with pytest.raises(ValueError, match="kv_bits"):
+        tl.init_kv_cache(tiny_config, 1, 16, quantized=True, kv_bits=3,
                          device="cpu")
+    tok = torch.tensor([[1]])
+    pos = torch.tensor([0], dtype=torch.int32)
     cache = tl.init_kv_cache(tiny_config, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tl.forward(tp, tiny_config, torch.tensor([[1]]),
-                   torch.tensor([0], dtype=torch.int32), cache,
-                   attn_impl="batched")
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        tl.forward(tp, tiny_config, tok, pos, cache, attn_impl="mono")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tl.forward(tp, tiny_config, tok, pos, cache,
+                   act_dtype=torch.float32)
+    with pytest.raises(ValueError, match="head_dim=16"):
+        tl.forward(tp, tiny_config, tok, pos, cache, attn_impl="batched")
+    kv4 = tl.init_kv_cache(tiny_config, 1, 16, quantized=True, kv_bits=4,
+                           device="cpu")
+    for impl in ("batched", "batched_static"):
+        with pytest.raises(ValueError, match="int4 KV cache"):
+            tl.forward(tp, tiny_config, tok, pos, kv4, attn_impl=impl)
     assert dataclasses.is_dataclass(tp)

@@ -44,6 +44,11 @@ from llama_cu_awq_tpu.quant.int8 import quantize_dense_int8 as j_q8
 from llama_cu_awq_tpu.quant.qtensor import QTensor as JQ
 from llama_cu_awq_tpu.quant.qtensor import to_tpu_layout
 
+# one intra-op thread per process: the suite runs in several worker
+# processes, and torch's default pool in each oversubscribes the cores
+# (tens of times slower on small tensors); it also fixes the CPU sum order
+torch.set_num_threads(1)
+
 
 def _bf16(a):
     """numpy f32 -> (jax bf16 array, torch bf16 tensor) with equal bits."""

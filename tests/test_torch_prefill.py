@@ -49,6 +49,11 @@ from tests.test_tokenizer import write_toy_tokenizer
 from tests.test_torch_engine import _toy_vocab
 from tests.test_torch_ops import _bf16, _np, _qtensors, _variant_args
 
+# one intra-op thread per process: the suite runs in several worker
+# processes, and torch's default pool in each oversubscribes the cores
+# (tens of times slower on small tensors); it also fixes the CPU sum order
+torch.set_num_threads(1)
+
 # head_dim 128 and a 256-row cache, so the JAX forward engages its Pallas
 # prefill kernel (prefill_attention.supports); GQA 2/1
 CFG = ModelConfig(dim=256, hidden_dim=384, n_layers=2, n_heads=2,

@@ -19,6 +19,11 @@ from llama_cu_awq_tpu.sampling import XorshiftRNG as JRNG
 from llama_cu_awq_tpu.sampling import greedy as j_greedy
 from llama_cu_awq_tpu.sampling import sample_token as j_sample
 
+# one intra-op thread per process: the suite runs in several worker
+# processes, and torch's default pool in each oversubscribes the cores
+# (tens of times slower on small tensors); it also fixes the CPU sum order
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("seed", [1, 1234, 2 ** 63 + 12345, 2 ** 64 + 7])
 def test_xorshift_coins_bit_identical(seed):
