@@ -38,7 +38,26 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      steps with spec="ngram" on a repetitive prompt beside the plain
      stream, replayed step by step through plain decode; and one 7B
      forward step at position 1500 through attention_step_kv4 and through
-     batched_decode_attention, kernels against plain versions.
+     batched_decode_attention, kernels against plain versions;
+  7. continuous batching and serving: the down_qkv chain kernel at m=1 and
+     m=8 against its plain version and bit for bit against the standalone
+     GEMV pair it replaces; 32 batch-1 decode steps at the 2048 bucket
+     (fused_step, bf16 KV) with LLAMA_TPU_DOWN_QKV=1 and without it, in
+     turns (equal streams, 31 chain launches a step); BatchEngine with 8
+     slots serving 16 greedy requests with prompts of 20 to 1000 tokens,
+     without and with the switch (aggregate tokens/s, latency, launches
+     per kernel variant, equal streams, the m=8 chain launched), a
+     profile of one 8-step chunk of 8 slots at positions around 1000, a
+     check that dispatching a chunk does not synchronize with the one in
+     flight, and profiles of run()'s one-chunk lookahead and of a loop of
+     synchronous steps over the same 4 chunks, in turns (run() also
+     queues a fifth, which it discards: the lookahead's cost at the end
+     of a drain), with run()'s host time split into dispatch and fetch;
+     the HTTP server (spec="ngram", a toy tokenizer) answering 8
+     concurrent completions, 4 of them streamed, two replayed step by step
+     through the single-sequence engine (each token within 0.1 of the
+     replayed argmax); and one 7B step at B=8 with the chain, kernels
+     against plain versions.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm; the port never calls them.
@@ -48,14 +67,19 @@ Prints the card line and a {"kernels": [...]} line, then
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # bf16 on the tensor cores, dense, same source: every operand of these
@@ -618,8 +642,6 @@ def unported_bounds() -> list[dict]:
     hist = 1500  # history rows, as the attention_step rows
     out = []
     for name, shape, n_bytes, n_flops in (
-            ("down_qkv.py:147 _down_qkv_2d", "down then next qkv, m=1",
-             down + qkv, 2 * (hid * dim + dim * 3 * dim)),
             ("int4_chain.py:479 ffn_chain", "o + gate_up + down + next qkv, "
              "m=1", o + gu + down + qkv,
              2 * (dim * dim + dim * 2 * hid + hid * dim + dim * 3 * dim)),
@@ -653,7 +675,9 @@ def profile_run(torch, label, prepare, run, n, per):
     """Where the time of run(*prepare()) goes, for n units of `per`
     (tokens, blocks): the host clock without the profiler (median of 3),
     then one run traced with torch.profiler for the device's own time per
-    kernel name. Device idle share = 1 - device busy / unprofiled wall."""
+    kernel name. Device idle share = 1 - device busy / unprofiled wall;
+    the traced run also counts the gaps of more than 0.1 ms between the
+    card's operations, where the host held the card back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -680,6 +704,16 @@ def profile_run(torch, label, prepare, run, n, per):
             t[0] += 1
             t[1] += e.self_cpu_time_total
     busy_ms = sum(v[1] for v in by_name.values()) / 1e3
+    # stretches of more than 0.1 ms in which the card ran nothing between
+    # two of its operations (the host had not queued the next one yet);
+    # shorter gaps are the launch-to-launch bubbles of a full queue
+    gaps, end = [], None
+    for s, e_ in sorted((e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA):
+        if end is not None and s - end > 100:
+            gaps.append(s - end)
+        end = e_ if end is None else max(end, e_)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     top_host = sorted(host.items(), key=lambda kv: -kv[1][1])[:10]
     print(json.dumps({
@@ -690,6 +724,9 @@ def profile_run(torch, label, prepare, run, n, per):
         f"device_busy_ms_per_{per}": busy_ms / n,
         "device_idle_share": (1 - busy_ms / (wall * 1e3)
                               if busy_ms else None),
+        "device_gaps_over_0.1ms": len(gaps),
+        "device_gap_ms": sum(gaps) / 1e3,
+        "largest_device_gap_ms": max(gaps, default=0.0) / 1e3,
         "top_device_ops": [{"name": n_[:80], "count": c, "ms": us / 1e3}
                            for n_, (c, us) in top],
         "top_host_ops_self_cpu": [{"name": n_[:60], "count": c,
@@ -715,13 +752,14 @@ def profile_decode(torch, eng, prompt, steps=16):
     profile_run(torch, "decode_chunk", prepare, run, steps, "token")
 
 
-def random_cache(torch, cfg, kv_quant, g, kv_bits=8):
+def random_cache(torch, cfg, kv_quant, g, kv_bits=8, batch=1):
     """A 2048-row KV cache of random rows (bf16; int8 codes and scales;
-    or with kv_bits=4 random packed bytes and scales), as a
-    kernels-against-plain check starts from."""
+    or with kv_bits=4 random packed bytes and scales) for `batch` slots,
+    as a kernels-against-plain check starts from."""
     from llama_cu_awq_torch.models import init_kv_cache
 
-    cache = init_kv_cache(cfg, 1, 2048, quantized=kv_quant, kv_bits=kv_bits)
+    cache = init_kv_cache(cfg, batch, 2048, quantized=kv_quant,
+                          kv_bits=kv_bits)
     lo, smax = (-128, 0.2) if kv_bits == 4 else (-127, 0.02)
     for l in range(cfg.n_layers):
         for buf, sc in ((cache.k[l], cache.k_scale),
@@ -746,10 +784,11 @@ def forward_check(torch, params, cfg, label, tok, pos, kv_quant, g,
     top-2 gap is wider than that."""
     from llama_cu_awq_torch.models import forward, init_kv_cache
 
-    cache = random_cache(torch, cfg, kv_quant, g, kv_bits)
+    B = tok.shape[0]
+    cache = random_cache(torch, cfg, kv_quant, g, kv_bits, batch=B)
     logits = {}
     for plain in (False, True):
-        c = init_kv_cache(cfg, 1, 2048, quantized=kv_quant, kv_bits=kv_bits)
+        c = init_kv_cache(cfg, B, 2048, quantized=kv_quant, kv_bits=kv_bits)
         for dst, src in zip(c.k + c.v + c.k_scale + c.v_scale,
                             cache.k + cache.v + cache.k_scale
                             + cache.v_scale):
@@ -1117,6 +1156,428 @@ def slice3_phase(torch, params, launches):
             attn_impl="batched")
 
 
+@contextlib.contextmanager
+def down_qkv_switch(on: bool):
+    """LLAMA_TPU_DOWN_QKV set to 1 or 0 for the block (forward reads it on
+    every call), then restored."""
+    old = os.environ.get("LLAMA_TPU_DOWN_QKV")
+    os.environ["LLAMA_TPU_DOWN_QKV"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["LLAMA_TPU_DOWN_QKV"]
+        else:
+            os.environ["LLAMA_TPU_DOWN_QKV"] = old
+
+
+def gemv_pair(torch, g, u, res, wd, wq, nw, out_dtype):
+    """The standalone launches the chain replaces, forced onto the GEMV:
+    the down GEMV with the SwiGLU prologue and residual, rms_scale, then
+    the qkv GEMV with the rmsnorm prologue (not counted)."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import _launch
+
+    m = g.shape[0]
+    x2, ss2 = _launch(g, wd, u2=u, res=res, out_dtype=torch.bfloat16,
+                      eps=1e-5, kernel="gemv")
+    qkv, _ = _launch(x2, wq, ss=ss2.reshape(m), nw=nw, out_dtype=out_dtype,
+                     kernel="gemv")
+    return x2, ss2, qkv
+
+
+def down_qkv_rows(torch, timer, rows, g):
+    """down_qkv at 7B shapes (down 11008x4096, then qkv 4096x12288) at m=1
+    (batch-1 decode) and m=8 (8 serving slots): against its plain version
+    (INT4_TOL) and against the standalone GEMV pair, which it must equal
+    bit for bit (each column sums in the GEMV's order; int4_gemv.cuh). The
+    pair's time stands beside the kernel's; the library time is two
+    torch._weight_int4pack_mm calls, down then qkv, without the SwiGLU,
+    residual, rms-scale and rmsnorm glue."""
+    from llama_cu_awq_torch.ops.cuda.down_qkv import down_qkv_fused
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    dim, hid, n_q = 4096, 11008, 3 * 4096
+    wd = random_qtensor(torch, QTensor, hid, dim, g)
+    wq = random_qtensor(torch, QTensor, dim, n_q, g)
+    for m, path in ((1, "down_qkv_b1"), (8, "batch_engine_dq")):
+        gu = torch.randn(m, 2 * hid, device="cuda", generator=g).bfloat16()
+        gate, up = gu.chunk(2, dim=-1)  # the gate_up halves, as forward
+        res = torch.randn(m, dim, device="cuda", generator=g).bfloat16()
+        nw = torch.rand(dim, device="cuda", generator=g) + 0.5
+        args = (gate, up, res, wd, wq, nw)
+        kw = dict(eps=1e-5, out_dtype=torch.bfloat16)
+        (x2, ss2, qkv), variant = launched_variant(
+            lambda: down_qkv_fused(*args, **kw))
+        rx2, rss2, rqkv = down_qkv_fused(*args, plain=True, **kw)
+        px2, pss2, pqkv = gemv_pair(torch, *args, torch.bfloat16)
+        torch.cuda.synchronize()
+        chk = check_close(f"down_qkv/m{m}", qkv, rqkv, **INT4_TOL)
+        check_close(f"down_qkv/m{m}/x2", x2, rx2, **INT4_TOL)
+        check_close(f"down_qkv/m{m}/ss2", ss2, rss2, **INT4_TOL)
+        diffs = [float((a.float() - b.float().reshape(a.shape)).abs().max())
+                 for a, b in ((x2, px2), (ss2, pss2), (qkv, pqkv))]
+        equal = (torch.equal(x2, px2) and torch.equal(qkv, pqkv)
+                 and torch.equal(ss2.reshape(-1), pss2.reshape(-1)))
+        print(json.dumps({
+            "check": f"down_qkv/m{m}/vs_gemv_pair", "max_abs_err": max(diffs),
+            "x2_ss2_qkv_max_abs_err": diffs, "bit_equal": equal,
+            "why": "each column sums in the standalone GEMV's order and each "
+                   "row's rms scale in rms_scale's (int4_gemv.cuh)"}),
+            flush=True)
+        if not equal:
+            raise AssertionError(f"down_qkv/m{m}: differs from the GEMV pair "
+                                 f"(max abs err {diffs})")
+        b, src = bound_ms(
+            nbytes(wd.qw, wd.scales, wd.zeros, wq.qw, wq.scales, wq.zeros,
+                   gate, up, res, nw, x2, ss2, qkv),
+            2 * m * (hid * dim + dim * n_q))
+        h = (torch.nn.functional.silu(gate.float()) * up.float()).bfloat16()
+        lib_down = int4pack_library(torch, wd, h)
+        lib_qkv = int4pack_library(torch, wq, x2)
+        rows.append(dict(
+            name=f"down_qkv/m{m}", kernel="down_qkv", route="cuda",
+            source="llama_cu_awq_torch/csrc/down_qkv.cu",
+            replaces="llama_cu_awq_tpu/ops/pallas/down_qkv.py:147",
+            variant=variant, path=path, **chk,
+            ms=timer(lambda: down_qkv_fused(*args, **kw)),
+            plain_ms=timer(lambda: down_qkv_fused(*args, plain=True, **kw),
+                           iters=5),
+            pair_ms=timer(lambda: gemv_pair(torch, *args, torch.bfloat16)),
+            bound_ms=b, bound_by=src,
+            library_ms=timer(lambda: (lib_down(), lib_qkv())),
+            library_call="torch._weight_int4pack_mm, down then qkv"))
+        r = rows[-1]
+        print(json.dumps({"kernel_check": r["name"], "kernel_ms": r["ms"],
+                          **{k: r[k] for k in (
+                              "max_abs_err", "rtol", "atol", "plain_ms",
+                              "pair_ms", "library_ms", "bound_ms",
+                              "bound_by")}}), flush=True)
+
+
+TOY_WORDS = [b" the", b" cat", b" sat", b" on", b" mat", b"s", b" a",
+             b"the", b"cat", b" "]
+
+
+def write_toy_tokenizer(path, vocab_size):
+    """A tokenizer.bin in the reference's format (max piece length, then
+    score, length and bytes of each piece): the special pieces, the 256
+    single bytes, a few words, padded to vocab_size. The checkout holds no
+    real vocabulary; the weights are random anyway."""
+    vocab = [(b"<unk>", 0.0), (b"<s>", 0.0), (b"</s>", 0.0)]
+    vocab += [(bytes([b]), -1000.0) for b in range(256)]
+    vocab += [(w, -float(i)) for i, w in enumerate(TOY_WORDS)]
+    vocab += [(b"<pad%d>" % i, -2000.0)
+              for i in range(vocab_size - len(vocab))]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", max(len(p) for p, _ in vocab)))
+        for piece, score in vocab:
+            f.write(struct.pack("<fi", score, len(piece)))
+            f.write(piece)
+    return path
+
+
+def http_json(url, body=None, stream=False):
+    """GET (body None) or POST a JSON body; returns (status, JSON), or
+    for stream=True (status, concatenated SSE text, last finish_reason)."""
+    data = None if body is None else json.dumps(
+        {**body, "stream": stream}).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if not stream:
+            return r.status, json.loads(r.read())
+        text, reason = [], None
+        for line in r:
+            line = line.decode().strip()
+            if line.startswith("data: ") and line != "data: [DONE]":
+                choice = json.loads(line[6:])["choices"][0]
+                text.append(choice["text"])
+                reason = choice["finish_reason"]
+        return r.status, "".join(text), reason
+
+
+def serve_http_run(torch, params, cfg, launches):
+    """make_server on 127.0.0.1 over a BatchEngine with spec="ngram" (the
+    server's default): 8 concurrent greedy completions, 4 of them
+    streamed, then /health and /stats; two blocking requests' token_ids
+    replayed step by step through the single-sequence engine."""
+    from llama_cu_awq_torch.engine import BatchEngine, InferenceEngine
+    from llama_cu_awq_torch.serve import make_server
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    tok = Tokenizer(write_toy_tokenizer(os.path.join(tmp, "tok.bin"),
+                                        cfg.vocab_size), cfg.vocab_size)
+    be = BatchEngine(params, cfg, tok, n_slots=8, max_seq=512, chunk_size=8,
+                     spec="ngram")
+    httpd, seng = make_server(be, tok, host="127.0.0.1", port=0)
+    seng.start()
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    prompts = [("the cat sat on the mat" * (1 + i % 3)) + " a" * i
+               for i in range(8)]
+    results = {}
+
+    def client(i):
+        body = {"prompt": prompts[i], "max_tokens": 32, "temperature": 0.0}
+        results[i] = http_json(base + "/v1/completions", body,
+                               stream=i % 2 == 1)
+
+    def run():
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        return time.perf_counter() - t0
+
+    try:
+        wall = run_path(torch, "serve_http", run, launches)
+        health = http_json(base + "/health")
+        stats = http_json(base + "/stats")[1]
+    finally:
+        httpd.shutdown()
+        seng.stop()
+        httpd.server_close()
+        server.join(timeout=30)
+    n_tokens = sum(len(r[1]["choices"][0]["token_ids"])
+                   for i, r in results.items() if i % 2 == 0)
+    done = [i for i, r in results.items() if r[0] == 200 and (
+        r[2] == "stop" if i % 2 else
+        r[1]["choices"][0]["finish_reason"] == "stop")]
+    print(json.dumps({
+        "e2e": "serve_http", "model": "llama2-7b", "slots": 8,
+        "max_seq": 512, "spec": "ngram", "requests": 8, "streamed": 4,
+        "finished": len(done), "wall_s": wall,
+        "blocking_tokens": n_tokens, "health": health,
+        "server_stats": stats, "spec_stats": be.spec_stats,
+        "scheduler": type(be.scheduler).__name__}), flush=True)
+    if sorted(done) != list(range(8)) or health != (200, {"status": "ok"}):
+        raise AssertionError(f"serve_http: finished {done}, health {health}")
+    if stats["requests"] != 8 or stats["active_slots"] != 0:
+        raise AssertionError(f"serve_http: stats {stats}")
+    del be
+    for i in (0, 2):
+        ids = tok.encode(prompts[i], bos=True, eos=False)
+        stream = results[i][1]["choices"][0]["token_ids"]
+        if not stream:
+            raise AssertionError(f"serve_http: request {i} got no tokens")
+        plain = InferenceEngine(params, cfg, None, temperature=0.0,
+                                max_seq=512)
+        base_stream = plain.generate_benchmark(
+            ids, len(ids) + len(stream) - 1)[0]
+        del plain
+        replay_check(torch, params, cfg, ids, stream, base_stream, 512)
+
+
+def profile_batch_chunk(torch, be):
+    """Where the time of one serving chunk goes: 8 slots decoding at
+    positions around 1000 (the 1024 bucket: fused_step attention), one
+    chunk of chunk_size steps at B=8, without and with the chain."""
+    deep = [[1] + [3 + (7919 * (i + 977 * j)) % 31990 for i in range(999)]
+            for j in range(8)]
+
+    def prepare():
+        be.reset()
+        for p in deep:
+            be.submit(p, max_new=64)
+        be.step()  # admission, the prompts' block prefill, a first chunk
+        torch.cuda.synchronize()
+        return ()
+
+    for on in (False, True):
+        with down_qkv_switch(on):
+            profile_run(torch, "batch_chunk_b8_pos1000" + (
+                "_chain" if on else ""), prepare, be.step,
+                be.chunk_size, "step")
+
+
+def profile_batch_run(torch, be):
+    """BatchEngine.run()'s lookahead against a loop of synchronous steps,
+    on the same work: 8 slots near position 1000 after their prompts'
+    block prefill and a first chunk, then 4 chunks of 8 steps each (run()
+    also queues a fifth, which it discards). First the check that a
+    dispatch queues its chunk without waiting for the chunk in flight:
+    under sync debug mode "error" a stream or device synchronization
+    raises. The profiles run in turns (run, steps, steps, run), since the
+    host clock drifts between runs; then one run() split into the host's
+    time in dispatch and in fetching and routing tokens: a fetch that
+    waits about nothing means the host, not the card, bounds the loop."""
+    deep = [[1] + [3 + (7919 * (i + 977 * j)) % 31990 for i in range(999)]
+            for j in range(8)]
+    n_steps = 4 * be.chunk_size
+
+    def prepare():
+        be.reset()
+        for p in deep:
+            be.submit(p, max_new=40)
+        be.step()
+        torch.cuda.synchronize()
+        return ()
+
+    def steps():
+        while be.pending:
+            be.step()
+
+    prepare()
+    first = be._dispatch_chunk()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = be._dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    be._process_chunk(first)
+    be._process_chunk(second)
+    print(json.dumps({"check": "batch_dispatch_queues_without_sync",
+                      "ok": True}), flush=True)
+    for label, fn in (("batch_run_b8_pos1000", be.run),
+                      ("batch_steps_b8_pos1000", steps),
+                      ("batch_steps_b8_pos1000_again", steps),
+                      ("batch_run_b8_pos1000_again", be.run)):
+        profile_run(torch, label, prepare, fn, n_steps, "step")
+
+    spent = {"_dispatch_chunk": 0.0, "_process_chunk": 0.0}
+
+    def timed(name):
+        fn = getattr(be, name)
+
+        def wrapped(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapped
+
+    prepare()
+    for name in spent:  # instance attributes shadow the methods
+        setattr(be, name, timed(name))
+    try:
+        t0 = time.perf_counter()
+        be.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name in spent:
+            delattr(be, name)
+    print(json.dumps({
+        "host_split": "batch_run_b8_pos1000", "steps": n_steps,
+        "wall_ms_per_step": wall / n_steps * 1e3,
+        "dispatch_ms_per_step": spent["_dispatch_chunk"] / n_steps * 1e3,
+        "fetch_and_route_ms_per_step":
+            spent["_process_chunk"] / n_steps * 1e3}), flush=True)
+
+
+def slice4_phase(torch, timer, rows, params, launches):
+    """Continuous batching, serving and the down_qkv chain at 7B (see the
+    module docstring, phase 7)."""
+    from llama_cu_awq_torch.config import LLAMA2_7B
+    from llama_cu_awq_torch.engine import BatchEngine, InferenceEngine
+
+    cfg = LLAMA2_7B
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    down_qkv_rows(torch, timer, rows, g)
+    chain_variant = "down_qkv/m8/11008x4096+4096x12288"
+
+    # --- batch-1 decode at the 2048 bucket, without and with the chain ---
+    prompt = [1] + [3 + (7919 * i) % 31990 for i in range(1919)]
+    # in turns (standalone, chain, chain, standalone): the host clock
+    # moves between runs
+    eng = InferenceEngine(params, cfg, None, temperature=0.0, seed=1234,
+                          attn_impl="fused_step", max_seq=2048)
+    b1 = []
+    for on, name in ((False, "down_qkv_b1_off"), (True, "down_qkv_b1"),
+                     (True, "down_qkv_b1_again"),
+                     (False, "down_qkv_b1_off_again")):
+        with down_qkv_switch(on):
+            b1.append(run_path(torch, name, lambda: decode_run(
+                torch, eng, prompt[:1024], 32), launches))
+    n_chain = launches["down_qkv_b1"]["kernels"]["down_qkv"]
+    print(json.dumps({
+        "e2e": "down_qkv_b1", "model": "llama2-7b", "prompt_tokens": 1024,
+        "max_seq": 2048, "attn_impl": "fused_step", "decode_steps": 32,
+        "decode_tok_per_s_chain": [b1[1][1], b1[2][1]],
+        "decode_tok_per_s_standalone": [b1[0][1], b1[3][1]],
+        "down_qkv_launches": n_chain,
+        "down_qkv_launches_per_step": n_chain / 32,
+        "streams_equal": all(r[0] == b1[0][0] for r in b1),
+        "first_tokens": b1[1][0][:8]}), flush=True)
+    if any(r[0] != b1[0][0] for r in b1):
+        raise AssertionError("down_qkv_b1: the chain changed the stream")
+    if n_chain != (cfg.n_layers - 1) * 32 or \
+            launches["down_qkv_b1_off"]["kernels"]["down_qkv"]:
+        raise AssertionError(f"down_qkv_b1: {n_chain} chain launches")
+    del eng
+
+    # --- BatchEngine: 16 greedy requests over 8 slots, prompts of 20 to
+    # 1000 tokens (forced stream and interleaved block prefill), windows
+    # into the 1024 and 2048 buckets, where fused_step and the chain apply
+    lengths = [20, 36, 48] + [60 + (1000 - 60) * i // 12 for i in range(13)]
+    prompts = [[1] + [3 + (104729 * (i + 131 * j)) % 31990
+                      for i in range(n - 1)]
+               for j, n in enumerate(lengths)]
+    be = BatchEngine(params, cfg, None, n_slots=8, max_seq=2048,
+                     chunk_size=8, spec=None)
+    for p in prompts[:2]:  # warm-up
+        be.submit(p, max_new=8)
+    be.run()
+    outs = {}
+    for on, name in ((False, "batch_engine"), (True, "batch_engine_dq")):
+        be.reset()
+
+        def serve_all():
+            rids = [be.submit(p, max_new=64) for p in prompts]
+            out = be.run()
+            return [out[r] for r in rids]
+
+        with down_qkv_switch(on):
+            outs[on] = run_path(torch, name, serve_all, launches)
+        st = be.stats()
+        print(json.dumps({
+            "e2e": name, "model": "llama2-7b", "slots": 8, "max_seq": 2048,
+            "chunk_size": 8, "requests": len(prompts),
+            "prompt_tokens": sum(lengths), "max_new": 64,
+            "down_qkv_switch": on, **st,
+            "scheduler": type(be.scheduler).__name__,
+            "chain_m8_launches": launches[name]["variants"].get(
+                chain_variant, 0)}), flush=True)
+        if st["finished"] != len(prompts) or not all(outs[on]):
+            raise AssertionError(f"{name}: {st}")
+    profile_batch_chunk(torch, be)
+    profile_batch_run(torch, be)
+    del be
+    print(json.dumps({"e2e": "batch_engine_streams",
+                      "equal_with_and_without_chain":
+                          outs[True] == outs[False]}), flush=True)
+    if outs[True] != outs[False]:
+        raise AssertionError("batch_engine: the chain changed a stream")
+    if not launches["batch_engine_dq"]["variants"].get(chain_variant) or \
+            launches["batch_engine"]["kernels"]["down_qkv"]:
+        raise AssertionError("batch_engine: the m=8 chain never launched "
+                             "with the switch, or launched without it")
+
+    serve_http_run(torch, params, cfg, launches)
+
+    # one 7B step at B=8, positions around 1500, with the chain
+    g.manual_seed(5)
+    tok8 = torch.randint(3, cfg.vocab_size, (8, 1), dtype=torch.int32,
+                         device="cuda", generator=g)
+    pos8 = torch.tensor([1500, 1490, 1400, 1300, 1200, 1100, 1050, 1024],
+                        dtype=torch.int32, device="cuda")
+    with down_qkv_switch(True):
+        run_path(torch, "forward_7b_chain", lambda: forward_check(
+            torch, params, cfg, "b8_down_qkv_chain", tok8, pos8, False, g,
+            attn_impl="fused_step"), launches)
+    if launches["forward_7b_chain"]["kernels"]["down_qkv"] != \
+            cfg.n_layers - 1:
+        raise AssertionError("forward_7b_chain: expected one chain launch "
+                             "per layer boundary")
+
+
 def main() -> int:
     import torch
 
@@ -1155,6 +1616,7 @@ def main() -> int:
     params = e2e_phase(torch, launches)
     prefill_phase(torch, params, launches)
     slice3_phase(torch, params, launches)
+    slice4_phase(torch, timer, rows, params, launches)
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

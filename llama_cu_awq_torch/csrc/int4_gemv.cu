@@ -31,12 +31,12 @@
 //     n_out columns, which blocks running in parallel cannot finish, so a
 //     second small launch (rms_scale) computes it over the cast output.
 
-#include "common.cuh"
+#include "int4_gemv.cuh"
 
 namespace {
 
-constexpr int WARPS = 16;    // one warp per output column
-constexpr int MAX_ROWS = 8;  // rows of x per pass (accumulators in registers)
+using w4gemv::MAX_ROWS;
+using w4gemv::WARPS;
 
 // MODE 0: x as given; 1: x*ss*norm_w; 2: silu(x)*u
 template <int MODE>
@@ -62,99 +62,31 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   for (int r0 = 0; r0 < m; r0 += rows_per_pass) {
     const int mr = min(rows_per_pass, m - r0);
     __syncthreads();  // the previous pass has finished reading xs
-    for (int i = threadIdx.x; i < mr * n_in; i += blockDim.x) {
-      const int r = i / n_in;
-      const int k = i - r * n_in;
-      float v = __bfloat162float(x[(size_t)(r0 + r) * ldx + k]);
-      if (MODE == 1) {
-        v = v * ss[r0 + r] * nw[k];
-      } else if (MODE == 2) {
-        const float sig = 1.0f / (1.0f + expf(-v));
-        v = v * sig * __bfloat162float(u[(size_t)(r0 + r) * ldu + k]);
-      }
-      xs[r * row_elems + xs_index(k)] = __float2bfloat16_rn(v);
-    }
+    w4gemv::stage_rows<MODE, false>(xs, x, ldx, u, ldu,
+                                    ss != nullptr ? ss + r0 : nullptr, nw,
+                                    r0, mr, n_in);
     __syncthreads();
     if (col < n_out) {
       float acc[MAX_ROWS];
-#pragma unroll
-      for (int r = 0; r < MAX_ROWS; ++r) acc[r] = 0.0f;
-      const uint4* wcol = qw + (size_t)col * nvec;
-      const __half* scol = scales + (size_t)col * groups;
-      const uint8_t* zcol = zeros + (size_t)col * groups;
-      for (int v = lane; v < nvec; v += 32) {
-        const uint4 w4 = __ldg(wcol + v);
-        const int g = v >> 2;  // 32 rows per vector, 128 rows per group
-        const float s = __half2float(scol[g]);
-        const float z = static_cast<float>(zcol[g]);
-        const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
-        float w[32];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float q = static_cast<float>((words[j] >> (4 * i)) & 0xFu);
-            w[j * 8 + i] = (q - z) * s;
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < MAX_ROWS; ++r) {
-          if (r < mr) {
-            const __nv_bfloat162* xr = reinterpret_cast<const __nv_bfloat162*>(
-                xs + r * row_elems + v * 34);
-            float a = acc[r];
-#pragma unroll
-            for (int i = 0; i < 16; ++i) {
-              const float2 xf = __bfloat1622float2(xr[i]);
-              a = fmaf(xf.x, w[2 * i], a);
-              a = fmaf(xf.y, w[2 * i + 1], a);
-            }
-            acc[r] = a;
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < MAX_ROWS; ++r) {
-        if (r < mr) {
-          const float total = warp_sum(acc[r]);
-          if (lane == 0) {
-            const size_t o = (size_t)(r0 + r) * n_out + col;
-            float val = total;
-            if (res != nullptr) val += __bfloat162float(res[o]);
-            if (out_bf16) {
-              reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(val);
-            } else {
-              reinterpret_cast<float*>(out)[o] = val;
-            }
-          }
-        }
-      }
+      w4gemv::column_partials(acc, xs, row_elems, qw, scales, zeros, col,
+                              nvec, groups, mr, lane);
+      w4gemv::store_column(acc, mr, lane, r0, col, n_out, res, out,
+                           out_bf16);
     }
   }
 }
 
 // ss[r] = 1 / sqrt(mean(out[r, :]^2) + eps), over the cast output row
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(w4gemv::RMS_THREADS)
 rms_scale_kernel(const void* __restrict__ out, int out_bf16,
                  float* __restrict__ ss, int n, float eps) {
-  __shared__ float part[8];
+  __shared__ float part[w4gemv::RMS_THREADS / 32];
   const int r = blockIdx.x;
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const size_t o = (size_t)r * n + i;
-    const float v = out_bf16
-        ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(out)[o])
-        : reinterpret_cast<const float*>(out)[o];
-    acc = fmaf(v, v, acc);
-  }
-  acc = warp_sum(acc);
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float t = threadIdx.x < (blockDim.x >> 5) ? part[threadIdx.x] : 0.0f;
-    t = warp_sum(t);
-    if (threadIdx.x == 0) ss[r] = 1.0f / sqrtf(t / static_cast<float>(n) + eps);
-  }
+  const size_t elem = out_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const float s = w4gemv::rms_scale_row<false>(
+      static_cast<const char*>(out) + (size_t)r * n * elem, out_bf16, n, eps,
+      part);
+  if (threadIdx.x == 0) ss[r] = s;
 }
 
 template <int MODE>
@@ -163,8 +95,7 @@ int launch_gemv(const void* x, int ldx, const void* u, int ldu,
                 const void* scales, const void* zeros, const void* res,
                 void* out, int out_bf16, int m, int n_in, int n_out,
                 int groups, int rows_per_pass, cudaStream_t stream) {
-  const size_t smem = (size_t)rows_per_pass * (n_in / 32) * 34 *
-                      sizeof(__nv_bfloat16);
+  const size_t smem = w4gemv::staged_bytes(rows_per_pass, n_in);
   cudaError_t e = cudaFuncSetAttribute(
       int4_gemv_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -213,7 +144,8 @@ LLAMA_EXPORT int int4_gemv(const void* x, int ldx, const void* u, int ldu,
 // ss: (m,) f32 from out (m, n) bf16 or f32
 LLAMA_EXPORT int rms_scale(const void* out, int out_bf16, void* ss, int m,
                            int n, float eps, void* stream) {
-  rms_scale_kernel<<<m, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  rms_scale_kernel<<<m, w4gemv::RMS_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
       out, out_bf16, static_cast<float*>(ss), n, eps);
   return static_cast<int>(cudaGetLastError());
 }

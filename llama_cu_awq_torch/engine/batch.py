@@ -1,15 +1,832 @@
-"""Continuous batching (the counterpart of llama_cu_awq_tpu/engine/batch.py).
+"""Continuous-batching engine: many concurrent requests over one model.
 
-Not ported yet: the slot KV cache, chunked prefill, prefix cache and the
-serving layer on top of them come with batched_decode_attention in a
-later slice (ROADMAP.md, queue 1).
+The counterpart of llama_cu_awq_tpu/engine/batch.py. Design:
+
+- The KV cache holds S slots (the leading batch axis of every per-layer
+  buffer). A slot is one request's sequence; the slot scheduler
+  (engine/scheduler.py) assigns queued requests to free slots between
+  decode chunks.
+- Decode runs ALL slots in one batched step (B=S, T=1): decode is
+  weight-bandwidth-bound, so the S-fold batch rides along nearly free.
+  Inactive slots compute garbage that the host discards; their cache
+  writes land at rows that are rewritten before the slot reads them.
+- A chunk is a Python loop of K forwards in which every slot consumes
+  one token a step: a teacher-forced prompt token where the force mask is
+  set, else the slot's sampled token, which stays on the device. The host
+  syncs once per chunk, when it reads the chunk's tokens; `run` queues
+  chunk N+1 on the stream before it reads chunk N's tokens (one chunk of
+  lookahead), so the card need not wait for the host's routing. Neither
+  end waits for more: inputs reach the card from pinned memory without a
+  stream sync (_snapshot), and a chunk's tokens are copied to the host
+  right behind it, so reading them waits for that chunk only (_Fetch).
+- Prompts of up to FORCED_PROMPT_MAX tokens feed through the forced
+  stream; longer ones prefill block by block on their slot's cache rows
+  between decode rounds (interleaved prefill), then join the forced
+  stream with their last token.
+- spec="ngram": speculative (S, T) blocks with prompt-lookup proposals
+  (_spec_block), with the JAX engine's throttle.
+- prefix_cache_size > 0: an LRU of prompt-prefix KV rows (clones of the
+  slot cache's rows, never views of it).
+
+Per-slot positions (`pos: (S,)`) keep every slot causally independent
+inside the shared step. Every tensor handed to a dispatch is built from a
+copy of the host array (_snapshot): the host mutates its arrays while a
+dispatched step may still read them (llama_cu_awq_tpu/engine/batch.py:
+59-71 documents the race aliasing caused there). Coins are consumed as the
+JAX engine consumes them: k x S per chunk, S x T per sampled spec block,
+none for an all-greedy block, so seeded sampled streams match it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from llama_cu_awq_torch.config import ModelConfig
+from llama_cu_awq_torch.device import resolve_device
+from llama_cu_awq_torch.engine.engine import (PREFILL_BLOCK, attn_buckets,
+                                              propose_ngram)
+from llama_cu_awq_torch.engine.scheduler import make_scheduler
+from llama_cu_awq_torch.models.llama import (KVCache, LlamaParams, forward,
+                                             init_kv_cache)
+from llama_cu_awq_torch.sampling import (XorshiftRNG, sample_token,
+                                         sample_token_vec)
+from llama_cu_awq_torch.tokenizer import BOS_TOKEN, EOS_TOKEN
+
+
+@dataclasses.dataclass
+class _Fetch:
+    """A dispatched result's copy to pinned host memory, queued on the
+    stream right behind the work that makes it, and the event recorded
+    after the copy."""
+    host: torch.Tensor
+    done: torch.cuda.Event
+
+
+def _host(a) -> np.ndarray:
+    """A chunk's or block's tokens on the host (the sync point), whether
+    the caller already fetched them or not. A _Fetch waits for its own
+    event only: a plain device-to-host copy would queue behind the chunk
+    dispatched after it, and the lookahead would wait for that one too."""
+    if isinstance(a, np.ndarray):
+        return a
+    if isinstance(a, _Fetch):
+        a.done.synchronize()
+        return a.host.numpy()
+    return a.cpu().numpy()
+
+
+class _PrefixCache:
+    """LRU store of prompt-prefix KV rows at PREFILL_BLOCK-multiple
+    lengths: multi-turn chat and shared-system-prompt serving re-send the
+    same long prefix on every request. Rows of a causal model depend only
+    on earlier tokens, so for an identical token prefix the cached rows
+    are exact, and admission becomes a row copy plus a prefill of the
+    tail. Entries hold per layer (1, m, Hkv, D) rows [+ (1, m, Hkv)
+    scales when quantized], cloned off the slot cache."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self._entries = OrderedDict()  # key: tuple(tokens) -> rows
+        self.hits = 0
+        self.misses = 0
+        self.rows_saved = 0
+
+    def match(self, tokens: list[int]) -> int:
+        """Longest cached block-multiple prefix of `tokens`; 0 if none."""
+        m = (len(tokens) // PREFILL_BLOCK) * PREFILL_BLOCK
+        while m >= PREFILL_BLOCK:
+            key = tuple(tokens[:m])
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                self.rows_saved += m
+                return m
+            m -= PREFILL_BLOCK
+        self.misses += 1
+        return 0
+
+    def get(self, tokens: list[int], m: int):
+        return self._entries[tuple(tokens[:m])]
+
+    def put(self, tokens: list[int], m: int, rows) -> None:
+        key = tuple(tokens[:m])
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return
+        self._entries[key] = rows
+        while len(self._entries) > self.capacity:
+            self._entries.popitem(last=False)
+
+
+@dataclasses.dataclass
+class _Req:
+    id: int
+    prompt: list[int]
+    max_new: int
+    temperature: float = 0.0
+    topp: float = 0.6
+    out: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    submit_t: float = 0.0
+    first_token_t: float | None = None
+    finish_t: float | None = None
+
 
 class BatchEngine:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BatchEngine (continuous batching) and serving are not ported "
-            "yet; InferenceEngine runs batch-1 generate and chat")
+    # prompts up to this length feed through forced decode steps (they
+    # share the batch's weight reads); longer ones get a block prefill on
+    # their slot first
+    FORCED_PROMPT_MAX = 48
+
+    def __init__(self, params: LlamaParams, cfg: ModelConfig,
+                 tokenizer=None, *, n_slots: int = 8,
+                 max_seq: int | None = None, attn_impl: str | None = None,
+                 kv_quant: bool | int = False, temperature: float = 0.0,
+                 topp: float = 0.6, seed: int = 1234, chunk_size: int = 8,
+                 spec: str | None = None, spec_k: int = 7,
+                 prefix_cache_size: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        if params.device.type != self.device.type:
+            raise ValueError(f"params are on {params.device}, the engine "
+                             f"runs on {self.device}")
+        if spec is not None and spec != "ngram":
+            raise ValueError(f"unknown spec mode {spec!r} "
+                             "(supported: 'ngram')")
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.n_slots = n_slots
+        self.max_seq = max_seq or min(512, cfg.seq_len)
+        # None -> "auto": plain attention below FSTEP_MIN_WINDOW, the
+        # attention_step kernel from it on (models/llama.forward)
+        self.attn_impl = attn_impl if attn_impl is not None else "auto"
+        self.temperature = temperature
+        self.topp = topp
+        self.rng = XorshiftRNG(seed)
+        self.chunk_size = chunk_size
+        self._buckets = attn_buckets(self.max_seq)
+        # kv_quant: False -> bf16 cache; True or 8 -> int8; 4 -> int4
+        self.kv_quant = bool(kv_quant)
+        self.kv_bits = 4 if kv_quant == 4 else 8
+        # speculative serving: decode runs as (S, T=spec_k+1) teacher-
+        # forced blocks (prompt feed, prompt-lookup proposals and plain
+        # decode in one weight pass); each slot advances by its accepted
+        # prefix plus the model's correction token. Sampled slots accept
+        # by equality on sampled verify tokens, which with a point-mass
+        # draft is exact speculative rejection sampling.
+        self.spec = spec
+        self.spec_k = spec_k
+        # adaptive throttle: a round with nothing to verify and no prompt
+        # to feed takes a plain chunk; when recent proposing blocks accept
+        # below spec_min_accept tokens per proposing slot, proposals pause
+        # for spec_backoff rounds, then one block probes again
+        self.spec_min_accept = 0.5
+        self.spec_backoff = 8
+        self.prefix_cache = (_PrefixCache(prefix_cache_size)
+                             if prefix_cache_size > 0 else None)
+        self._next_id = 0
+        self.reset()
+
+    # ------------------------------------------------------------------
+
+    def _init_cache(self) -> KVCache:
+        return init_kv_cache(self.cfg, self.n_slots, self.max_seq,
+                             quantized=self.kv_quant, kv_bits=self.kv_bits,
+                             device=self.device)
+
+    def _snapshot(self, a: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array that the host will mutate (see
+        the module docstring): from_numpy alone would alias it.
+
+        On a card the array is first copied into pinned memory, then to
+        the card with non_blocking=True, so the dispatch does not wait for
+        the stream: a copy from pageable memory would (PyTorch syncs the
+        stream after it), and the chunk queued next would only start once
+        the one in flight had finished. The pinned block comes from
+        PyTorch's caching host allocator, which reuses it only after the
+        copy that read it has run, so each chunk in flight keeps its own."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _fetch(self, t: torch.Tensor):
+        """Start copying a dispatched result to the host (see _Fetch); on
+        the CPU the tensor itself."""
+        if self.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return _Fetch(host, done)
+
+    def _coins(self, rows: int, cols: int) -> torch.Tensor:
+        """(rows, cols) coins, drawn row by row, on the device."""
+        return self._snapshot(np.array(
+            [[self.rng.random_f32() for _ in range(cols)]
+             for _ in range(rows)], np.float32))
+
+    def _bucket_for(self, seq: int) -> int:
+        for b in self._buckets:
+            if seq <= b:
+                return b
+        return self._buckets[-1]
+
+    def _slot_cache(self, slot: int) -> KVCache:
+        """Views of one slot's rows of every cache buffer (contiguous:
+        forward writes through them in place)."""
+        c = self.cache
+        return KVCache(*[[a[slot:slot + 1] for a in field]
+                         for field in (c.k, c.v, c.k_scale, c.v_scale)])
+
+    def _prefill_slot(self, tokens: list[int], pos: int, slot: int,
+                      attn_len: int) -> None:
+        """B=1 teacher-forced block over one slot's cache rows."""
+        toks = self._snapshot(np.array([tokens], np.int32))
+        p = self._snapshot(np.array([pos], np.int32))
+        forward(self.params, self.cfg, toks, p, self._slot_cache(slot),
+                attn_len=attn_len, no_logits=True)
+
+    def _decode_chunk(self, tokens, pos, coins, forced, force_mask, temps,
+                      topps, attn_len: int, sampled: bool) -> torch.Tensor:
+        """K batched mixed prefill/decode steps (K = len(coins)): each
+        step every slot consumes a forced prompt token where force_mask is
+        set, else its sampled carry. tokens, pos, temps, topps: (S,);
+        coins, forced, force_mask: (K, S). Returns the (K, S) sampled
+        tokens, on the device."""
+        toks = []
+        for i in range(coins.shape[0]):
+            in_tok = torch.where(force_mask[i], forced[i], tokens)
+            logits, _ = forward(self.params, self.cfg, in_tok[:, None],
+                                pos + i, self.cache, attn_len=attn_len,
+                                attn_impl=self.attn_impl)
+            if sampled:  # per-slot temperature and top-p
+                nxt = sample_token_vec(logits, coins[i], temps, topps)
+            else:        # all-greedy: no softmax, no sort
+                nxt = sample_token(logits, coins[i], 0.0, 0.0)
+            # garbage-token clamp (llama2_q4.cu:474)
+            tokens = torch.where(nxt >= self.cfg.vocab_size,
+                                 torch.zeros_like(nxt), nxt)
+            toks.append(tokens)
+        return torch.stack(toks)
+
+    def _prefix_put(self, rows, slot: int) -> None:
+        """Copy cached prefix rows into rows [0, m) of one slot."""
+        sub = self._slot_cache(slot)
+        for dst_field, src_field in zip(
+                (sub.k, sub.v, sub.k_scale, sub.v_scale), rows):
+            for dst, src in zip(dst_field, src_field):
+                dst[:, :src.shape[1]].copy_(src)
+
+    def _prefix_get(self, slot: int, m: int):
+        """Clones of rows [0, m) of one slot."""
+        sub = self._slot_cache(slot)
+        return tuple([a[:, :m].clone() for a in field]
+                     for field in (sub.k, sub.v, sub.k_scale, sub.v_scale))
+
+    def _spec_block(self, tokens, pos, coins, temps, topps, attn_len: int,
+                    sampled: bool) -> torch.Tensor:
+        """One teacher-forced forward over (S, T) input blocks with per-
+        slot positions, returning the model's token choice at every
+        position: greedy argmax, or with sampled=True per-position
+        sampling with the slot's own temperature and top-p (point-mass-
+        draft rejection sampling reduces to acceptance by equality on
+        these tokens, see the JAX engine's _spec_block_fn)."""
+        logits, _ = forward(self.params, self.cfg, tokens, pos, self.cache,
+                            attn_len=attn_len, attn_impl=self.attn_impl,
+                            logits_all=True)
+        if not sampled:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        S, T, V = logits.shape
+        toks = sample_token_vec(logits.reshape(S * T, V),
+                                coins.reshape(S * T),
+                                temps.repeat_interleave(T),
+                                topps.repeat_interleave(T))
+        return toks.reshape(S, T)
+
+    def _dispatch_spec_block(self, active, props=None):
+        """Build and launch one (S, T) speculative block: pending prompt
+        tokens first, then prompt-lookup proposals (generation slots'
+        proposals arrive in `props`), then carry padding. Returns the
+        block record for _process_spec_block."""
+        T = self.spec_k + 1
+        S = self.n_slots
+        props = props or {}
+        inputs = np.zeros((S, T), np.int32)
+        n_forced = {}
+        emitting = {}
+        proposing = set()
+        for s in range(S):
+            if s not in active:
+                continue
+            pend = self._pending[s]
+            F = min(len(pend), T)
+            if F:
+                inputs[s, :F] = pend[:F]
+                del pend[:F]
+            else:
+                inputs[s, 0] = self._carry[s]
+            n_forced[s] = F
+            emitting[s] = not pend  # pending exhausted: emissions
+            fill = F if F else 1
+            if fill < T:
+                prop = None
+                if emitting[s]:
+                    prop = props.get(s)
+                    if prop is None and F:
+                        # pending emptied in this block: propose from the
+                        # now complete prompt context
+                        req = self._slot_req[s]
+                        prop = propose_ngram(req.prompt + req.out,
+                                             T - fill)
+                if prop is not None:
+                    inputs[s, fill:] = prop
+                    self.spec_stats["proposed"] += T - fill
+                    proposing.add(s)
+                else:
+                    # carry padding: consumed only where the model agrees
+                    inputs[s, fill:] = inputs[s, fill - 1]
+        attn_len = self._bucket_for(int(self.pos[list(active)].max()) + T)
+        # one coin per position for sampled blocks; greedy blocks take the
+        # argmax and draw none
+        sampled = bool((self.slot_temp[list(active)] > 0.0).any())
+        if sampled:
+            coins = self._coins(S, T)
+        else:
+            coins = torch.zeros(S, T, dtype=torch.float32,
+                                device=self.device)
+        out = self._spec_block(
+            self._snapshot(inputs), self._snapshot(self.pos), coins,
+            self._snapshot(self.slot_temp), self._snapshot(self.slot_topp),
+            attn_len, sampled)
+        owners = {s: self._slot_req[s] for s in active}
+        start_pos = {s: int(self.pos[s]) for s in active}
+        self.spec_stats["blocks"] += 1
+        return {"out": self._fetch(out), "inputs": inputs, "owners": owners,
+                "n_forced": n_forced, "emitting": emitting,
+                "proposing": proposing, "start_pos": start_pos, "T": T}
+
+    def _process_spec_block(self, blk):
+        """Fetch a block's outputs (the host sync, unless the caller
+        fetched them) and advance each slot by its valid-input count:
+        forced prompt tokens are always valid; a proposal token is valid
+        iff it equals the model's output at the previous position.
+        Emissions are the outputs from the last forced position on: the
+        accepted prefix plus the model's correction token."""
+        out = _host(blk["out"])  # (S, T)
+        T = blk["T"]
+        results = []
+        now = time.time()
+        n_prop = 0
+        blk_accept = 0
+        for s, req in blk["owners"].items():
+            if self._slot_req[s] is not req or req.done:
+                continue
+            F = blk["n_forced"][s]
+            V = F if F >= 1 else 1
+            a = V
+            if blk["emitting"][s]:
+                emissions = [int(out[s, V - 1])]
+                while a < T and blk["inputs"][s, a] == out[s, a - 1]:
+                    a += 1
+                    emissions.append(int(out[s, a - 1]))
+                self.spec_stats["accepted"] += a - V
+                if s in blk["proposing"]:
+                    n_prop += 1
+                    blk_accept += a - V
+            else:
+                emissions = []
+            self.spec_stats["consumed"] += a
+            self.pos[s] = blk["start_pos"][s] + a
+            new = []
+            for t in emissions:
+                finished = self.scheduler.on_token(s, t == EOS_TOKEN)
+                if t != EOS_TOKEN:
+                    new.append(t)
+                if finished:
+                    req.done = True
+                    req.finish_t = now
+                    self._slot_req[s] = None
+                    self._pending[s] = []
+                    break
+            if new:
+                self._carry[s] = new[-1]
+                if req.first_token_t is None:
+                    req.first_token_t = now
+            req.out.extend(new)
+            if new or req.done:
+                results.append((req.id, new, req.done))
+        if n_prop:
+            # throttle: proposing slots that accept about nothing make a
+            # block worse than a plain chunk
+            self._spec_recent.append(blk_accept / n_prop)
+            self._spec_recent = self._spec_recent[-4:]
+            if (len(self._spec_recent) >= 2
+                    and (sum(self._spec_recent) / len(self._spec_recent)
+                         < self.spec_min_accept)):
+                self._spec_cooldown = self.spec_backoff
+                self._spec_recent = []
+        return results
+
+    def _spec_eligible(self, active) -> bool:
+        """Spec blocks need T rows of cache headroom per slot (a block
+        writes rows pos..pos+T-1)."""
+        if not active:
+            return False
+        T = self.spec_k + 1
+        return all(int(self.pos[s]) + T <= self.max_seq for s in active)
+
+    def dispatch_spec_round(self):
+        """Admit and dispatch one speculative round without the host sync:
+        ("block", blk) for a spec block, ("chunk", rec) where the round
+        fell back to a plain chunk (no proposal fired, the throttle is
+        cooling down, or a slot sits within T rows of the cache boundary),
+        or None when idle. Pair with _process_spec_block or
+        _process_chunk; serve.py reads the device result outside its
+        engine lock."""
+        self._admit()
+        self._advance_prefill()
+        active = [s for s in range(self.n_slots)
+                  if self._slot_req[s] is not None
+                  and s not in self._prefill_jobs
+                  and int(self.pos[s]) < self.max_seq]
+        if not active:
+            return None
+        T = self.spec_k + 1
+        for s in range(self.n_slots):
+            if s not in active:
+                # park free or capped slots; mid-prefill slots park at the
+                # dead tail rows (see _dispatch_chunk)
+                self.pos[s] = (self.max_seq - T
+                               if s in self._prefill_jobs else 0)
+        throttled = self._spec_cooldown > 0
+        want_block = False
+        props = {}
+        if self._spec_eligible(active):
+            for s in active:
+                if self._pending[s]:
+                    # prompt feed: a block takes up to T prompt tokens in
+                    # one weight pass; never throttled
+                    want_block = True
+                    continue
+                if throttled:
+                    continue
+                req = self._slot_req[s]
+                prop = propose_ngram(req.prompt + req.out, self.spec_k)
+                if prop is not None:
+                    props[s] = prop
+                    want_block = True
+        if throttled:
+            self._spec_cooldown -= 1
+            self.spec_stats["throttled_rounds"] += 1
+        if not want_block:
+            # nothing to verify and no prompt to feed: a plain chunk, its
+            # device carry seeded from the host's next unconsumed tokens
+            self.last_token = self._snapshot(self._carry)
+            chunk = self._dispatch_chunk()
+            return ("chunk", chunk) if chunk else None
+        return ("block", self._dispatch_spec_block(active, props))
+
+    def _step_spec(self):
+        """One synchronous speculative round."""
+        work = self.dispatch_spec_round()
+        if work is None:
+            return None
+        kind, payload = work
+        if kind == "chunk":
+            return self._process_chunk(payload)
+        return self._process_spec_block(payload)
+
+    # ------------------------------------------------------------------
+    # public API
+
+    def reset(self):
+        """Clear all requests and per-slot state."""
+        S = self.n_slots
+        self.scheduler = make_scheduler(S, self.max_seq)
+        self.cache = self._init_cache()
+        self.pos = np.zeros(S, np.int32)  # next write position
+        # the device token carry between chunks
+        self.last_token = torch.zeros(S, dtype=torch.int32,
+                                      device=self.device)
+        # per-slot sampling parameters (a request may override the
+        # engine's defaults at submit())
+        self.slot_temp = np.zeros(S, np.float32)
+        self.slot_topp = np.zeros(S, np.float32)
+        self._requests: dict[int, _Req] = {}
+        self._slot_req: list[_Req | None] = [None] * S
+        self._pending: list[list[int]] = [[] for _ in range(S)]
+        # slot -> in-flight interleaved block-prefill job
+        self._prefill_jobs: dict[int, dict] = {}
+        self._carry = np.zeros(S, np.int32)  # next unconsumed token
+        self.spec_stats = {"blocks": 0, "consumed": 0, "proposed": 0,
+                           "accepted": 0, "throttled_rounds": 0}
+        self._spec_recent: list[float] = []  # accept/slot of last blocks
+        self._spec_cooldown = 0
+
+    def submit(self, prompt: str | list[int], max_new: int = 0,
+               temperature: float | None = None,
+               topp: float | None = None) -> int:
+        """Queue a request; returns its id. prompt: text (needs a
+        tokenizer) or token ids (BOS added if missing). temperature and
+        topp default to the engine's; per-request values ride the same
+        batched step (sampling.sample_token_vec)."""
+        if isinstance(prompt, str):
+            tokens = self.tokenizer.encode(prompt, bos=True, eos=False)
+        else:
+            tokens = list(prompt)
+            if not tokens or tokens[0] != BOS_TOKEN:
+                tokens = [BOS_TOKEN] + tokens
+        if len(tokens) + 1 > self.max_seq:
+            raise ValueError(
+                f"prompt of {len(tokens)} tokens exceeds max_seq "
+                f"{self.max_seq}")
+        rid = self._next_id
+        self._next_id += 1
+        req = _Req(rid, tokens, max_new,
+                   temperature=(self.temperature if temperature is None
+                                else max(temperature, 0.0)),
+                   topp=self.topp if topp is None else topp,
+                   submit_t=time.time())
+        self._requests[rid] = req
+        ok = self.scheduler.add(rid, len(tokens), max_new)
+        assert ok, "scheduler rejected a size-checked request"
+        return rid
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request (client disconnect, abort): frees its slot (a
+        chunk in flight for it is discarded by _process_chunk's ownership
+        check) or removes it from the queue. True if it was still live."""
+        req = self._requests.get(rid)
+        if req is None or req.done:
+            return False
+        req.done = True
+        req.finish_t = time.time()
+        where = self.scheduler.cancel(rid)
+        if where >= 0:  # occupied slot `where`
+            self._slot_req[where] = None
+            self._pending[where] = []
+            self._prefill_jobs.pop(where, None)
+        return where != -1
+
+    def drop_request(self, rid: int):
+        """Forget a finished request's record and output (a long-running
+        server would otherwise keep every request it served)."""
+        self._requests.pop(rid, None)
+
+    def _admit(self):
+        for slot, rid in self.scheduler.admit():
+            req = self._requests[rid]
+            self._slot_req[slot] = req
+            self.slot_temp[slot] = req.temperature
+            self.slot_topp[slot] = req.topp
+            tokens = req.prompt
+            if len(tokens) <= self.FORCED_PROMPT_MAX:
+                self.pos[slot] = 0
+                self._pending[slot] = list(tokens)
+            else:
+                self._start_prefill(slot, req)
+            # the slot's carry stays stale: its first steps are forced
+
+    # -- interleaved block prefill --------------------------------------
+    #
+    # A long prompt prefills one block per decode round instead of
+    # running to completion at admission, so an admission never stalls
+    # the other slots' decode. While a slot prefills, decode rounds park
+    # its garbage writes at the dead tail rows [max_seq - k, max_seq):
+    # beyond the prompt (the synchronous path below guarantees it), and
+    # rewritten by the slot's own decode before any step attends to them.
+
+    def _start_prefill(self, slot: int, req: _Req):
+        """Begin prefilling all but the last prompt token on the slot's
+        cache rows; the last token joins the forced stream, so its logits
+        come from the batched step."""
+        tokens = req.prompt
+        body = tokens[:-1]
+        pos = 0
+        if self.prefix_cache is not None:
+            pos = self.prefix_cache.match(body)
+            if pos:
+                self._prefix_put(self.prefix_cache.get(body, pos), slot)
+        # near the cache boundary the parked tail rows would land on
+        # prompt rows: prefill synchronously there (rare)
+        tail = max(self.chunk_size, (self.spec_k + 1) if self.spec else 0)
+        job = {"req": req, "tokens": tokens, "body": body, "pos": pos}
+        if len(body) > self.max_seq - tail:
+            while not self._finish_or_step(slot, job):
+                pass
+        else:
+            self._prefill_jobs[slot] = job
+
+    def _finish_or_step(self, slot: int, job) -> set:
+        """Advance one PREFILL_BLOCK; on completion hand the slot to the
+        forced stream. Returns {slot} when done, else an empty set."""
+        body, pos = job["body"], job["pos"]
+        if pos < len(body):
+            chunk = body[pos:pos + PREFILL_BLOCK]
+            block = 1 if len(chunk) == 1 else PREFILL_BLOCK
+            if pos + block > self.max_seq:
+                # a padded block would pass the cache's end
+                block, chunk = 1, body[pos:pos + 1]
+            padded = chunk + [0] * (block - len(chunk))
+            self._prefill_slot(padded, pos, slot,
+                               self._bucket_for(pos + block))
+            job["pos"] = pos + len(chunk)
+        if job["pos"] < len(body):
+            return set()
+        tokens = job["tokens"]
+        if self.prefix_cache is not None:
+            # store the freshly prefilled prefix (its rows are final:
+            # decode writes only rows >= len(tokens) - 1)
+            ms = (len(body) // PREFILL_BLOCK) * PREFILL_BLOCK
+            if ms >= PREFILL_BLOCK:
+                self.prefix_cache.put(body, ms, self._prefix_get(slot, ms))
+        self.pos[slot] = len(tokens) - 1
+        self._pending[slot] = [tokens[-1]]
+        return {slot}
+
+    def _advance_prefill(self):
+        """Advance every prefill job by one block per decode round; when
+        no slot can decode, drain the jobs instead (no one to starve)."""
+        for slot in list(self._prefill_jobs):
+            job = self._prefill_jobs[slot]
+            if self._slot_req[slot] is not job["req"] or job["req"].done:
+                del self._prefill_jobs[slot]  # cancelled mid-prefill
+        if not self._prefill_jobs:
+            return
+        decodable = any(
+            self._slot_req[s] is not None
+            and s not in self._prefill_jobs
+            and int(self.pos[s]) < self.max_seq
+            for s in range(self.n_slots))
+        while self._prefill_jobs:
+            for slot in list(self._prefill_jobs):
+                if self._finish_or_step(slot, self._prefill_jobs[slot]):
+                    del self._prefill_jobs[slot]
+            if decodable:
+                break
+
+    def _dispatch_chunk(self):
+        """Admit and queue one mixed prefill/decode chunk on the device
+        without waiting for its tokens. Returns a chunk record for
+        _process_chunk, or None when no slot is active. The token carry
+        chains chunk to chunk on the device (self.last_token), so a
+        lookahead chunk needs no host round trip to start."""
+        self._admit()
+        self._advance_prefill()
+        # a slot already at the cache boundary (possible under lookahead:
+        # the chunk in flight filled it, and processing that chunk retires
+        # it) takes no step: it parks like a free slot and owns nothing
+        active = [s for s in range(self.n_slots)
+                  if self._slot_req[s] is not None
+                  and s not in self._prefill_jobs
+                  and int(self.pos[s]) < self.max_seq]
+        if not active:
+            return None
+        k = self.chunk_size
+        for s in active:  # a slot near the cache boundary caps the chunk
+            k = min(k, self.max_seq - int(self.pos[s]))
+        for s in range(self.n_slots):
+            if s in active:
+                continue
+            # park free or capped slots at row 0; a slot mid-prefill at
+            # the dead tail rows [max_seq - k, max_seq) instead, past its
+            # prompt, where row 0 would overwrite its prefilled rows
+            self.pos[s] = (self.max_seq - k
+                           if s in self._prefill_jobs else 0)
+
+        forced = np.zeros((k, self.n_slots), np.int32)
+        mask = np.zeros((k, self.n_slots), bool)
+        emit_from = {}  # slot -> first step whose sampled output counts
+        for s in active:
+            pend = self._pending[s]
+            n = min(len(pend), k)
+            forced[:n, s] = pend[:n]
+            mask[:n, s] = True
+            del pend[:n]
+            # the step consuming the last prompt token emits generation
+            # token 1; earlier forced outputs are teacher-forced noise
+            emit_from[s] = k if pend else max(n - 1, 0)
+
+        coins = self._coins(k, self.n_slots)
+        attn_len = self._bucket_for(int(self.pos[active].max()) + k)
+        # all-greedy chunks skip the per-row sampler (it sorts (S, vocab)
+        # every step)
+        sampled = bool((self.slot_temp[active] > 0.0).any())
+        toks = self._decode_chunk(
+            self.last_token, self._snapshot(self.pos), coins,
+            self._snapshot(forced), self._snapshot(mask),
+            self._snapshot(self.slot_temp), self._snapshot(self.slot_topp),
+            attn_len, sampled)
+        # owners at dispatch: a slot freed while this chunk is in flight
+        # has its tokens discarded at process time
+        owners = {s: self._slot_req[s] for s in active}
+        self.pos += k
+        self.last_token = toks[-1]  # on the device; no host sync
+        return {"toks": self._fetch(toks), "k": k, "owners": owners,
+                "emit_from": emit_from}
+
+    def _process_chunk(self, chunk) -> list[tuple[int, list[int], bool]]:
+        """Fetch a dispatched chunk's tokens (the host sync) and route
+        them: request outputs, EOS and budget retirement, slot frees."""
+        host = _host(chunk["toks"])  # (k, S)
+        k = chunk["k"]
+        results = []
+        now = time.time()
+        for s, req in chunk["owners"].items():
+            if self._slot_req[s] is not req or req.done:
+                continue  # retired while this chunk was in flight
+            new = []
+            for step_i in range(chunk["emit_from"][s], k):
+                t = int(host[step_i, s])
+                finished = self.scheduler.on_token(s, t == EOS_TOKEN)
+                if t != EOS_TOKEN:
+                    new.append(t)
+                if finished:
+                    req.done = True
+                    req.finish_t = now
+                    self._slot_req[s] = None
+                    self._pending[s] = []
+                    break
+            if new:
+                self._carry[s] = new[-1]  # keeps spec blocks in step
+                if req.first_token_t is None:
+                    req.first_token_t = now
+            req.out.extend(new)
+            if new or req.done:
+                results.append((req.id, new, req.done))
+        return results
+
+    def step(self) -> list[tuple[int, list[int], bool]]:
+        """Admit and run one decode chunk (or speculative round),
+        synchronously. Returns [(request_id, new_tokens, finished)] for
+        every request that produced tokens or finished."""
+        if self.spec:
+            return self._step_spec() or []
+        chunk = self._dispatch_chunk()
+        return self._process_chunk(chunk) if chunk else []
+
+    @property
+    def pending(self) -> int:
+        return self.scheduler.num_active + self.scheduler.num_queued
+
+    def run(self, max_chunks: int = 10_000) -> dict[int, list[int]]:
+        """Drain all queued and active requests. Plain decode keeps one
+        chunk of lookahead: chunk N+1 is queued on the device before the
+        host fetches and routes chunk N's tokens (a retired slot is reused
+        one chunk late). Speculative rounds are synchronous: each block's
+        inputs depend on the previous block's acceptance."""
+        if self.spec:
+            rounds = 0
+            while self.pending and rounds < max_chunks:
+                if self._step_spec() is None:
+                    break
+                rounds += 1
+            return {rid: r.out for rid, r in self._requests.items()}
+        chunks = 0
+        in_flight = None
+        while chunks < max_chunks:
+            nxt = self._dispatch_chunk() if self.pending else None
+            if in_flight is None and nxt is None:
+                break
+            if in_flight:
+                self._process_chunk(in_flight)
+            in_flight = nxt
+            chunks += 1
+        if in_flight:
+            self._process_chunk(in_flight)
+        return {rid: r.out for rid, r in self._requests.items()}
+
+    def stats(self) -> dict:
+        reqs = [r for r in self._requests.values() if r.done]
+        total_tokens = sum(len(r.out) for r in reqs)
+        if not reqs:
+            return {"finished": 0, "total_tokens": 0}
+        t0 = min(r.submit_t for r in reqs)
+        t1 = max(r.finish_t for r in reqs)
+        lat = [r.finish_t - r.submit_t for r in reqs]
+        out = {
+            "finished": len(reqs),
+            "total_tokens": total_tokens,
+            "wall_s": t1 - t0,
+            "tok_per_s": total_tokens / (t1 - t0) if t1 > t0 else 0.0,
+            "mean_latency_s": sum(lat) / len(lat),
+            "max_latency_s": max(lat),
+        }
+        if self.spec:
+            st = dict(self.spec_stats)
+            if st["proposed"]:
+                st["accept_rate"] = round(st["accepted"] / st["proposed"], 4)
+            out["spec"] = st
+        if self.prefix_cache is not None:
+            pc = self.prefix_cache
+            out["prefix_cache"] = {
+                "hits": pc.hits, "misses": pc.misses,
+                "rows_saved": pc.rows_saved, "entries": len(pc._entries)}
+        return out

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -21,6 +22,7 @@ from llama_cu_awq_torch.config import ModelConfig
 from llama_cu_awq_torch.device import resolve_device
 from llama_cu_awq_torch.io.checkpoint import RawCheckpoint, RawQWeight
 from llama_cu_awq_torch.ops.cuda import batched_attention as bda
+from llama_cu_awq_torch.ops.cuda import down_qkv as dq
 from llama_cu_awq_torch.ops.cuda import prefill_attention as pfa
 from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
                                                         kernel_takes,
@@ -333,6 +335,22 @@ def _post_attention(attn, x, layer: LlamaLayer, plain: bool, act_dtype):
                          emit_ss_eps=RMS_EPS, out_dtype=act_dtype)
 
 
+def _post_attention_chained(attn, x, layer: LlamaLayer,
+                            next_layer: LlamaLayer, plain: bool, act_dtype):
+    """_post_attention whose down projection runs in one launch with the
+    next layer's qkv projection (down_qkv_fused): o and gate_up stay
+    standalone. Returns (x, ss, the next layer's qkv) (the JAX package's
+    _post_attention_chained, models/llama.py:489-510)."""
+    x, ss = qmatmul_fused(attn, layer.wo, plain, residual=x,
+                          emit_ss_eps=RMS_EPS, out_dtype=act_dtype)
+    gu, _ = qmatmul_fused(x, layer.w_gate_up, plain,
+                          prescale=(ss, layer.ffn_norm), out_dtype=act_dtype)
+    g, u = gu.chunk(2, dim=-1)
+    return dq.down_qkv_fused(g, u, x, layer.w_down, next_layer.wqkv,
+                             next_layer.attn_norm, eps=RMS_EPS,
+                             out_dtype=act_dtype, plain=plain)
+
+
 def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
             pos: torch.Tensor, cache: KVCache, *,
             attn_len: int | None = None, act_dtype=torch.bfloat16,
@@ -361,7 +379,12 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
     path. Under every choice but "einsum", a block of T >= PFK_MIN_T
     tokens takes the prefill_attention kernel where it takes the head
     shapes and the cache is not int4; other T > 1 blocks take plain
-    attention. plain: the kernels' plain versions on any device.
+    attention. With LLAMA_TPU_DOWN_QKV=1 in the environment (the JAX
+    package's switch, read on every call as it reads it), a fused_step
+    T == 1 forward of more than one layer runs each layer's down
+    projection and the next layer's qkv projection as one down_qkv launch
+    where down_qkv.supported holds; elsewhere the standalone pair runs.
+    plain: the kernels' plain versions on any device.
     Returns (logits, cache): logits f32 (B, T, vocab) if logits_all else
     (B, vocab), None with no_logits.
     """
@@ -404,6 +427,14 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
     # int4 cache takes plain attention there, as in the JAX package
     pfk = (T >= PFK_MIN_T and not kv4 and attn_impl != "einsum"
            and pfa.kernel_takes(H, KV, D, T))
+    # down->next-qkv chain (models/llama.py:669-677 of the JAX package):
+    # opt-in, T == 1 fused_step steps only; layer 0's qkv and the last
+    # layer's down stay standalone
+    n_layers = len(params.layers)
+    dq_chain = (fstep and n_layers > 1
+                and os.environ.get("LLAMA_TPU_DOWN_QKV", "0") == "1"
+                and dq.supported(params.layers[0].w_down,
+                                 params.layers[1].wqkv, B * T))
     # per-forward constants, shared by every layer
     rows = _cache_rows(positions, cache.k[0].shape[1])
     if fstep:
@@ -412,10 +443,14 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
         angles = rope_angles(positions, D, cfg.rope_theta)
         mask = None if pfk or bstep else _causal_mask(positions, A)
 
+    qkv_pending = None
     for l, layer in enumerate(params.layers):
-        qkv, _ = qmatmul_fused(x, layer.wqkv, plain,
-                               prescale=(ss, layer.attn_norm),
-                               out_dtype=act_dtype)
+        if qkv_pending is not None:
+            qkv, qkv_pending = qkv_pending, None
+        else:
+            qkv, _ = qmatmul_fused(x, layer.wqkv, plain,
+                                   prescale=(ss, layer.attn_norm),
+                                   out_dtype=act_dtype)
         ks_l = cache.k_scale[l] if cache.quantized else None
         vs_l = cache.v_scale[l] if cache.quantized else None
         if fstep:
@@ -473,7 +508,11 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
                 attn = _attention(qh, cache.k[l][:, :A], cache.v[l][:, :A],
                                   mask, act_dtype)
             attn = attn.to(act_dtype)
-        x, ss = _post_attention(attn, x, layer, plain, act_dtype)
+        if dq_chain and l + 1 < n_layers:
+            x, ss, qkv_pending = _post_attention_chained(
+                attn, x, layer, params.layers[l + 1], plain, act_dtype)
+        else:
+            x, ss = _post_attention(attn, x, layer, plain, act_dtype)
 
     if no_logits:
         return None, cache

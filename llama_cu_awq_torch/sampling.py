@@ -60,3 +60,33 @@ def sample_token(logits: torch.Tensor, coin: torch.Tensor,
     idx = (cdf < coin[..., None] * topp).sum(dim=-1, keepdim=True)
     idx = torch.clamp(idx, max=V - 1)
     return torch.gather(order, -1, idx)[..., 0].to(torch.int32)
+
+
+def sample_token_vec(logits: torch.Tensor, coin: torch.Tensor,
+                     temperature: torch.Tensor,
+                     topp: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling parameters (continuous batching serves requests
+    with different temperature/top_p in one batched step).
+
+    logits: (B, V) f32; coin/temperature/topp: (B,). Rows with
+    temperature <= 0 are greedy; rows with topp outside (0, 1) use the
+    unsorted-CDF inversion; otherwise sorted nucleus sampling, each
+    branch with the semantics of `sample_token`.
+    """
+    V = logits.shape[-1]
+    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    t = torch.clamp(temperature, min=1e-6)[:, None]
+    probs = torch.softmax(logits / t, dim=-1)
+
+    cdf = torch.cumsum(probs, dim=-1)
+    plain = torch.clamp((cdf < coin[:, None]).sum(dim=-1),
+                        max=V - 1).to(torch.int32)
+
+    _, order = torch.sort(-probs, dim=-1, stable=True)
+    cdf_s = torch.cumsum(torch.gather(probs, -1, order), dim=-1)
+    thr = (coin * topp)[:, None]
+    idx = torch.clamp((cdf_s < thr).sum(dim=-1, keepdim=True), max=V - 1)
+    nucleus = torch.gather(order, -1, idx)[:, 0].to(torch.int32)
+
+    sampled = torch.where((topp > 0.0) & (topp < 1.0), nucleus, plain)
+    return torch.where(temperature <= 0.0, greedy_tok, sampled)

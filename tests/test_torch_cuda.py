@@ -406,3 +406,85 @@ def test_engine_generates_on_card(gen):
     toks, _, _ = eng.generate_benchmark([1, 5, 9], 40)
     assert len(toks) == 38
     assert all(0 <= t < _CFG.vocab_size for t in toks)
+
+
+@pytest.mark.parametrize("m", [1, 3, 11])
+def test_down_qkv_matches_plain_and_gemv_pair(gen, m):
+    """The chained down->qkv launch against its plain version (the int4
+    bar) and bit for bit against the standalone GEMV launches it replaces
+    (each column sums in the GEMV's order, each row's rms scale in
+    rms_scale's); 11 rows take two passes of 8."""
+    from llama_cu_awq_torch.ops.cuda.down_qkv import down_qkv_fused
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import _launch
+
+    hid, dim, n_q = 384, 256, 320
+    wd, wq = _qtensor(gen, hid, dim), _qtensor(gen, dim, n_q)
+    g, u = _randn(gen, m, 2 * hid).chunk(2, dim=-1)
+    res = _randn(gen, m, dim)
+    nw = torch.rand(dim, device="cuda", generator=gen) + 0.5
+    for out_dtype in (torch.bfloat16, torch.float32):
+        reset_launches()
+        x2, ss2, qkv = down_qkv_fused(g, u, res, wd, wq, nw, eps=1e-5,
+                                      out_dtype=out_dtype)
+        assert LAUNCHES["down_qkv"] == 1 and LAUNCHES["int4_matmul_fused"] == 0
+        rx2, rss2, rqkv = down_qkv_fused(g, u, res, wd, wq, nw, eps=1e-5,
+                                         out_dtype=out_dtype, plain=True)
+        px2, pss2 = _launch(g, wd, u2=u, res=res, out_dtype=torch.bfloat16,
+                            eps=1e-5, kernel="gemv")
+        pqkv, _ = _launch(px2, wq, ss=pss2.reshape(m), nw=nw,
+                          out_dtype=out_dtype, kernel="gemv")
+        torch.cuda.synchronize()
+        assert qkv.shape == (m, n_q) and qkv.dtype == out_dtype
+        _close(qkv, rqkv, **INT4)
+        _close(x2, rx2, **INT4)
+        assert torch.equal(x2, px2) and torch.equal(qkv, pqkv)
+        assert torch.equal(ss2.reshape(-1), pss2.reshape(-1))
+
+
+@pytest.mark.parametrize("chain", [False, True])
+def test_batch_engine_on_card_matches_single_engine(gen, monkeypatch, chain):
+    """A BatchEngine on the card (3 slots, 4 requests, fused_step
+    attention) gives each request the single-sequence engine's greedy
+    stream; with LLAMA_TPU_DOWN_QKV=1 the chain runs at m=3 and changes
+    nothing."""
+    from llama_cu_awq_torch.engine import BatchEngine
+
+    monkeypatch.setenv("LLAMA_TPU_DOWN_QKV", "1" if chain else "0")
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    prompts = [[1, 5, 9, 100], [1, 42], [1, 7, 8, 9, 10, 11, 12], [1, 250]]
+    reset_launches()
+    be = BatchEngine(params, _CFG, None, n_slots=3, max_seq=128,
+                     chunk_size=4, attn_impl="fused_step")
+    rids = [be.submit(p, max_new=12) for p in prompts]
+    out = be.run()
+    assert (LAUNCHES["down_qkv"] > 0) == chain
+    assert LAUNCHES["attention_step"] > 0
+    for rid, p in zip(rids, prompts):
+        eng = InferenceEngine(params, _CFG, None, temperature=0.0,
+                              attn_impl="fused_step", max_seq=128)
+        want = eng.generate_benchmark(p, len(p) + 11)[0]
+        got = out[rid]
+        assert got == want[:len(got)]
+        assert len(got) == 12 or want[len(got)] == 2  # EOS ends it early
+
+
+def test_batch_dispatch_does_not_sync(gen):
+    """Dispatching a chunk while another is in flight synchronizes with
+    neither the stream nor the device (sync debug mode "error" raises on
+    either), so run()'s next chunk queues behind the one in flight; a
+    sampled request draws its coins in the same dispatch."""
+    from llama_cu_awq_torch.engine import BatchEngine
+
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    be = BatchEngine(params, _CFG, None, n_slots=3, max_seq=128,
+                     chunk_size=4, attn_impl="fused_step")
+    be.submit([1, 5, 9, 100], max_new=16)
+    be.submit([1, 42], max_new=16, temperature=0.8)
+    be.step()
+    first = be._dispatch_chunk()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = be._dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert be._process_chunk(first) and be._process_chunk(second)

@@ -288,8 +288,15 @@ def test_cli_options_match_jax(tmp_path, capsys, monkeypatch, mode, extra):
 
 
 def test_batch_engine_not_ported_yet(setup):
+    """BatchEngine defaults to the card and raises without one, like every
+    entry point of the port; with device="cpu" it serves
+    (tests/test_torch_batch.py holds it to the JAX engine)."""
     from llama_cu_awq_torch.engine.batch import BatchEngine
 
     cfg, _, tp, _ = setup
-    with pytest.raises(NotImplementedError):
-        BatchEngine(tp, cfg)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BatchEngine(tp, cfg)
+    be = BatchEngine(tp, cfg, device="cpu", max_seq=64)
+    rid = be.submit([1, 5, 9], max_new=3)
+    assert len(be.run()[rid]) == 3

@@ -15,9 +15,11 @@ import torch
 from llama_cu_awq_torch.sampling import XorshiftRNG as TRNG
 from llama_cu_awq_torch.sampling import greedy as t_greedy
 from llama_cu_awq_torch.sampling import sample_token as t_sample
+from llama_cu_awq_torch.sampling import sample_token_vec as t_sample_vec
 from llama_cu_awq_tpu.sampling import XorshiftRNG as JRNG
 from llama_cu_awq_tpu.sampling import greedy as j_greedy
 from llama_cu_awq_tpu.sampling import sample_token as j_sample
+from llama_cu_awq_tpu.sampling import sample_token_vec as j_sample_vec
 
 # one intra-op thread per process: the suite runs in several worker
 # processes, and torch's default pool in each oversubscribes the cores
@@ -66,3 +68,27 @@ def test_greedy_ties_pick_the_first_index():
     got = t_greedy(torch.from_numpy(logits)).numpy()
     assert np.array_equal(got, np.asarray(j_greedy(jnp.asarray(logits))))
     assert got.tolist() == [3, 0]
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_sample_token_vec_per_row_parameters(seed):
+    """Per-row temperature and top-p (the batch engine's sampler): greedy,
+    plain-CDF and nucleus rows in one call pick the JAX function's tokens,
+    and each row the token sample_token picks with its own parameters."""
+    logits, coins = _logits_and_coins(seed)
+    rows = logits.shape[0]
+    temps = np.array([(0.0, 0.8, 0.5, 1.3)[i % 4] for i in range(rows)],
+                     np.float32)
+    topps = np.array([(0.6, 1.0, 0.6, 0.0)[i % 4] for i in range(rows)],
+                     np.float32)
+    got = t_sample_vec(*(torch.from_numpy(a)
+                         for a in (logits, coins, temps, topps)))
+    want = j_sample_vec(*(jnp.asarray(a)
+                          for a in (logits, coins, temps, topps)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    for i in range(4):
+        one = t_sample(torch.from_numpy(logits[i::4]),
+                       torch.from_numpy(coins[i::4]), float(temps[i]),
+                       float(topps[i]))
+        assert np.array_equal(got.numpy()[i::4], one.numpy())
