@@ -57,7 +57,20 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      concurrent completions, 4 of them streamed, two replayed step by step
      through the single-sequence engine (each token within 0.1 of the
      replayed argmax); and one 7B step at B=8 with the chain, kernels
-     against plain versions.
+     against plain versions;
+  8. the retired chain experiment (tools/experiments/int4_chain.py), from
+     llama_cu_awq_torch/experiments: ffn_chain (with the next layer's qkv)
+     at m=1 and m=8, and mono_layer at m=1 over bf16 and int8 KV at
+     position 1500 and at m=8 over bf16 KV at positions 960-1100, each
+     against its plain version and bit for bit against the launch
+     sequence it replaces (composed_ms beside ms); then e2e chain_step_7b:
+     after a 1024-token prompt, 32 greedy decode steps at the 2048 bucket
+     (a) through forward(attn_impl="fused_step"), (b) through
+     attention_step and ffn_chain in each layer and (c) through mono_layer
+     in each layer, in turns, for bf16 and int8 KV (decode tokens/s,
+     launches per kernel a step, equal streams), with a profile of one
+     step each; and one 7B step at B=8 through (a), (b) and (c) from the
+     same random cache, the logits bit-equal.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm; the port never calls them.
@@ -207,6 +220,20 @@ GEMV_TOL = dict(rtol=1e-3, atol=1e-4, why=(
 ATTN_TOL = dict(rtol=2e-2, atol=2e-3, why=(
     "same chunking as the plain version; f32 sums in another order can "
     "move p by one bf16 ulp before the PV product"))
+
+
+def chain_tol(want):
+    """ffn_chain's and mono_layer's bar against their plain versions:
+    INT4_TOL per stage plus one bf16 ulp at the output's largest
+    magnitude."""
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    return dict(rtol=INT4_TOL["rtol"], atol=INT4_TOL["atol"] + ulp, why=(
+        "the int4 bar per stage, plus one bf16 ulp at the output's largest "
+        "magnitude: kernel and plain sum each stage in another f32 order, "
+        "so a bf16 row of one stage (x1, gate_up, the attention rows) may "
+        "round one ulp apart, and out = down + x1 carries a flip of x1 "
+        "unchanged"))
 
 
 def launched_variant(fn):
@@ -625,34 +652,6 @@ def gemm_crossover(torch, timer, g):
                 x, qt, out_dtype=torch.float32, kernel="gemm"))})
     print(json.dumps({"gemm_crossover": "int4 qkv 4096x12288",
                       "GEMM_MIN_M": GEMM_MIN_M, "sweep": sweep}), flush=True)
-
-
-def unported_bounds() -> list[dict]:
-    """bound_ms of the TPU kernels not ported yet, from 7B shapes (dim
-    4096, hidden 11008, 32 MHA heads of 128, w4-g128: half a byte a
-    weight plus an fp16 scale and a uint8 zero per 128-row group and
-    column). Arithmetic only: no launch."""
-    dim, hid, H, D = 4096, 11008, 32, 128
-
-    def w4(n_in, n_out):
-        return n_in * n_out // 2 + -(-n_in // 128) * n_out * 3
-
-    qkv, o, gu, down = (w4(dim, 3 * dim), w4(dim, dim), w4(dim, 2 * hid),
-                        w4(hid, dim))
-    hist = 1500  # history rows, as the attention_step rows
-    out = []
-    for name, shape, n_bytes, n_flops in (
-            ("int4_chain.py:479 ffn_chain", "o + gate_up + down + next qkv, "
-             "m=1", o + gu + down + qkv,
-             2 * (dim * dim + dim * 2 * hid + hid * dim + dim * 3 * dim)),
-            ("int4_chain.py:627 mono_layer", "a whole layer, m=1, pos 1500",
-             qkv + o + gu + down + hist * H * D * 2 * 2,
-             2 * (dim * 3 * dim + dim * dim + dim * 2 * hid + hid * dim)
-             + 4 * (hist + 1) * H * D)):
-        b, src = bound_ms(n_bytes, n_flops)
-        out.append(dict(tpu_kernel=name, shape=shape, bytes=n_bytes,
-                        flops=n_flops, bound_ms=b, bound_by=src))
-    return out
 
 
 def run_path(torch, name, fn, launches):
@@ -1578,6 +1577,371 @@ def slice4_phase(torch, timer, rows, params, launches):
                              "per layer boundary")
 
 
+def chain_sequence(torch, attn, x, nw, wo, wgu, wd, wq=None, nw2=None):
+    """The standalone launches ffn_chain replaces, forced onto the GEMV
+    (not counted): o with the residual and rms_scale, gate_up with the
+    rmsnorm prologue, down with SwiGLU, the residual and rms_scale, and
+    the next qkv with the rmsnorm prologue. Returns the chain's outputs
+    and the input of each of the four products."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import _launch
+
+    m, bf16 = attn.shape[0], torch.bfloat16
+    x1, ss1 = _launch(attn, wo, res=x, out_dtype=bf16, eps=1e-5,
+                      kernel="gemv")
+    gu, _ = _launch(x1, wgu, ss=ss1.reshape(m), nw=nw, out_dtype=bf16,
+                    kernel="gemv")
+    g, u = gu.chunk(2, dim=-1)
+    out, ss = _launch(g, wd, u2=u, res=x1, out_dtype=bf16, eps=1e-5,
+                      kernel="gemv")
+    outs = (out, ss)
+    if wq is not None:
+        outs += (_launch(out, wq, ss=ss.reshape(m), nw=nw2, out_dtype=bf16,
+                         kernel="gemv")[0],)
+    h = (torch.nn.functional.silu(g.float()) * u.float()).bfloat16()
+    return outs, (attn, x1, h, out)
+
+
+def chain_bound(ws, m, inputs, outputs, extra_bytes=0, extra_flops=0):
+    """bound_ms of the chain's products at m rows, plus what attention
+    adds for mono_layer."""
+    return bound_ms(
+        sum(nbytes(w.qw, w.scales, w.zeros) for w in ws)
+        + nbytes(*inputs, *outputs) + extra_bytes,
+        2 * m * sum(w.n_in * w.n_out for w in ws) + extra_flops)
+
+
+def vs_composed(name, got, want):
+    """The kernel's outputs against the launch sequence it replaces, which
+    they must equal bit for bit."""
+    diffs = [float((a.float() - b.float().reshape(a.shape)).abs().max())
+             for a, b in zip(got, want) if a is not None]
+    equal = all(torch_equal(a, b) for a, b in zip(got, want))
+    print(json.dumps({
+        "check": f"{name}/vs_composed", "max_abs_err": max(diffs),
+        "max_abs_err_each_output": diffs, "bit_equal": equal,
+        "why": "each column sums in the standalone GEMV's order, each rms "
+               "scale in rms_scale's, and mono's attention runs "
+               "attention_step's body (attention_step.cuh)"}), flush=True)
+    if not equal:
+        raise AssertionError(f"{name}: differs from the launch sequence it "
+                             f"replaces (max abs err {diffs})")
+
+
+def torch_equal(a, b):
+    """Equal bits in any shape (both None counts as equal)."""
+    if a is None or b is None:
+        return a is None and b is None
+    return (a.dtype == b.dtype and a.numel() == b.numel()
+            and bool((a.reshape(-1) == b.reshape(-1)).all()))
+
+
+def chain_rows(torch, timer, rows, g):
+    """ffn_chain (with the next layer's qkv) at m=1 and m=8, and mono_layer
+    at m=1 over bf16 and int8 KV at position 1500 of a 2048-row window and
+    at m=8 over bf16 KV at positions 960-1100, all at 7B shapes (o 4096x
+    4096, gate_up 4096x22016, down 11008x4096, qkv 4096x12288, 32 MHA
+    heads of 128): against the plain versions (chain_tol; new cache rows
+    and scales bit-equal), and bit for bit against the launch sequence
+    each replaces, whose time stands beside the kernel's (composed_ms).
+    library_ms: the four products through torch._weight_int4pack_mm, plus
+    SDPA over the window's rows for mono over bf16 KV."""
+    from llama_cu_awq_torch.experiments.int4_chain import (ffn_chain,
+                                                           mono_layer)
+    from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
+                                                            rope_rows)
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    dim, hid, H, D, S = 4096, 11008, 32, 128, 2048
+    ws = [random_qtensor(torch, QTensor, dim, dim, g),
+          random_qtensor(torch, QTensor, dim, 2 * hid, g),
+          random_qtensor(torch, QTensor, hid, dim, g),
+          random_qtensor(torch, QTensor, dim, 3 * dim, g)]
+    nw = torch.rand(dim, device="cuda", generator=g) + 0.5
+    nw2 = torch.rand(dim, device="cuda", generator=g) + 0.5
+    kw = dict(eps=1e-5, wqkv_next=ws[3], attn_norm_next=nw2)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).bfloat16()
+
+    def library(prod_inputs, sdpa=None):
+        calls = [int4pack_library(torch, w, x)
+                 for w, x in zip(ws, prod_inputs)]
+        if sdpa is not None:
+            calls.append(sdpa)
+        return timer(lambda: [c() for c in calls])
+
+    def row(name, kernel, variant, path, chk, ms, plain_ms, composed_ms,
+            bound, lib, lib_call, replaces):
+        rows.append(dict(
+            name=name, kernel=kernel, route="cuda",
+            source="llama_cu_awq_torch/csrc/int4_chain.cu",
+            replaces=replaces, variant=variant, path=path, **chk, ms=ms,
+            plain_ms=plain_ms, composed_ms=composed_ms, bound_ms=bound[0],
+            bound_by=bound[1], library_ms=lib, library_call=lib_call))
+        r = rows[-1]
+        print(json.dumps({"kernel_check": r["name"], "kernel_ms": r["ms"],
+                          **{k: r[k] for k in (
+                              "max_abs_err", "rtol", "atol", "plain_ms",
+                              "composed_ms", "library_ms", "bound_ms",
+                              "bound_by")}}), flush=True)
+
+    for m, path in ((1, "chain_step_b_bf16"), (8, "forward_7b_chain_b8")):
+        attn, x = randn(m, dim), randn(m, dim)
+        args = (attn, x, nw, *ws[:3])
+        got, variant = launched_variant(lambda: ffn_chain(*args, **kw))
+        ref = ffn_chain(*args, plain=True, **kw)
+        seq, prods = chain_sequence(torch, attn, x, nw, *ws, nw2)
+        torch.cuda.synchronize()
+        name = f"ffn_chain/m{m}"
+        chk = check_close(name, got[0], ref[0], **chain_tol(ref[0]))
+        check_close(f"{name}/ss", got[1], ref[1], **chain_tol(ref[1]))
+        check_close(f"{name}/qkv", got[2], ref[2], **chain_tol(ref[2]))
+        vs_composed(name, got, seq)
+        row(name, "ffn_chain", variant, path, chk,
+            timer(lambda: ffn_chain(*args, **kw)),
+            timer(lambda: ffn_chain(*args, plain=True, **kw), iters=5),
+            timer(lambda: chain_sequence(torch, attn, x, nw, *ws, nw2)),
+            chain_bound(ws, m, (attn, x, nw, nw2), got),
+            library(prods), "torch._weight_int4pack_mm x4 (o, gate_up, "
+            "down, qkv)", "tools/experiments/int4_chain.py:479")
+
+    for tag, positions, quant, path in (
+            ("m1_bf16", [1500], False, "chain_step_c_bf16"),
+            ("m1_int8", [1500], True, "chain_step_c_int8"),
+            ("m8_bf16", [960 + 20 * i for i in range(8)], False,
+             "forward_7b_chain_b8")):
+        B = len(positions)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        cos2, sinm = rope_rows(pos, D, 10000.0)
+        qkv, x = randn(B, 3 * dim), randn(B, dim)
+        if quant:
+            kc = torch.randint(-127, 128, (B, S, H, D), dtype=torch.int8,
+                               device="cuda", generator=g)
+            vc = torch.randint(-127, 128, (B, S, H, D), dtype=torch.int8,
+                               device="cuda", generator=g)
+            ks = torch.rand(B, S, H, device="cuda", generator=g) * 0.02
+            vs = torch.rand(B, S, H, device="cuda", generator=g) * 0.02
+        else:
+            kc, vc = randn(B, S, H, D), randn(B, S, H, D)
+            ks = vs = None
+        args = (qkv, x, nw, *ws[:3], kc, vc, pos, cos2, sinm, ks, vs)
+        mkw = dict(n_heads=H, attn_len=S, **kw)
+        got, variant = launched_variant(lambda: mono_layer(*args, **mkw))
+        ref = mono_layer(*args, plain=True, **mkw)
+
+        def composed():
+            a = attention_step(qkv, kc, vc, pos, cos2, sinm, ks, vs,
+                               n_heads=H)
+            outs, prods = chain_sequence(
+                torch, a[0].reshape(B, dim).bfloat16(), x, nw, *ws, nw2)
+            return outs[:2] + a[1:] + outs[2:], prods
+
+        want, prods = composed()
+        torch.cuda.synchronize()
+        name = f"mono_layer/{tag}"
+        chk = check_close(name, got[0], ref[0], **chain_tol(ref[0]))
+        check_close(f"{name}/ss", got[1], ref[1], **chain_tol(ref[1]))
+        check_close(f"{name}/qkv", got[6], ref[6], **chain_tol(ref[6]))
+        for i, part in ((2, "k_new"), (3, "v_new"), (4, "k_s"), (5, "v_s")):
+            if not torch_equal(got[i], ref[i]):
+                raise AssertionError(
+                    f"{name}: {part} differs from the plain version (must "
+                    f"be bit-equal: same IEEE rope, division and "
+                    f"round-half-even)")
+        vs_composed(name, got, want)
+        hist = sum(positions) * H * D * kc.element_size() * 2
+        hist += sum(positions) * H * 4 * 2 if quant else 0
+        bound = chain_bound(
+            ws, B, (qkv, x, nw, nw2, pos, cos2, sinm),
+            [t for t in got if t is not None], hist,
+            sum(4 * (p + 1) * H * D for p in positions))
+        sdpa = None
+        lib_call = "torch._weight_int4pack_mm x4 (o, gate_up, down, qkv)"
+        if not quant:
+            # the window's pos + 1 keys, each slot under its own mask
+            n = max(positions) + 1
+            mask = (torch.arange(n, device="cuda")[None, :]
+                    <= pos[:, None])[:, None, None, :]
+            sdpa = sdpa_library(torch, qkv[:, :dim].reshape(B, H, D),
+                                kc[:, :n], vc[:, :n],
+                                mask if B > 1 else None)
+            lib_call += " + F.scaled_dot_product_attention"
+        row(name, "mono_layer", variant, path, chk,
+            timer(lambda: mono_layer(*args, **mkw)),
+            timer(lambda: mono_layer(*args, plain=True, **mkw), iters=5),
+            timer(composed), bound, library(prods, sdpa) if not quant
+            else None, lib_call if not quant else
+            "none: no call reads int8 codes with row scales",
+            "tools/experiments/int4_chain.py:627")
+        del kc, vc
+
+
+def chain_prefill(torch, eng, prompt):
+    """prompt[:-1] through the engine's _prefill; returns prompt[-1] as the
+    (1, 1) token that starts chain_decode."""
+    eng.reset()
+    eng._prefill(prompt[:-1])
+    torch.cuda.synchronize()
+    return torch.tensor([[prompt[-1]]], dtype=torch.int32,
+                        device=eng.device)
+
+
+def chain_decode(torch, eng, token, steps, impl):
+    """`steps` greedy T=1 steps from token at the engine's position and
+    bucket, each through forward (impl "forward": attn_impl="fused_step")
+    or decode_step (impl "ffn_chain" or "mono"), the sampled token kept on
+    the card and one host sync at the end. Returns (tokens, decode
+    tokens/s)."""
+    t0 = time.perf_counter()
+    toks = []
+    for _ in range(steps):
+        token = chain_step(torch, eng, token, impl)
+        toks.append(token)
+    out = torch.cat(toks).reshape(-1).tolist()
+    return out, steps / (time.perf_counter() - t0)
+
+
+def chain_step(torch, eng, token, impl):
+    """One greedy step of chain_decode at eng.pos; returns the (1, 1)
+    next token on the card."""
+    from llama_cu_awq_torch.experiments.int4_chain import decode_step
+    from llama_cu_awq_torch.models import forward
+
+    pos = eng._positions(1)
+    attn_len = eng._bucket_for(eng.pos + 1)
+    if impl == "forward":
+        logits, _ = forward(eng.params, eng.cfg, token, pos, eng.cache,
+                            attn_len=attn_len, attn_impl="fused_step")
+    else:
+        logits, _ = decode_step(eng.params, eng.cfg, token, pos, eng.cache,
+                                layer_impl=impl, attn_len=attn_len)
+    eng.pos += 1
+    return logits.argmax(-1).to(torch.int32)[:, None]
+
+
+CHAIN_IMPLS = (("a", "forward"), ("b", "ffn_chain"), ("c", "mono"))
+
+
+def chain_phase(torch, timer, rows, params, launches):
+    """ffn_chain and mono_layer at 7B (see the module docstring, phase
+    8)."""
+    from llama_cu_awq_torch.config import LLAMA2_7B
+    from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.experiments.int4_chain import decode_step
+    from llama_cu_awq_torch.models import forward, init_kv_cache
+
+    cfg = LLAMA2_7B
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    chain_rows(torch, timer, rows, g)
+
+    prompt = [1] + [3 + (7919 * i) % 31990 for i in range(1023)]
+    for fmt, kv_quant in (("bf16", False), ("int8", True)):
+        eng = InferenceEngine(params, cfg, None, temperature=0.0, seed=1234,
+                              attn_impl="fused_step", kv_quant=kv_quant,
+                              max_seq=2048)
+        chain_decode(torch, eng, chain_prefill(torch, eng, prompt[:200]),
+                     4, "mono")  # warm-up
+        res = {}
+        # in turns (a, b, c, c, b, a): the host clock moves between runs;
+        # the counters see the decode steps only
+        for letter, impl in CHAIN_IMPLS + CHAIN_IMPLS[::-1]:
+            name = f"chain_step_{letter}_{fmt}"
+            if name in launches:
+                name += "_again"
+            token = chain_prefill(torch, eng, prompt)
+            res.setdefault(letter, []).append(run_path(
+                torch, name, lambda i=impl, t=token: chain_decode(
+                    torch, eng, t, 32, i), launches))
+        streams = [r[0] for rs in res.values() for r in rs]
+        equal = all(s == streams[0] for s in streams)
+        per_step = {letter: {k: v / 32 for k, v in launches[
+            f"chain_step_{letter}_{fmt}"]["kernels"].items() if v}
+            for letter, _ in CHAIN_IMPLS}
+        print(json.dumps({
+            "e2e": f"chain_step_7b_{fmt}", "model": "llama2-7b",
+            "kv": fmt, "prompt_tokens": 1024, "max_seq": 2048,
+            "decode_steps": 32,
+            "decode_tok_per_s": {f"{letter}_{impl}": [r[1] for r in
+                                                      res[letter]]
+                                 for letter, impl in CHAIN_IMPLS},
+            "launches_per_step": per_step, "streams_equal": equal,
+            "first_tokens": streams[0][:8]}), flush=True)
+        if not equal:
+            raise AssertionError(f"chain_step_7b_{fmt}: the three ways "
+                                 f"gave different streams")
+        # a step: (b) and (c) launch layer 0's qkv GEMV and one chain or
+        # mono launch a layer; (a) the 4 GEMVs a layer
+        want = {("a", "int4_matmul_fused"): 128, ("b", "ffn_chain"): 32,
+                ("b", "int4_matmul_fused"): 1, ("c", "mono_layer"): 32,
+                ("c", "int4_matmul_fused"): 1}
+        for (letter, kname), n in want.items():
+            got = per_step[letter].get(kname, 0)
+            if got != n:
+                raise AssertionError(f"chain_step_{letter}_{fmt}: {got} "
+                                     f"{kname} launches a step, not {n}")
+        if per_step["c"].get("attention_step") or \
+                per_step["c"].get("ffn_chain"):
+            raise AssertionError(f"chain_step_c_{fmt}: launched "
+                                 f"attention_step or ffn_chain")
+        # one step of each way at the position the runs reached
+        for letter, impl in CHAIN_IMPLS:
+            def prepare(base=eng.pos):
+                eng.pos = base
+                tok = torch.tensor([[5]], dtype=torch.int32, device="cuda")
+                torch.cuda.synchronize()
+                return (tok,)
+
+            profile_run(torch, f"chain_step_{letter}_{impl}_{fmt}_pos"
+                        f"{eng.pos}", prepare,
+                        lambda tok, i=impl: chain_step(torch, eng, tok, i),
+                        1, "step")
+        del eng
+
+    # one 7B step at B=8 from the same random cache through (a), (b), (c)
+    g.manual_seed(9)
+    tok8 = torch.randint(3, cfg.vocab_size, (8, 1), dtype=torch.int32,
+                         device="cuda", generator=g)
+    pos8 = torch.tensor([960 + 20 * i for i in range(8)], dtype=torch.int32,
+                        device="cuda")
+    cache = random_cache(torch, cfg, False, g, batch=8)
+
+    def b8_step():
+        logits = {}
+        for letter, impl in CHAIN_IMPLS:
+            c = init_kv_cache(cfg, 8, 2048)
+            for dst, src in zip(c.k + c.v, cache.k + cache.v):
+                dst.copy_(src)
+            if impl == "forward":
+                out, _ = forward(params, cfg, tok8, pos8, c,
+                                 attn_impl="fused_step")
+            else:
+                out, _ = decode_step(params, cfg, tok8, pos8, c,
+                                     layer_impl=impl)
+            logits[letter] = out
+            del c
+        return logits
+
+    logits = run_path(torch, "forward_7b_chain_b8", b8_step, launches)
+    a = logits["a"]
+    diffs = {k: float((v - a).abs().max()) for k, v in logits.items()}
+    equal = {k: torch_equal(v, a) for k, v in logits.items()}
+    print(json.dumps({
+        "forward_7b": "chain_b8", "rows": 8, "positions": pos8.tolist(),
+        "max_abs_logit_diff_vs_a": diffs, "bit_equal_vs_a": equal,
+        "max_abs_logit": float(a.abs().max()),
+        "finite": bool(torch.isfinite(a).all()),
+        "why": "(b) and (c) sum every column, rms scale and attention row "
+               "in the order of (a)'s launches"}), flush=True)
+    if not all(equal.values()) or not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"forward_7b chain_b8: logits differ from (a): "
+                             f"{diffs}")
+    lb8 = launches["forward_7b_chain_b8"]["kernels"]
+    if lb8["ffn_chain"] != cfg.n_layers or lb8["mono_layer"] != cfg.n_layers:
+        raise AssertionError(f"forward_7b chain_b8: launches {lb8}")
+    del cache
+
+
 def main() -> int:
     import torch
 
@@ -1617,6 +1981,7 @@ def main() -> int:
     prefill_phase(torch, params, launches)
     slice3_phase(torch, params, launches)
     slice4_phase(torch, timer, rows, params, launches)
+    chain_phase(torch, timer, rows, params, launches)
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none
@@ -1638,7 +2003,6 @@ def main() -> int:
             v = r[k]
             if v is not None and not math.isfinite(v):
                 raise AssertionError(f"{r['name']}: {k} = {v}")
-    print(json.dumps({"unported_bounds": unported_bounds()}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

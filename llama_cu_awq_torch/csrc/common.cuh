@@ -60,6 +60,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// A refused launch's error, with the runtime's last-error state cleared:
+// a failed attribute call or launch also records its error there, and the
+// next check after an unrelated launch (this library's or PyTorch's)
+// would report it again.
+inline int launch_refused(cudaError_t e) {
+  cudaGetLastError();
+  return static_cast<int>(e);
+}
+
 LLAMA_EXPORT const char* llama_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));
 }

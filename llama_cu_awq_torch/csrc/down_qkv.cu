@@ -192,7 +192,7 @@ LLAMA_EXPORT int down_qkv(const void* g, int ldg, const void* u, int ldu,
                           : w4gemv::staged_bytes(rpp_q, dim);
   int grid = 0;
   cudaError_t e = resident_blocks(smem, &grid);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return launch_refused(e);
   const int cols = dim > n_q ? dim : n_q;
   if (grid > (cols + WARPS - 1) / WARPS) grid = (cols + WARPS - 1) / WARPS;
 
@@ -215,6 +215,6 @@ LLAMA_EXPORT int down_qkv(const void* g, int ldg, const void* u, int ldu,
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(down_qkv_kernel),
                                   dim3(grid), dim3(WARPS * 32), args, smem,
                                   static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return launch_refused(e);
   return static_cast<int>(cudaGetLastError());
 }

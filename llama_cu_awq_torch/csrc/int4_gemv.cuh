@@ -1,4 +1,5 @@
-// Device code of the w4-g128 GEMV, shared by int4_gemv.cu and down_qkv.cu.
+// Device code of the w4-g128 GEMV, shared by int4_gemv.cu, down_qkv.cu and
+// int4_chain.cu.
 //
 // Both sources compute a column's dot product, a staged row and an rms
 // scale with these functions, so the chained down->qkv kernel sums in the
@@ -43,7 +44,7 @@ __device__ __forceinline__ void stage_rows(
       v = v * ss[r] * nw[k];
     } else if (MODE == 2) {
       const float sig = 1.0f / (1.0f + expf(-v));
-      v = v * sig * __bfloat162float(u[(size_t)(r0 + r) * ldu + k]);
+      v = v * sig * load_act<FROM_L2>(u + (size_t)(r0 + r) * ldu + k);
     }
     xs[r * row_elems + xs_index(k)] = __float2bfloat16_rn(v);
   }
@@ -97,7 +98,9 @@ __device__ __forceinline__ void column_partials(
 }
 
 // Finish column col for rows r0..r0+mr-1: the warp's sum, plus the bf16
-// residual when res is given, stored as bf16 or f32 by lane 0.
+// residual when res is given (read through L2 with RES_L2, see load_act),
+// stored as bf16 or f32 by lane 0.
+template <bool RES_L2 = false>
 __device__ __forceinline__ void store_column(
     float (&acc)[MAX_ROWS], int mr, int lane, int r0, int col, int n_out,
     const __nv_bfloat16* __restrict__ res, void* out, int out_bf16) {
@@ -108,7 +111,7 @@ __device__ __forceinline__ void store_column(
       if (lane == 0) {
         const size_t o = (size_t)(r0 + r) * n_out + col;
         float val = total;
-        if (res != nullptr) val += __bfloat162float(res[o]);
+        if (res != nullptr) val += load_act<RES_L2>(res + o);
         if (out_bf16) {
           reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(val);
         } else {

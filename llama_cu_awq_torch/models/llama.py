@@ -516,12 +516,17 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
 
     if no_logits:
         return None, cache
+    return final_logits(params, x, ss, act_dtype, logits_all, plain), cache
+
+
+def final_logits(params: LlamaParams, x: torch.Tensor, ss: torch.Tensor,
+                 act_dtype, logits_all: bool, plain: bool) -> torch.Tensor:
+    """The final rmsnorm (x (B, T, dim) and its rms scale ss (B, T, 1)) and
+    the lm_head: (B, T, vocab) f32 with logits_all, else the last token's
+    (B, vocab)."""
     x = (x.float() * ss * params.final_norm.float()).to(act_dtype)
     if not logits_all:
         x = x[:, -1, :]
     if isinstance(params.lm_head, QTensor):
-        logits = qmatmul(x.to(act_dtype), params.lm_head, plain)
-    else:
-        logits = dense_matmul(x.to(params.lm_head.dtype), params.lm_head,
-                              plain)
-    return logits, cache
+        return qmatmul(x.to(act_dtype), params.lm_head, plain)
+    return dense_matmul(x.to(params.lm_head.dtype), params.lm_head, plain)

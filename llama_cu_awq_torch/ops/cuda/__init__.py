@@ -18,7 +18,7 @@ import torch
 LAUNCHES = {"int4_matmul_fused": 0, "int4_matmul": 0, "dense_gemv": 0,
             "attention_step": 0, "attention_step_kv4": 0,
             "prefill_attention": 0, "batched_decode_attention": 0,
-            "down_qkv": 0}
+            "down_qkv": 0, "ffn_chain": 0, "mono_layer": 0}
 VARIANT_LAUNCHES: dict[str, int] = {}
 
 

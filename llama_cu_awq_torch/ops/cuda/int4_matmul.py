@@ -59,9 +59,14 @@ def route(m: int) -> str:
     return "gemm" if m >= GEMM_MIN_M else "gemv"
 
 
+def staged_row_bytes(n_in: int) -> int:
+    """Shared memory of one staged row of x: padded bf16 (csrc/common.cuh's
+    xs_index layout)."""
+    return (n_in // 32) * 34 * 2
+
+
 def rows_per_pass(m: int, n_in: int) -> int:
-    per_row = (n_in // 32) * 34 * 2  # padded bf16 staging (csrc/common.cuh)
-    return max(1, min(m, _MAX_ROWS, _SMEM_BUDGET // per_row))
+    return max(1, min(m, _MAX_ROWS, _SMEM_BUDGET // staged_row_bytes(n_in)))
 
 
 def _as_rows(a: torch.Tensor, m: int, n: int) -> torch.Tensor:

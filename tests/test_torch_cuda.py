@@ -16,6 +16,8 @@ and int4 codes and scales; token for token for the speculative stream
 against the plain one.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -488,3 +490,205 @@ def test_batch_dispatch_does_not_sync(gen):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert be._process_chunk(first) and be._process_chunk(second)
+
+
+def _chain_close(got, want):
+    """The chain kernels against their plain versions: the int4 bar per
+    stage, plus one bf16 ulp at the output's largest magnitude. Kernel and
+    plain sum each stage in another f32 order, so a bf16 row of one stage
+    (x1, gate_up, the attention rows) may round one ulp apart, and
+    out = down + x1 carries a flip of x1 unchanged."""
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+    _close(got, want, rtol=INT4["rtol"], atol=INT4["atol"] + ulp)
+
+
+def _chain_case(gen, m, n_o, dim, hid, n_q):
+    """Weights and rows for the chain kernels: W_o, W_gate_up, W_down and
+    (n_q > 0) the next W_qkv; attn, x_res and the two rms weights."""
+    ws = [_qtensor(gen, n_o, dim), _qtensor(gen, dim, 2 * hid),
+          _qtensor(gen, hid, dim)]
+    kw = {}
+    if n_q:
+        kw = dict(wqkv_next=_qtensor(gen, dim, n_q),
+                  attn_norm_next=torch.rand(dim, device="cuda",
+                                            generator=gen) + 0.5)
+    nw = torch.rand(dim, device="cuda", generator=gen) + 0.5
+    return ws, nw, kw, _randn(gen, m, n_o), _randn(gen, m, dim)
+
+
+def _gemv_sequence(attn, x, nw, wo, wgu, wd, wqkv_next=None,
+                   attn_norm_next=None):
+    """The standalone launches the chain replaces, forced onto the GEMV
+    (not counted): o with the residual, rms_scale, gate_up with the
+    rmsnorm prologue, down with SwiGLU and the residual, rms_scale, and
+    the next qkv with the rmsnorm prologue."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import _launch
+
+    m = attn.shape[0]
+    bf16 = torch.bfloat16
+    x1, ss1 = _launch(attn, wo, res=x, out_dtype=bf16, eps=1e-5,
+                      kernel="gemv")
+    gu, _ = _launch(x1, wgu, ss=ss1.reshape(m), nw=nw, out_dtype=bf16,
+                    kernel="gemv")
+    g, u = gu.chunk(2, dim=-1)
+    out, ss = _launch(g, wd, u2=u, res=x1, out_dtype=bf16, eps=1e-5,
+                      kernel="gemv")
+    if wqkv_next is None:
+        return out, ss
+    qkv, _ = _launch(out, wqkv_next, ss=ss.reshape(m), nw=attn_norm_next,
+                     out_dtype=bf16, kernel="gemv")
+    return out, ss, qkv
+
+
+@pytest.mark.parametrize("has_qkv", [False, True])
+@pytest.mark.parametrize("m", [1, 3, 8, 11])
+def test_ffn_chain_matches_plain_and_gemv_sequence(gen, m, has_qkv):
+    """The chain in one launch against its plain version (the int4 bar)
+    and bit for bit against the GEMV launches it replaces (each column
+    sums in the GEMV's order, each rms scale in rms_scale's); 11 rows
+    take two passes of 8."""
+    from llama_cu_awq_torch.experiments.int4_chain import ffn_chain
+
+    ws, nw, kw, attn, x = _chain_case(gen, m, 256, 288, 384,
+                                      320 if has_qkv else 0)
+    reset_launches()
+    got = ffn_chain(attn, x, nw, *ws, eps=1e-5, **kw)
+    assert LAUNCHES["ffn_chain"] == 1 and LAUNCHES["int4_matmul_fused"] == 0
+    ref = ffn_chain(attn, x, nw, *ws, eps=1e-5, plain=True, **kw)
+    seq = _gemv_sequence(attn, x, nw, *ws, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == len(seq) == (3 if has_qkv else 2)
+    for a, b, c in zip(got, ref, seq):
+        _chain_close(a, b)
+        assert torch.equal(a, c.reshape(a.shape))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("B", [1, 3, 8, 11])
+def test_mono_layer_matches_plain_and_launch_sequence(gen, B, quant):
+    """The whole layer in one launch against its plain version and bit
+    for bit against attention_step, its rows rounded to bf16, and the GEMV
+    launches of the chain; GQA 4/2 over a 200-row cache (positions from 0
+    up, a window of 160 rows), bf16 and int8."""
+    from llama_cu_awq_torch.experiments.int4_chain import mono_layer
+
+    H, n_kv, D, S, win = 4, 2, 128, 200, 160
+    ws, nw, kw, _, x = _chain_case(gen, B, H * D, 256, 384,
+                                   (H + 2 * n_kv) * D)
+    qkv = _randn(gen, B, (H + 2 * n_kv) * D)
+    pos = torch.tensor([(0, 150, 199, 37, 64, 128, 159, 1, 100, 63,
+                         65)[b] for b in range(B)], dtype=torch.int32,
+                       device="cuda")
+    cos2, sinm = rope_rows(pos, D, 10000.0)
+    if quant:
+        kc = torch.randint(-127, 128, (B, S, n_kv, D), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        vc = torch.randint(-127, 128, (B, S, n_kv, D), dtype=torch.int8,
+                           device="cuda", generator=gen)
+        ks = torch.rand(B, S, n_kv, device="cuda", generator=gen) * 0.02
+        vs = torch.rand(B, S, n_kv, device="cuda", generator=gen) * 0.02
+    else:
+        kc, vc = _randn(gen, B, S, n_kv, D), _randn(gen, B, S, n_kv, D)
+        ks = vs = None
+    args = (qkv, x, nw, *ws, kc, vc, pos, cos2, sinm, ks, vs)
+    reset_launches()
+    got = mono_layer(*args, n_heads=H, attn_len=win, eps=1e-5, **kw)
+    assert LAUNCHES["mono_layer"] == 1 and LAUNCHES["attention_step"] == 0
+    ref = mono_layer(*args, n_heads=H, attn_len=win, eps=1e-5, plain=True,
+                     **kw)
+    window = [t[:, :win].contiguous() if t is not None else None
+              for t in (kc, vc, ks, vs)]
+    attn, kn, vn, ksn, vsn = attention_step(qkv, window[0], window[1], pos,
+                                            cos2, sinm, *window[2:],
+                                            n_heads=H)
+    seq = _gemv_sequence(attn.reshape(B, H * D).bfloat16(), x, nw, *ws,
+                         **kw)
+    torch.cuda.synchronize()
+    want = seq[:2] + (kn, vn, ksn, vsn) + seq[2:]
+    assert len(got) == len(ref) == len(want) == 7
+    for i, (a, b, c) in enumerate(zip(got, ref, want)):
+        if c is None:
+            assert a is None and b is None
+            continue
+        if i in (2, 3, 4, 5):  # new rows and scales: same IEEE arithmetic
+            assert torch.equal(a, b)
+        else:
+            _chain_close(a, b)
+        assert torch.equal(a, c.reshape(a.shape))
+
+
+def test_cooperative_kernels_raise_where_not_co_resident(gen, monkeypatch):
+    """A launch whose blocks cannot be resident (here 8 rows of a
+    14336-wide down staged at once: 244 KB of shared memory, more than a
+    block's 227 KB) is refused by the C launcher, and the wrapper raises;
+    the next launches, PyTorch's included, run and are right (the
+    refusal's error was cleared). The int4 cache raises ValueError before
+    any launch."""
+    from llama_cu_awq_torch.experiments import int4_chain
+    from llama_cu_awq_torch.ops.cuda import down_qkv
+
+    ws, nw, _, attn, x = _chain_case(gen, 8, 64, 64, 14336, 0)
+    g, u = _randn(gen, 8, 2 * 14336).chunk(2, dim=-1)
+    wq = _qtensor(gen, 64, 96)
+    for mod in (int4_chain, down_qkv):
+        monkeypatch.setattr(mod, "rows_per_pass", lambda m, n_in: min(m, 8))
+    with pytest.raises(RuntimeError, match="ffn_chain failed"):
+        int4_chain.ffn_chain(attn, x, nw, *ws, eps=1e-5)
+    assert float((x.float() * 2).sum().isfinite())
+    with pytest.raises(RuntimeError, match="down_qkv failed"):
+        down_qkv.down_qkv_fused(g, u, x, ws[2], wq, nw, eps=1e-5)
+    monkeypatch.undo()
+    got = int4_chain.ffn_chain(attn, x, nw, *ws, eps=1e-5)
+    ref = int4_chain.ffn_chain(attn, x, nw, *ws, eps=1e-5, plain=True)
+    dq = down_qkv.down_qkv_fused(g, u, x, ws[2], wq, nw, eps=1e-5)
+    dq_ref = down_qkv.down_qkv_fused(g, u, x, ws[2], wq, nw, eps=1e-5,
+                                     plain=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _chain_close(a, b)
+    for a, b in zip(dq, dq_ref):
+        _close(a, b, **INT4)
+
+    H, n_kv, D = 2, 2, 32
+    ws, nw, _, _, x = _chain_case(gen, 1, H * D, 64, 96, 0)
+    kv4 = torch.zeros(1, 16, n_kv, D // 2, dtype=torch.int8, device="cuda")
+    sc = torch.ones(1, 16, n_kv, device="cuda")
+    pos = torch.tensor([3], dtype=torch.int32, device="cuda")
+    cos2, sinm = rope_rows(pos, D, 10000.0)
+    with pytest.raises(ValueError, match="int4"):
+        int4_chain.mono_layer(_randn(gen, 1, (H + 2 * n_kv) * D), x, nw,
+                              *ws, kv4, kv4, pos, cos2, sinm, sc, sc,
+                              n_heads=H, eps=1e-5)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_step_on_card_equals_forward(gen, quantized):
+    """Whole decode steps composed through ffn_chain and through
+    mono_layer give forward(attn_impl="fused_step")'s logits and cache
+    bit for bit on the card, at B=2, launching their kernels once a layer."""
+    from llama_cu_awq_torch.experiments import int4_chain
+
+    cfg = ModelConfig(dim=256, hidden_dim=384, n_layers=2, n_heads=2,
+                      n_kv_heads=2, vocab_size=512, seq_len=256)
+    params = params_from_checkpoint(random_checkpoint(cfg, seed=3))
+    caches = {k: init_kv_cache(cfg, 2, 256, quantized=quantized)
+              for k in ("forward",) + int4_chain.LAYER_IMPLS}
+    for step, t in enumerate([1, 7, 42, 3, 200]):
+        tok = torch.tensor([[t], [t + 1]], device="cuda")
+        pos = torch.tensor([step, step + 30], dtype=torch.int32,
+                           device="cuda")
+        want, _ = forward(params, cfg, tok, pos, caches["forward"],
+                          attn_impl="fused_step")
+        for impl in int4_chain.LAYER_IMPLS:
+            reset_launches()
+            got, _ = int4_chain.decode_step(params, cfg, tok, pos,
+                                            caches[impl], layer_impl=impl)
+            kernel = "mono_layer" if impl == "mono" else "ffn_chain"
+            assert LAUNCHES[kernel] == cfg.n_layers
+            assert torch.equal(got, want), impl
+    for impl in int4_chain.LAYER_IMPLS:
+        c, r = caches[impl], caches["forward"]
+        for a, b in zip(c.k + c.v + c.k_scale + c.v_scale,
+                        r.k + r.v + r.k_scale + r.v_scale):
+            assert torch.equal(a, b)
