@@ -1,9 +1,11 @@
-// Device code of one decode attention step for one (slot, kv head), shared
-// by attention_step.cu (one block per work item) and int4_chain.cu's
-// mono_layer (persistent blocks that walk the work items before the layer's
-// matmul stages). See attention_step.cu's header for the design; both
-// sources run this one body, so mono_layer's attention rows, new cache rows
-// and scales are bit-equal to attention_step's.
+// Device code of one decode attention step for one (slot, kv head).
+// new_row (phase 1: split, RoPE, bf16 rounding, quantizing and packing the
+// new k/v row) is shared by attention_step.cu's split kernel
+// (decode_attention.cuh) and attention_item, so both write the same bits.
+// attention_item is int4_chain.cu's mono_layer attention stage (persistent
+// blocks that walk the work items before the layer's matmul stages): the
+// online softmax over the whole window in one walk, where attention_step.cu
+// splits the window across blocks.
 #pragma once
 
 #include "common.cuh"
@@ -70,12 +72,97 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// One (slot b, kv head kvh) work item, run by threads 0..D-1 (D a multiple
-// of 32): phase 1 splits the qkv row, rotates, rounds and (for a quantized
-// cache) quantizes the new k/v row; phase 2 is the online softmax over the
-// current token, then the history rows below min(pos[b], win) in chunks of
-// CHUNK. S is the cache's row count (its stride). attn gets the kv_mul
-// query heads' rows as f32 or as bf16 (OutT).
+// element t of head row x, rotated in f32 as x*cos2 + rot_half(x)*sinm
+// and rounded to bf16 (attention_step.py:150-163); partner = t +- D/2
+__device__ __forceinline__ float rope_elem(const __nv_bfloat16* x, int t,
+                                          int partner, float c, float sn) {
+  return round_bf16(__fadd_rn(__fmul_rn(__bfloat162float(x[t]), c),
+                              __fmul_rn(__bfloat162float(x[partner]), sn)));
+}
+
+// Phase 1's new cache row for (slot b, kv head kvh), run by threads
+// 0..D-1 (D a multiple of 32): rotate and round k, take v, and for a
+// quantized cache quantize both (int8, or int4 packed in halves); write
+// k_new/v_new (and ks_new/vs_new) at row nrow = b * n_kv + kvh. Returns
+// in every thread its element of the row as the softmax sees it (the bf16
+// value or the code) and the scales (quantized only). red and code are
+// the item's scratch; the barrier is item_sync<NAMED>. Shared by
+// attention_item and the split kernel (decode_attention.cuh), so both
+// write the same bits.
+template <int KV, bool NAMED>
+__device__ __forceinline__ void new_row(
+    float (&red)[2][MAX_D / 32], int (&code)[2][MAX_D],
+    const __nv_bfloat16* __restrict__ row, float c, float sn, int partner,
+    void* __restrict__ k_new, void* __restrict__ v_new,
+    float* __restrict__ ks_new, float* __restrict__ vs_new, int H, int n_kv,
+    int D, int kvh, size_t nrow, float& kcur, float& vcur, float& ksc,
+    float& vsc) {
+  constexpr bool QUANT = KV != KV_BF16;
+  const int t = threadIdx.x;  // < D
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int half = D / 2;
+  const float kb = rope_elem(row + (size_t)(H + kvh) * D, t, partner, c, sn);
+  const float vb = __bfloat162float(row[(size_t)(H + n_kv + kvh) * D + t]);
+  kcur = kb;
+  vcur = vb;
+  ksc = vsc = 0.0f;
+  if constexpr (QUANT) {
+    const float ka = warp_max(fabsf(kb));
+    const float va = warp_max(fabsf(vb));
+    if (lane == 0) {
+      red[0][warp] = ka;
+      red[1][warp] = va;
+    }
+    item_sync<NAMED>(D);
+    for (int w = 0; w < D / 32; ++w) {
+      ksc = fmaxf(ksc, red[0][w]);
+      vsc = fmaxf(vsc, red[1][w]);
+    }
+    // absmax * f32(1/127) or f32(1/7): XLA rewrites the JAX package's
+    // absmax/127 and absmax/7 so
+    const float inv = KV == KV_INT4 ? 1.0f / 7.0f : 1.0f / 127.0f;
+    ksc = fmaxf(ksc * inv, 1e-10f);
+    vsc = fmaxf(vsc * inv, 1e-10f);
+    kcur = rintf(kb / ksc);
+    vcur = rintf(vb / vsc);
+    if constexpr (KV == KV_INT4) {
+      kcur = fminf(fmaxf(kcur, -7.0f), 7.0f);
+      vcur = fminf(fmaxf(vcur, -7.0f), 7.0f);
+      code[0][t] = static_cast<int>(kcur);
+      code[1][t] = static_cast<int>(vcur);
+      item_sync<NAMED>(D);
+      if (t < half) {
+        // byte t: lane t in the low nibble, lane t + D/2 in the high one
+        auto pack = [&](const int* cd) {
+          return static_cast<int8_t>(static_cast<uint8_t>(
+              (cd[t] & 0xF) | ((cd[t + half] & 0xF) << 4)));
+        };
+        static_cast<int8_t*>(k_new)[nrow * half + t] = pack(code[0]);
+        static_cast<int8_t*>(v_new)[nrow * half + t] = pack(code[1]);
+      }
+    } else {
+      static_cast<int8_t*>(k_new)[nrow * D + t] = static_cast<int8_t>(kcur);
+      static_cast<int8_t*>(v_new)[nrow * D + t] = static_cast<int8_t>(vcur);
+    }
+    if (t == 0) {
+      ks_new[nrow] = ksc;
+      vs_new[nrow] = vsc;
+    }
+  } else {
+    static_cast<__nv_bfloat16*>(k_new)[nrow * D + t] = __float2bfloat16_rn(kb);
+    static_cast<__nv_bfloat16*>(v_new)[nrow * D + t] = __float2bfloat16_rn(vb);
+  }
+}
+
+// One (slot b, kv head kvh) work item of mono_layer (int4_chain.cu), run
+// by threads 0..D-1 (D a multiple of 32): phase 1 (new_row) splits the
+// qkv row, rotates, rounds and (for a quantized cache) quantizes the new
+// k/v row; phase 2 is the online softmax over the current token, then the
+// history rows below min(pos[b], win) in chunks of CHUNK, in one walk
+// (attention_step_plain(split=False) walks the same chunks). S is the
+// cache's row count (its stride). attn gets the kv_mul query heads'
+// rows as f32 or as bf16 (OutT).
 template <int KV, bool NAMED, typename OutT>
 __device__ __forceinline__ void attention_item(
     Smem& sm, const __nv_bfloat16* __restrict__ qkv,
@@ -90,8 +177,7 @@ __device__ __forceinline__ void attention_item(
   const int t = threadIdx.x;  // < D
   const int lane = t & 31;
   const int warp = t >> 5;
-  // the block's own size where the block is the item (the codegen that
-  // chip_smoke.py's attention rows were measured with)
+  // the block's own size where the block is the item
   const int nthreads = NAMED ? D : static_cast<int>(blockDim.x);
   const int nwarps = nthreads >> 5;
   const int kv_mul = H / n_kv;
@@ -102,66 +188,16 @@ __device__ __forceinline__ void attention_item(
   const int partner = t < half ? t + half : t - half;
 
   // ---- phase 1: split, rope, bf16 rounding, new cache row ----
-  auto rope = [&](const __nv_bfloat16* x) {
-    return round_bf16(__fadd_rn(__fmul_rn(__bfloat162float(x[t]), c),
-                                __fmul_rn(__bfloat162float(x[partner]), sn)));
-  };
   for (int h = 0; h < kv_mul; ++h)
-    sm.q_s[h * D + t] = rope(row + (size_t)(kvh * kv_mul + h) * D);
-  const float kb = rope(row + (size_t)(H + kvh) * D);
-  const float vb = __bfloat162float(row[(size_t)(H + n_kv + kvh) * D + t]);
-  const size_t nrow = (size_t)b * n_kv + kvh;
-  float kcur = kb;
-  float vcur = vb;
-  if constexpr (QUANT) {
-    const float ka = warp_max(fabsf(kb));
-    const float va = warp_max(fabsf(vb));
-    if (lane == 0) {
-      sm.red[0][warp] = ka;
-      sm.red[1][warp] = va;
-    }
-    item_sync<NAMED>(D);
-    float ksc = 0.0f;
-    float vsc = 0.0f;
-    for (int w = 0; w < nwarps; ++w) {
-      ksc = fmaxf(ksc, sm.red[0][w]);
-      vsc = fmaxf(vsc, sm.red[1][w]);
-    }
-    // absmax * f32(1/127) or f32(1/7): XLA rewrites the JAX package's
-    // absmax/127 and absmax/7 so
-    const float inv = KV == KV_INT4 ? 1.0f / 7.0f : 1.0f / 127.0f;
-    ksc = fmaxf(ksc * inv, 1e-10f);
-    vsc = fmaxf(vsc * inv, 1e-10f);
-    kcur = rintf(kb / ksc);
-    vcur = rintf(vb / vsc);
-    if constexpr (KV == KV_INT4) {
-      kcur = fminf(fmaxf(kcur, -7.0f), 7.0f);
-      vcur = fminf(fmaxf(vcur, -7.0f), 7.0f);
-      sm.code_s[0][t] = static_cast<int>(kcur);
-      sm.code_s[1][t] = static_cast<int>(vcur);
-      item_sync<NAMED>(D);
-      if (t < half) {
-        // byte t: lane t in the low nibble, lane t + D/2 in the high one
-        auto pack = [&](const int* code) {
-          return static_cast<int8_t>(static_cast<uint8_t>(
-              (code[t] & 0xF) | ((code[t + half] & 0xF) << 4)));
-        };
-        static_cast<int8_t*>(k_new)[nrow * half + t] = pack(sm.code_s[0]);
-        static_cast<int8_t*>(v_new)[nrow * half + t] = pack(sm.code_s[1]);
-      }
-    } else {
-      static_cast<int8_t*>(k_new)[nrow * D + t] = static_cast<int8_t>(kcur);
-      static_cast<int8_t*>(v_new)[nrow * D + t] = static_cast<int8_t>(vcur);
-    }
-    if (t == 0) {
-      ks_new[nrow] = ksc;
-      vs_new[nrow] = vsc;
-      sm.ks_rows[0] = ksc;
-      sm.vs_rows[0] = vsc;
-    }
-  } else {
-    static_cast<__nv_bfloat16*>(k_new)[nrow * D + t] = __float2bfloat16_rn(kb);
-    static_cast<__nv_bfloat16*>(v_new)[nrow * D + t] = __float2bfloat16_rn(vb);
+    sm.q_s[h * D + t] =
+        rope_elem(row + (size_t)(kvh * kv_mul + h) * D, t, partner, c, sn);
+  float kcur, vcur, ksc, vsc;
+  new_row<KV, NAMED>(sm.red, sm.code_s, row, c, sn, partner, k_new, v_new,
+                     ks_new, vs_new, H, n_kv, D, kvh,
+                     (size_t)b * n_kv + kvh, kcur, vcur, ksc, vsc);
+  if (QUANT && t == 0) {
+    sm.ks_rows[0] = ksc;
+    sm.vs_rows[0] = vsc;
   }
   sm.kcur_s[t] = kcur;
   sm.vcur_s[t] = vcur;

@@ -10,9 +10,12 @@
 //     stage D:  out = bf16(bf16(silu(g) * u) @ W_down + x1)   g|u = gu
 //               ss  = 1 / sqrt(mean(out^2) + eps)
 //     stage Q (optional): qkv = bf16(bf16(out * ss * attn_norm') @ W_qkv')
-//   mono_layer first runs attention_step's body for every (slot, kv head)
-//   (attention_step.cuh), whose bf16 rows are stage O's attn, and returns
-//   the new cache rows (and int8 scales); the caller scatters them.
+//   mono_layer first runs decode attention for every (slot, kv head)
+//   (attention_step.cuh attention_item: the whole window in one online
+//   softmax, where attention_step.cu splits it across blocks; the new
+//   cache rows come from the same phase 1, new_row), whose bf16 rows are
+//   stage O's attn, and returns the new cache rows (and int8 scales); the
+//   caller scatters them.
 //
 // What bounds it on the H100: the weight bytes. At 7B and m=1 the four
 //   matrices are 105.9 MB of nibbles, fp16 scales and uint8 zeros, read
@@ -32,8 +35,9 @@
 //   - Each column is the standalone GEMV's column (int4_gemv.cuh: one warp
 //     per column, a pass's rows staged once as bf16 in shared memory with
 //     the prologue applied) and each block computes the rms scale of a
-//     pass's rows itself with rms_scale's exact reduction. So x_out, ss and
-//     qkv are bit-equal to the launch sequence of the standalone path:
+//     pass's rows itself with rms_scale's exact reduction. So ffn_chain's
+//     x_out, ss and qkv are bit-equal to the launch sequence of the
+//     standalone path:
 //     int4_gemv (residual), rms_scale, int4_gemv (rmsnorm prologue),
 //     int4_gemv (SwiGLU + residual), rms_scale, int4_gemv (rmsnorm
 //     prologue). x1, gu and out go through global memory and are read back

@@ -159,9 +159,11 @@ class InferenceEngine:
         blocks of PREFILL_BLOCK tokens, the last one padded with token 0
         (the mask keeps real rows from reading the padded rows' cache
         writes, which later steps overwrite), or single steps where a
-        block would pass max_seq. Returns the last token's f32 logits
-        (vocab,) on the device, or with collect_logits the (len(tokens),
-        vocab) f32 rows on the host, moved one block at a time.
+        block would pass max_seq. Only the last block runs the lm_head (the
+        JAX engine's scan takes the earlier blocks without it), every block
+        with collect_logits. Returns the last token's f32 logits (vocab,)
+        on the device, or with collect_logits the (len(tokens), vocab) f32
+        rows on the host, moved one block at a time.
         """
         assert tokens
         self._hist.extend(tokens)
@@ -184,13 +186,18 @@ class InferenceEngine:
                 block, chunk = 1, tokens[i:i + 1]
             padded = torch.tensor([chunk + [0] * (block - len(chunk))],
                                   dtype=torch.int32, device=self.device)
+            # the lm_head runs on the prompt's last block only, or on every
+            # block for collect_logits (perplexity)
+            head = collect_logits or i + len(chunk) == len(tokens)
             logits, _ = forward(self.params, self.cfg, padded,
                                 self._positions(1), self.cache,
                                 attn_len=self._bucket_for(self.pos + block),
-                                attn_impl=self.attn_impl, logits_all=True)
+                                attn_impl=self.attn_impl, logits_all=head,
+                                no_logits=not head)
             if collect_logits:
                 rows.append(logits[0, :len(chunk)].cpu())
-            last = logits[0, len(chunk) - 1]
+            if head:
+                last = logits[0, len(chunk) - 1]
             self.pos += len(chunk)
             i += len(chunk)
         return torch.cat(rows) if collect_logits else last

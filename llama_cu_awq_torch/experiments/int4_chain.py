@@ -10,17 +10,23 @@ contracts. For m rows of a T=1 step:
     qkv = bf16(bf16(out * ss * attn_norm') @ W_qkv')   (with a next layer)
 
 which is forward's _post_attention followed by the next layer's qkv
-projection. `mono_layer` runs attention_step first and feeds its rows,
+projection. `mono_layer` runs decode attention first and feeds its rows,
 rounded to bf16, to the chain; it returns the new cache rows and does not
 write them (the caller scatters them, as in the JAX contract).
 
 Each is one cooperative launch of `csrc/int4_chain.cu` (persistent blocks
 with a grid barrier between the stages; see its header). Each column sums
-as the standalone GEMV sums it, each rms scale as rms_scale reduces it, and
-mono's attention stage runs attention_step's own body, so on the card the
-outputs equal the launch sequence they replace bit for bit. The plain
-versions are that sequence's plain versions. A CPU tensor takes the plain
-version; a CUDA tensor reaches the kernel or raises.
+as the standalone GEMV sums it and each rms scale as rms_scale reduces it,
+so on the card ffn_chain's outputs equal the launch sequence it replaces
+bit for bit. mono's attention stage walks the window unsplit in one
+online softmax (csrc/attention_step.cuh attention_item), where
+attention_step splits it across blocks: its new cache rows and scales
+equal attention_step's bit for bit (the same phase 1), its attention rows
+agree with attention_step's to bf16 rounding of p, and so do the chain's
+outputs after them. The plain versions are the sequence's plain versions,
+mono's attention walked unsplit (attention_step_plain(split=False)). A
+CPU tensor takes the plain version; a CUDA tensor reaches the kernel or
+raises.
 
 The JAX kernels pad n_in to its planar block and assert unpadded o and
 down outputs; this layout has no padding. Its own limits are in
@@ -245,8 +251,9 @@ def mono_layer_plain(qkv, x_res, ffn_norm, wo, w_gate_up, w_down, k_cache,
                      v_cache, pos, cos2, sinm, k_scale=None, v_scale=None, *,
                      n_heads: int, win: int, eps: float, wqkv_next=None,
                      attn_norm_next=None):
-    """attention_step's plain version over the window's rows, its rows
-    rounded to bf16, then ffn_chain's plain version."""
+    """attention_step's plain version over the window's rows, walked
+    unsplit as the kernel's attention stage walks them (split=False), its
+    rows rounded to bf16, then ffn_chain's plain version."""
     B = qkv.shape[0]
 
     def window(t):
@@ -254,7 +261,7 @@ def mono_layer_plain(qkv, x_res, ffn_norm, wo, w_gate_up, w_down, k_cache,
 
     attn, kn, vn, ksn, vsn = attention_step_plain(
         qkv, window(k_cache), window(v_cache), pos, cos2, sinm,
-        window(k_scale), window(v_scale), n_heads=n_heads)
+        window(k_scale), window(v_scale), n_heads=n_heads, split=False)
     chain = ffn_chain_plain(attn.reshape(B, -1).to(torch.bfloat16), x_res,
                             ffn_norm, wo, w_gate_up, w_down, eps=eps,
                             wqkv_next=wqkv_next,
@@ -352,10 +359,11 @@ def decode_step(params, cfg, tokens: torch.Tensor, pos: torch.Tensor,
     as forward scatters them, and forward's final norm and head.
 
     tokens: (B, 1); pos: (B,) int32; cache: a bf16 or int8 KVCache,
-    updated in place. attn_len: mono_layer's window (default the cache).
-    On the card the logits equal forward(attn_impl="fused_step")'s bit for
-    bit (the same sums in the same order). Returns (logits (B, vocab) f32,
-    cache)."""
+    updated in place. attn_len: the window (default the cache). On the
+    card the "ffn_chain" logits equal forward(attn_impl="fused_step")'s bit
+    for bit (the same sums in the same order); "mono" walks attention
+    unsplit and agrees with them to bf16 rounding of p. Returns (logits
+    (B, vocab) f32, cache)."""
     require(layer_impl in LAYER_IMPLS, f"layer_impl must be one of "
             f"{LAYER_IMPLS}, got {layer_impl!r}")
     B, T = tokens.shape
@@ -391,7 +399,7 @@ def decode_step(params, cfg, tokens: torch.Tensor, pos: torch.Tensor,
         else:
             attn, kn, vn, ksn, vsn = attention_step(
                 qkv, cache.k[l], cache.v[l], pos, cos2, sinm, ks_l, vs_l,
-                n_heads=H, plain=plain)
+                n_heads=H, attn_len=attn_len, plain=plain)
             outs = ffn_chain(attn.reshape(B, H * D).to(act), x,
                              layer.ffn_norm, layer.wo, layer.w_gate_up,
                              layer.w_down, **chain_kw)

@@ -456,7 +456,8 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
         if fstep:
             attn_k, kn, vn, ksn, vsn = attention_step(
                 qkv[:, 0], cache.k[l], cache.v[l], pos, cos2, sinm, ks_l,
-                vs_l, n_heads=H, kv_bits=4 if kv4 else 8, plain=plain)
+                vs_l, n_heads=H, kv_bits=4 if kv4 else 8, attn_len=A,
+                plain=plain)
             _update_cache(cache.k[l], kn[:, None], rows)
             _update_cache(cache.v[l], vn[:, None], rows)
             if cache.quantized:

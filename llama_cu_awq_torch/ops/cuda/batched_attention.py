@@ -9,17 +9,19 @@ stages them), times k_scale (int8) before * 1/sqrt(D); masked scores are
 rounded to bf16 for the PV product; out = acc / l. With early_exit (attn
 impl "batched") each slot reads only rows <= pos[b]; without it
 ("batched_static") every slot walks the whole window under the mask, which
-reads every row of it. The kernel is `csrc/batched_attention.cu` (one
-block per slot and kv head, see its header).
+reads every row of it.
 
-The online softmax walks the rows in chunks of CHUNK from 0, and p rounds
-to bf16 against each chunk's running max, so the plain version walks the
-same chunks; kernel and plain version then differ only in the order of
+The kernel is `csrc/batched_attention.cu` (+ `decode_attention.cuh`), the
+split design of attention_step.py without its first phase: the rows split
+into runs of SPLIT_ROWS, each taking one max over its
+scores and p rounded to bf16 against it, and the splits combined in
+order. The plain version
+walks the same splits with attention_step.py's `split_partial` and
+`combine_splits`, so kernel and plain version differ only in the order of
 f32 sums. (The JAX kernel walks blocks of 128 to 1024 rows; against it the
-two agree to bf16 rounding of p.) A masked row adds 0 to the sums and a
-chunk past pos[b] leaves the running max, sum and accumulator unchanged,
-so both values of early_exit give the same result up to the order of f32
-sums.
+two agree to bf16 rounding of p.) A split whose rows are all masked has
+l = 0 and leaves the combine, and a masked row adds 0 to the sums, so both
+values of early_exit give the same result up to the order of f32 sums.
 """
 
 from __future__ import annotations
@@ -31,12 +33,14 @@ import torch
 from llama_cu_awq_torch.ops.cuda import (_build, attn_scale, check_tensor,
                                          count, require, stream_ptr,
                                          use_plain)
+from llama_cu_awq_torch.ops.cuda.attention_step import (SPLIT_ROWS,
+                                                        combine_splits,
+                                                        split_partial,
+                                                        split_scratch)
 
-CHUNK = 64  # matches CHUNK in csrc/batched_attention.cu
-_NEG = -1e30
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]
+_ARGS = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
 
 
 def kernel_takes(n_heads: int, n_kv: int, head_dim: int) -> bool:
@@ -63,31 +67,16 @@ def batched_decode_attention_plain(q, k, v, pos, k_scale=None, v_scale=None,
     for b in range(B):
         p0 = int(pos[b])
         n_rows = min(p0 + 1, window) if early_exit else window
-        m = torch.full((n_kv, kv_mul), _NEG, device=dev)
-        l = torch.zeros(n_kv, kv_mul, device=dev)
-        acc = torch.zeros(n_kv, kv_mul, D, device=dev)
-        for r0 in range(0, n_rows, CHUNK):
-            r1 = min(r0 + CHUNK, n_rows)
-            kb = k[b, r0:r1].float().transpose(0, 1)  # (n_kv, rows, D)
-            vb = v[b, r0:r1].float().transpose(0, 1)
-            raw = torch.einsum("gmd,grd->gmr", qg[b], kb)
-            if quantized:
-                raw = raw * k_scale[b, r0:r1].T[:, None, :]
-            sc = raw * scale
-            valid = (torch.arange(r0, r1, device=dev) <= p0)[None, None, :]
-            sc = torch.where(valid, sc, torch.full_like(sc, _NEG))
-            m_new = torch.maximum(m, sc.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.where(valid, torch.exp(sc - m_new[..., None]),
-                            torch.zeros_like(sc))
-            l = l * alpha + p.sum(-1)
-            m = m_new
-            if quantized:
-                p = p * v_scale[b, r0:r1].T[:, None, :]
-            pv = torch.einsum("gmr,grd->gmd", p.to(torch.bfloat16).float(),
-                              vb)
-            acc = acc * alpha[..., None] + pv
-        out[b] = (acc / l[..., None]).reshape(H, D)
+        parts = []
+        for r0 in range(0, n_rows, SPLIT_ROWS):
+            r1 = min(r0 + SPLIT_ROWS, n_rows)
+            sc = [x[b, r0:r1].T if quantized else None
+                  for x in (k_scale, v_scale)]
+            parts.append(split_partial(
+                qg[b], k[b, r0:r1].float().transpose(0, 1),
+                v[b, r0:r1].float().transpose(0, 1), *sc, scale,
+                torch.arange(r0, r1, device=dev) <= p0))
+        out[b] = combine_splits(parts).reshape(H, D)
     return out
 
 
@@ -118,14 +107,18 @@ def batched_decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
         check_tensor(k_scale, "k_scale", torch.float32, (B, S, n_kv), dev)
         check_tensor(v_scale, "v_scale", torch.float32, (B, S, n_kv), dev)
     check_tensor(pos, "pos", torch.int32, (B,), dev)
+    require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+            "the caches must start 16-byte aligned (the kernel's vector "
+            "loads)")
     out = torch.empty(B, H, D, dtype=torch.float32, device=dev)
+    scratch = split_scratch(dev, B, n_kv, H // n_kv, D, window)
     fn = _build.function("batched_attention", "batched_decode_attention",
                          _ARGS)
     rc = fn(qb.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None, pos.data_ptr(),
-            out.data_ptr(), B, H, n_kv, D, S, window, int(early_exit),
-            attn_scale(D), stream_ptr())
+            out.data_ptr(), *scratch, B, H, n_kv, D, S, window,
+            int(early_exit), attn_scale(D), stream_ptr())
     _build.check(rc, "batched_attention", "batched_decode_attention")
     count("batched_decode_attention",
           f"{'int8' if quantized else 'bf16'}/"

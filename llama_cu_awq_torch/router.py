@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import http.client
 import json
-import logging
 import socket
 import threading
 import time
@@ -31,6 +30,8 @@ import urllib.error
 import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from llama_cu_awq_torch.utils.logging import get_logger
 
 
 class _ClientGone(Exception):
@@ -129,7 +130,7 @@ class _RouterHandler(BaseHTTPRequestHandler):
                "/v1/chat/completions", "/chat/completions")
 
     def log_message(self, fmt, *args):
-        logging.getLogger("llama_cu_awq_torch.router").debug(fmt % args)
+        get_logger("router").debug(fmt % args)
 
     # -- GET --------------------------------------------------------
 

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import logging
 import queue
 import threading
 import time
@@ -41,6 +40,7 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from llama_cu_awq_torch.tokenizer import BOS_TOKEN
+from llama_cu_awq_torch.utils.logging import get_logger
 
 
 class ServerOverloaded(Exception):
@@ -283,7 +283,7 @@ class _Handler(BaseHTTPRequestHandler):
     _streams = threading.Semaphore(64)
 
     def log_message(self, fmt, *args):
-        logging.getLogger("llama_cu_awq_torch.serve").debug(fmt % args)
+        get_logger("serve").debug(fmt % args)
 
     # -- GET -------------------------------------------------------------
 
@@ -621,7 +621,7 @@ def main(argv=None) -> int:
         devices = [f"cuda:{i}" for i in range(args.dp)]
     else:
         devices = ["cpu"] * args.dp
-    log = logging.getLogger("llama_cu_awq_torch.serve")
+    log = get_logger("serve")
     ckpt = load_checkpoint(args.checkpoint, verbose=True)
     tokenizer = Tokenizer(args.tokenizer, ckpt.config.vocab_size)
     engines = []

@@ -24,7 +24,7 @@ from llama_cu_awq_torch.config import ModelConfig as TModelConfig
 from llama_cu_awq_torch.experiments import int4_chain as tch
 from llama_cu_awq_torch.models import llama as tl
 from llama_cu_awq_torch.ops.cuda.attention_step import (
-    attention_step as t_attention_step)
+    attention_step_plain as t_attention_step_plain)
 from llama_cu_awq_torch.ops.linear import qmatmul_fused as t_qmatmul_fused
 from llama_cu_awq_torch.ops.norms import RMS_EPS
 from llama_cu_awq_torch.quant.qtensor import QTensor as TQ
@@ -260,15 +260,27 @@ def test_mono_layer_plain_matches_jax(rng, quantized, has_qkv):
         np.testing.assert_array_equal(g_.float().numpy(),
                                       np.asarray(w_, np.float32))
 
-    # and bit for bit the port's own two-launch sequence
-    attn, kn, vn, ksn, vsn = t_attention_step(
-        qkv[1], kc[1], vc[1], pos[1], cos2[1], sinm[1], ks[1], vs[1],
-        n_heads=H)
+    # and the port's own two-launch sequence: bit for bit where attention
+    # walks the window unsplit, as mono's kernel does; against the split
+    # attention_step (the port's launch) the new rows are bit-equal and the
+    # rest agree to the JAX bars above
     kw = dict(wqkv_next=tw[3], attn_norm_next=nw2[1]) if has_qkv else {}
-    chain = tch.ffn_chain(attn.reshape(B, dim).bfloat16(), x[1], nw[1],
-                          *tw[:3], eps=RMS_EPS, **kw)
-    for a, b in zip(got, chain[:2] + (kn, vn, ksn, vsn) + chain[2:]):
-        assert (a is None and b is None) or torch.equal(a, b)
+    for split in (False, True):
+        attn, kn, vn, ksn, vsn = t_attention_step_plain(
+            qkv[1], kc[1], vc[1], pos[1], cos2[1], sinm[1], ks[1], vs[1],
+            n_heads=H, split=split)
+        chain = tch.ffn_chain(attn.reshape(B, dim).bfloat16(), x[1], nw[1],
+                              *tw[:3], eps=RMS_EPS, **kw)
+        seq = chain[:2] + (kn, vn, ksn, vsn) + chain[2:]
+        for i, (a, b) in enumerate(zip(got, seq)):
+            if a is None or b is None:
+                assert a is None and b is None
+            elif not split or i in (2, 3, 4, 5):
+                assert torch.equal(a, b)
+            else:
+                _close(a, b.float().numpy(),
+                       **(X_TOL, SS_TOL, None, None, None, None,
+                          QKV_TOL)[i])
 
 
 def test_supported_gates(rng):

@@ -24,9 +24,11 @@ import numpy as np
 import pytest
 import torch
 
+from llama_cu_awq_torch.config import ModelConfig as TModelConfig
 from llama_cu_awq_torch.engine import InferenceEngine as TEngine
 from llama_cu_awq_torch.engine import engine as t_engine_mod
 from llama_cu_awq_torch.engine import perplexity as t_ppl
+from llama_cu_awq_torch.io.checkpoint import random_checkpoint as t_random
 from llama_cu_awq_torch.models import llama as tl
 from llama_cu_awq_torch.ops.cuda.int4_matmul import (int4_matmul,
                                                      int4_matmul_fused)
@@ -314,3 +316,34 @@ def test_token_perplexity_needs_no_tokenizer():
     ppl = t_ppl.token_perplexity(e, PROMPT[1:80])
     assert np.isfinite(ppl) and ppl > 1
     assert np.isnan(t_ppl.token_perplexity(e, []))
+
+
+def test_prefill_runs_the_head_once_a_prompt(monkeypatch):
+    """A prompt of 3 full blocks and a 10-token tail computes the lm_head
+    once, on its last (padded) block, as the JAX engine's scan skips it on
+    the earlier blocks; perplexity (collect_logits) computes it on every
+    block. The last logits are the same bits either way."""
+    cfg = TModelConfig(dim=64, hidden_dim=96, n_layers=1, n_heads=2,
+                       n_kv_heads=2, vocab_size=256, seq_len=512)
+    tp = tl.params_from_checkpoint(t_random(cfg, seed=5), device="cpu")
+    heads = []
+    real = tl.final_logits
+
+    def counting(params, x, *args, **kw):
+        heads.append(x.shape[1])
+        return real(params, x, *args, **kw)
+
+    monkeypatch.setattr(tl, "final_logits", counting)
+    toks = [1] + [3 + (7 * i) % 250 for i in range(3 * 128 + 9)]
+    e = TEngine(tp, cfg, None, max_seq=512, device="cpu")
+    last = e._prefill(toks)
+    assert e.pos == len(toks) and heads == [128]
+    e.reset()
+    heads.clear()
+    rows = e._prefill(toks, collect_logits=True)
+    assert heads == [128] * 4 and rows.shape == (len(toks), 256)
+    assert torch.equal(rows[-1], last)
+    e.reset()
+    heads.clear()
+    assert np.isfinite(t_ppl.token_perplexity(e, toks[1:]))
+    assert heads == [128] * 4

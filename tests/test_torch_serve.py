@@ -12,7 +12,10 @@ router over two port servers (completion, failover, all down).
 import functools
 import http.client
 import json
+import os
 import socket
+import subprocess
+import sys
 import threading
 import time
 import urllib.error
@@ -24,7 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from llama_cu_awq_torch.config import ModelConfig as TModelConfig
 from llama_cu_awq_torch.engine import BatchEngine
+from llama_cu_awq_torch.io.checkpoint import random_checkpoint as t_random
+from llama_cu_awq_torch.io.checkpoint import save_checkpoint as t_save
 from llama_cu_awq_torch.models import llama as tl
 from llama_cu_awq_torch.router import make_router
 from llama_cu_awq_torch.serve import build_argparser, make_server
@@ -443,3 +449,36 @@ def test_serve_cli_flags():
         build_argparser().parse_args(["m.bin", "--impl", "pallas"])
     with pytest.raises(NotImplementedError):
         main(["m.bin", "--tp", "2", "--device", "cpu"])
+
+
+def test_serve_main_logs_startup_line(tmp_path):
+    """`python -m llama_cu_awq_torch.serve` writes its "serving on" line
+    to stderr: the port's utils/logging gives its root logger a stderr
+    handler at INFO."""
+    cfg = TModelConfig(dim=64, hidden_dim=160, n_layers=2, n_heads=4,
+                       n_kv_heads=2, vocab_size=512, seq_len=96)
+    ckpt, tok = str(tmp_path / "m.bin"), str(tmp_path / "tok.bin")
+    t_save(ckpt, t_random(cfg, seed=11))
+    write_toy_tokenizer(tok, _toy_vocab(cfg.vocab_size))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llama_cu_awq_torch.serve", ckpt, "-z", tok,
+         "--device", "cpu", "--host", "127.0.0.1", "--port", "0",
+         "--slots", "1", "--spec", "none"], cwd=repo,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    killer = threading.Timer(120, proc.kill)
+    killer.start()
+    lines = []
+    try:
+        for line in proc.stderr:
+            lines.append(line)
+            if "serving on" in line:
+                break
+    finally:
+        killer.cancel()
+        proc.terminate()
+        proc.wait(timeout=60)
+    assert any("llama_cu_awq_torch.serve INFO serving on 127.0.0.1:" in s
+               and "(1 slots x 1 replicas, max_seq 96)" in s
+               for s in lines), lines
