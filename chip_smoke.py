@@ -13,9 +13,10 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      flushed before every timed launch) beside its bound;
      The prefill kernels (prefill_attention at T=128 over a 2048-row
      window at position 1024; the int4 GEMM at m=128) join them, with
-     the GEMV-against-GEMM sweep over m that sets GEMM_MIN_M; decode
-     attention (the split kernels) at position 1500 and at B=8 over
-     positions 960-1100;
+     the GEMV-against-GEMM sweep over m that sets GEMM_MIN_M; the lm_head
+     (the tile kernel dense_gemm.cu) at m=1, m=8 (the serving step) and
+     m=128 (a prefill block), bf16 and int8; decode attention (the split
+     kernels) at position 1500 and at B=8 over positions 960-1100;
   4. end to end: synthetic 7B w4-g128 weights on the card, 256 greedy
      decode steps through InferenceEngine.generate_benchmark, then short
      runs through the options that reach the other kernels (fused_step
@@ -27,7 +28,9 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
   5. prefill end to end: a 1920-token prompt (15 blocks of 128) through
      generate_benchmark (time to first token) and _prefill (prefill
      tokens/s; the lm_head runs once a prompt, on its last block), a
-     256-token prompt with int8 KV, a profile of one 128-token block, the
+     256-token prompt with int8 KV, a 256-token prompt with the int8
+     lm_head (its tile kernel at 128 rows), a profile of one 128-token
+     block, the
      perplexity of a 1023-token sequence through the kernels and through
      the plain versions (|delta ln ppl| <= 0.01; the head on each block),
      and
@@ -67,21 +70,20 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      at m=1 and m=8, and mono_layer at m=1 over bf16 and int8 KV at
      position 1500 and at m=8 over bf16 KV at positions 960-1100, each
      against its plain version and against the launch sequence it
-     replaces (composed_ms beside ms): ffn_chain bit for bit; mono_layer's
-     new cache rows and scales bit for bit and the rest within chain_tol,
-     since its attention walks the window unsplit where attention_step
-     splits it; then e2e chain_step_7b: after a 1024-token prompt, 32
-     greedy decode steps at the 2048 bucket (a) through
-     forward(attn_impl="fused_step"), (b) through attention_step and
-     ffn_chain in each layer and (c) through mono_layer in each layer, in
-     turns, for bf16 and int8 KV (decode tokens/s, launches per kernel a
-     step; (a) and (b) give equal streams, (c)'s is compared and
-     printed), with a profile of one step each; and one 7B step at B=8
-     through (a), (b) and (c) from the same random cache, (b)'s logits
-     bit-equal to (a)'s and (c)'s within 2 % of the largest logit.
+     replaces (composed_ms beside ms), bit for bit (mono's attention
+     stage runs attention_step's split items); then e2e chain_step_7b:
+     after a 1024-token prompt, 32 greedy decode steps at the 2048 bucket
+     (a) through forward(attn_impl="fused_step"), (b) through
+     attention_step and ffn_chain in each layer and (c) through
+     mono_layer in each layer, in turns, for bf16 and int8 KV (decode
+     tokens/s, launches per kernel a step; equal streams), with a
+     profile of one step each; and one 7B step at B=8 through (a), (b)
+     and (c) from the same random cache, (b)'s and (c)'s logits
+     bit-equal to (a)'s.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
-attention, torch._weight_int4pack_mm; the port never calls them.
+attention, torch._weight_int4pack_mm, torch._weight_int8pack_mm; the
+port never calls them.
 Prints the card line and a {"kernels": [...]} line, then
 {"ok": true, "device": {...}} as the last line.
 """
@@ -358,15 +360,17 @@ def kernel_phase(torch, timer, rows):
             plain_ms=timer(lambda: int4_matmul(x, qt, plain=True)),
             bound_ms=b, bound_by=src, library_ms=timer(lib)))
 
-    # --- dense_gemv: the 7B lm_head, bf16 and int8 rows ---
+    # --- dense_gemv: the 7B lm_head, bf16 and int8 rows; m=8 the serving
+    # step's head, m=128 a prefill block's (every row for perplexity) ---
     w = (randn(vocab, dim, dtype=torch.float32) * 0.02).bfloat16()
     w8 = quantize_dense_int8(w)
-    x1, x128 = randn(1, dim), randn(128, dim)
-    # bf16_m128: every row of a prefill block (logits_all), in 16 passes
+    x1, x8, x128 = randn(1, dim), randn(8, dim), randn(128, dim)
     for tag, x, args, path in (
             ("bf16", x1, (w,), "main"),
             ("int8", x1, (w8.w8, w8.scale), "lm_head_int8"),
-            ("bf16_m128", x128, (w,), "prefill")):
+            ("bf16_m8", x8, (w,), "batch_engine"),
+            ("bf16_m128", x128, (w,), "prefill"),
+            ("int8_m128", x128, (w8.w8, w8.scale), "prefill_lm_head_int8")):
         out, variant = launched_variant(lambda: dense_gemv(x, *args))
         ref = dense_gemv(x, *args, plain=True)
         torch.cuda.synchronize()
@@ -383,7 +387,7 @@ def kernel_phase(torch, timer, rows):
             lib = timer(lambda: torch._weight_int8pack_mm(x, w8.w8, s8))
         rows.append(dict(
             name=f"dense_gemv/{tag}", kernel="dense_gemv", route="cuda",
-            source="llama_cu_awq_torch/csrc/dense_gemv.cu",
+            source="llama_cu_awq_torch/csrc/dense_gemm.cu",
             replaces="llama_cu_awq_tpu/ops/pallas/dense_gemv.py:147",
             variant=variant, path=path, **chk, ms=timer(lambda: dense_gemv(x, *args)),
             plain_ms=timer(lambda: dense_gemv(x, *args, plain=True)),
@@ -963,6 +967,7 @@ def prefill_phase(torch, params, launches):
     from llama_cu_awq_torch.engine import InferenceEngine
     from llama_cu_awq_torch.engine import engine as engine_mod
     from llama_cu_awq_torch.engine.perplexity import token_perplexity
+    from llama_cu_awq_torch.models import quantize_lm_head
 
     cfg = LLAMA2_7B
     prompt = [1] + [3 + (7919 * i) % 31990 for i in range(1919)]
@@ -1020,6 +1025,22 @@ def prefill_phase(torch, params, launches):
         raise AssertionError("prefill_int8kv never launched "
                              "prefill_attention")
     del eng8
+
+    # the int8 head over a prompt's last block (the tile kernel at 128
+    # rows of int8 codes)
+    eng_h8 = InferenceEngine(quantize_lm_head(params, 8), cfg, None,
+                             temperature=0.0, seed=1234, max_seq=2048)
+    toks_h8, dt_h8, _ = run_path(
+        torch, "prefill_lm_head_int8",
+        lambda: eng_h8.generate_benchmark(prompt[:256], 256), launches)
+    print(json.dumps({"e2e": "prefill_lm_head_int8", "prompt_tokens": 256,
+                      "time_to_first_token_s": dt_h8,
+                      "first_token": toks_h8[0]}), flush=True)
+    if launches["prefill_lm_head_int8"]["variants"].get(
+            "dense_gemv/int8/m128/32000x4096", 0) != 1:
+        raise AssertionError("prefill_lm_head_int8: the int8 head did not "
+                             "run once at 128 rows")
+    del eng_h8
 
     def prepare_block():
         eng.reset()
@@ -1693,26 +1714,19 @@ def chain_bound(ws, m, inputs, outputs, extra_bytes=0, extra_flops=0):
         2 * m * sum(w.n_in * w.n_out for w in ws) + extra_flops)
 
 
-def vs_composed(name, got, want, near=()):
-    """The kernel's outputs against the launch sequence it replaces: bit
-    for bit, but the outputs numbered in `near` within chain_tol (mono's
-    attention stage walks the window unsplit where attention_step splits
-    it, so its attention rows and what follows them agree to bf16
-    rounding of p; its new cache rows and scales stay bit-equal)."""
+def vs_composed(name, got, want):
+    """The kernel's outputs against the launch sequence it replaces, bit
+    for bit."""
     diffs = [float((a.float() - b.float().reshape(a.shape)).abs().max())
              for a, b in zip(got, want) if a is not None]
-    exact = [i for i in range(len(got)) if i not in near]
-    equal = all(torch_equal(got[i], want[i]) for i in exact)
-    for i in near:
-        check_close(f"{name}/vs_composed/{i}", got[i],
-                    want[i].reshape(got[i].shape), **chain_tol(want[i]))
+    equal = all(torch_equal(a, b) for a, b in zip(got, want))
     print(json.dumps({
         "check": f"{name}/vs_composed", "max_abs_err": max(diffs),
         "max_abs_err_each_output": diffs, "bit_equal": equal,
-        "bit_equal_outputs": exact, "within_chain_tol_outputs": list(near),
         "why": "each column sums in the standalone GEMV's order, each rms "
-               "scale in rms_scale's, and mono's new cache rows come from "
-               "attention_step's phase 1 (attention_step.cuh new_row)"}),
+               "scale in rms_scale's, and mono's attention stage runs "
+               "attention_step's split items and combine "
+               "(decode_attention.cuh step_split)"}),
         flush=True)
     if not equal:
         raise AssertionError(f"{name}: differs from the launch sequence it "
@@ -1735,6 +1749,8 @@ def chain_rows(torch, timer, rows, g):
     heads of 128): against the plain versions (chain_tol; new cache rows
     and scales bit-equal), and bit for bit against the launch sequence
     each replaces, whose time stands beside the kernel's (composed_ms).
+    mono_layer is also held bit for bit to attention_step followed by
+    ffn_chain, the two launches it must beat, timed as pair_ms.
     library_ms: the four products through torch._weight_int4pack_mm, plus
     SDPA over the window's rows for mono over bf16 KV."""
     from llama_cu_awq_torch.experiments.int4_chain import (ffn_chain,
@@ -1763,19 +1779,20 @@ def chain_rows(torch, timer, rows, g):
         return timer(lambda: [c() for c in calls])
 
     def row(name, kernel, variant, path, chk, ms, plain_ms, composed_ms,
-            bound, lib, lib_call, replaces):
+            bound, lib, lib_call, replaces, pair_ms=None):
         rows.append(dict(
             name=name, kernel=kernel, route="cuda",
             source="llama_cu_awq_torch/csrc/int4_chain.cu",
             replaces=replaces, variant=variant, path=path, **chk, ms=ms,
-            plain_ms=plain_ms, composed_ms=composed_ms, bound_ms=bound[0],
-            bound_by=bound[1], library_ms=lib, library_call=lib_call))
+            plain_ms=plain_ms, composed_ms=composed_ms, pair_ms=pair_ms,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib,
+            library_call=lib_call))
         r = rows[-1]
         print(json.dumps({"kernel_check": r["name"], "kernel_ms": r["ms"],
                           **{k: r[k] for k in (
                               "max_abs_err", "rtol", "atol", "plain_ms",
-                              "composed_ms", "library_ms", "bound_ms",
-                              "bound_by")}}), flush=True)
+                              "composed_ms", "pair_ms", "library_ms",
+                              "bound_ms", "bound_by")}}), flush=True)
 
     for m, path in ((1, "chain_step_b_bf16"), (8, "forward_7b_chain_b8")):
         attn, x = randn(m, dim), randn(m, dim)
@@ -1828,7 +1845,15 @@ def chain_rows(torch, timer, rows, g):
                 torch, a[0].reshape(B, dim).bfloat16(), x, nw, *ws, nw2)
             return outs[:2] + a[1:] + outs[2:], prods
 
+        def pair():
+            a = attention_step(qkv, kc, vc, pos, cos2, sinm, ks, vs,
+                               n_heads=H)
+            outs = ffn_chain(a[0].reshape(B, dim).bfloat16(), x, nw,
+                             *ws[:3], **kw)
+            return outs[:2] + a[1:] + outs[2:]
+
         want, prods = composed()
+        two = pair()
         torch.cuda.synchronize()
         name = f"mono_layer/{tag}"
         chk = check_close(name, got[0], ref[0], **chain_tol(ref[0]))
@@ -1840,9 +1865,8 @@ def chain_rows(torch, timer, rows, g):
                     f"{name}: {part} differs from the plain version (must "
                     f"be bit-equal: same IEEE rope, division and "
                     f"round-half-even)")
-        # x_out, ss and qkv follow the attention rows; the cache rows and
-        # scales (2-5) are bit-equal
-        vs_composed(name, got, want, near=(0, 1, 6))
+        vs_composed(name, got, want)
+        vs_composed(f"{name}/pair", got, two)
         hist = sum(positions) * H * D * kc.element_size() * 2
         hist += sum(positions) * H * 4 * 2 if quant else 0
         bound = chain_bound(
@@ -1866,7 +1890,7 @@ def chain_rows(torch, timer, rows, g):
             timer(composed), bound, library(prods, sdpa) if not quant
             else None, lib_call if not quant else
             "none: no call reads int8 codes with row scales",
-            "tools/experiments/int4_chain.py:627")
+            "tools/experiments/int4_chain.py:627", timer(pair))
         del kc, vc
 
 
@@ -1947,12 +1971,10 @@ def chain_phase(torch, timer, rows, params, launches):
             res.setdefault(letter, []).append(run_path(
                 torch, name, lambda i=impl, t=token: chain_decode(
                     torch, eng, t, 32, i), launches))
-        # (a) and (b) run the same split attention_step and sum alike:
-        # equal streams; (c) walks attention unsplit (mono_layer), so its
-        # stream is compared and printed, not required equal
-        streams = [r[0] for letter in "ab" for r in res[letter]]
+        # (a), (b) and (c) run the same split attention and sum alike:
+        # equal streams
+        streams = [r[0] for letter in "abc" for r in res[letter]]
         equal = all(s == streams[0] for s in streams)
-        c_equal = [r[0] == streams[0] for r in res["c"]]
         per_step = {letter: {k: v / 32 for k, v in launches[
             f"chain_step_{letter}_{fmt}"]["kernels"].items() if v}
             for letter, _ in CHAIN_IMPLS}
@@ -1963,12 +1985,11 @@ def chain_phase(torch, timer, rows, params, launches):
             "decode_tok_per_s": {f"{letter}_{impl}": [r[1] for r in
                                                       res[letter]]
                                  for letter, impl in CHAIN_IMPLS},
-            "launches_per_step": per_step, "streams_equal_a_b": equal,
-            "streams_c_equal_a": c_equal,
+            "launches_per_step": per_step, "streams_equal_a_b_c": equal,
             "first_tokens": streams[0][:8]}), flush=True)
         if not equal:
-            raise AssertionError(f"chain_step_7b_{fmt}: (a) and (b) gave "
-                                 f"different streams")
+            raise AssertionError(f"chain_step_7b_{fmt}: (a), (b) and (c) "
+                                 f"gave different streams")
         # a step: (b) and (c) launch layer 0's qkv GEMV and one chain or
         # mono launch a layer; (a) the 4 GEMVs a layer
         want = {("a", "int4_matmul_fused"): 128, ("b", "ffn_chain"): 32,
@@ -2025,21 +2046,14 @@ def chain_phase(torch, timer, rows, params, launches):
     a = logits["a"]
     diffs = {k: float((v - a).abs().max()) for k, v in logits.items()}
     equal = {k: torch_equal(v, a) for k, v in logits.items()}
-    # (c): the 7B forward bar of forward_check, 2 % of the largest logit
-    tol = 2e-2 * max(1.0, float(a.abs().max()))
     print(json.dumps({
         "forward_7b": "chain_b8", "rows": 8, "positions": pos8.tolist(),
         "max_abs_logit_diff_vs_a": diffs, "bit_equal_vs_a": equal,
-        "max_abs_logit": float(a.abs().max()), "tolerance_c": tol,
-        "argmax_c_equal_a_rows": int((logits["c"].argmax(-1)
-                                      == a.argmax(-1)).sum()),
+        "max_abs_logit": float(a.abs().max()),
         "finite": bool(torch.isfinite(a).all()),
-        "why": "(b) sums every column, rms scale and attention row in the "
-               "order of (a)'s launches; (c) walks attention unsplit, so "
-               "its p rounds against other maxima"}), flush=True)
-    if not (equal["b"] and diffs["c"] <= tol
-            and bool(torch.isfinite(a).all())
-            and bool(torch.isfinite(logits["c"]).all())):
+        "why": "(b) and (c) sum every column, rms scale and attention row "
+               "in the order of (a)'s launches"}), flush=True)
+    if not (equal["b"] and equal["c"] and bool(torch.isfinite(a).all())):
         raise AssertionError(f"forward_7b chain_b8: logits differ from (a): "
                              f"{diffs}")
     lb8 = launches["forward_7b_chain_b8"]["kernels"]

@@ -64,7 +64,7 @@ using attn_step::MAX_D;
 using attn_step::MAX_KV_MUL;
 using decode_attn::SPLIT_ROWS;
 
-// block (split, kv head, slot), D threads
+// block (split, kv head, slot), D threads: one step_split item
 template <int KV>
 __global__ void __launch_bounds__(MAX_D)
 attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -81,75 +81,14 @@ attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
                       float* __restrict__ part_acc,
                       unsigned* __restrict__ counters, int H, int n_kv, int D,
                       int S, int win, float scale) {
-  constexpr bool QUANT = KV != KV_BF16;
   extern __shared__ float4 dyn_smem[];
   __shared__ float red[2][MAX_D / 32];
   __shared__ int code[2][MAX_D];
-  const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_hist = min(pos[b], win);
-  const int n_splits = max(1, (n_hist + SPLIT_ROWS - 1) / SPLIT_ROWS);
-  if (split >= n_splits) return;
-  const int t = threadIdx.x;  // blockDim.x == D
-  const int lane = t & 31;
-  const int kv_mul = H / n_kv;
-  const int half = D / 2;
-  const decode_attn::Smem sm = decode_attn::carve(
-      reinterpret_cast<float*>(dyn_smem), kv_mul, D);
-  const __nv_bfloat16* row = qkv + (size_t)b * (H + 2 * n_kv) * D;
-  const float c = cos2[(size_t)b * D + t];
-  const float sn = sinm[(size_t)b * D + t];
-  const int partner = t < half ? t + half : t - half;
-  for (int h = 0; h < kv_mul; ++h)
-    sm.q[h * D + t] = attn_step::rope_elem(
-        row + (size_t)(kvh * kv_mul + h) * D, t, partner, c, sn);
-  float vcur = 0.0f;
-  float vsc = 1.0f;
-  if (split == 0) {
-    float kcur, ksc;
-    attn_step::new_row<KV, false>(red, code, row, c, sn, partner, k_new,
-                                  v_new, ks_new, vs_new, H, n_kv, D, kvh,
-                                  (size_t)b * n_kv + kvh, kcur, vcur, ksc,
-                                  vsc);
-    sm.kcur[t] = kcur;
-    __syncthreads();
-    if (t < 32) {
-      // the current token's score, elements lane + 32*i
-      for (int h = 0; h < kv_mul; ++h) {
-        float part = 0.0f;
-        for (int e = lane; e < D; e += 32)
-          part = fmaf(sm.kcur[e], sm.q[h * D + e], part);
-        part = warp_sum(part);
-        if (lane == 0) {
-          float raw = part;
-          if constexpr (QUANT) raw = raw * ksc;
-          sm.scur[h] = raw * scale;
-        }
-      }
-    }
-  }
-  const int r0 = split * SPLIT_ROWS;
-  decode_attn::Partial pt = decode_attn::attend_split<KV>(
-      sm, k_cache, v_cache, k_scale, v_scale, (size_t)b * S * n_kv + kvh,
-      n_kv, r0, min(SPLIT_ROWS, n_hist - r0), INT_MAX,
-      split == 0 ? sm.scur : nullptr, kv_mul, D, scale);
-  if (split == 0) {
-    // the current token's term: p = 1 times its v scale, rounded to bf16,
-    // then scaled by alpha = exp(s_cur - m) as the online softmax does
-    const float p = round_bf16(QUANT ? vsc : 1.0f);
-#pragma unroll
-    for (int h = 0; h < MAX_KV_MUL; ++h)
-      if (h < kv_mul) {
-        const float alpha = expf(sm.scur[h] - pt.m[h]);
-        pt.l[h] = __fadd_rn(alpha, pt.l[h]);
-        pt.acc[h] = __fadd_rn(__fmul_rn(p * vcur, alpha), pt.acc[h]);
-      }
-  }
-  decode_attn::finish_split(
-      pt, attn + ((size_t)b * H + kvh * kv_mul) * D, part_ml, part_acc,
-      counters, (size_t)b * n_kv + kvh, split, n_splits, gridDim.x, kv_mul,
-      D);
+  decode_attn::step_split<KV, MAX_KV_MUL>(
+      attn_step::BlockItem{}, reinterpret_cast<float*>(dyn_smem), red, code,
+      qkv, k_cache, v_cache, k_scale, v_scale, pos, cos2, sinm, attn, k_new,
+      v_new, ks_new, vs_new, part_ml, part_acc, counters, H, n_kv, D, S, win,
+      scale, blockIdx.x, blockIdx.y, blockIdx.z, gridDim.x);
 }
 
 template <int KV>

@@ -70,13 +70,14 @@ batched_attention_kernel(const __nv_bfloat16* __restrict__ q,
     sm.q[h * D + t] =
         __bfloat162float(q[((size_t)b * H + kvh * kv_mul + h) * D + t]);
   const int r0 = split * SPLIT_ROWS;
-  const decode_attn::Partial pt = decode_attn::attend_split<KV>(
-      sm, k_cache, v_cache, k_scale, v_scale, (size_t)b * S * n_kv + kvh,
+  const attn_step::BlockItem it{};
+  const decode_attn::Partial pt = decode_attn::attend_split<KV, MAX_KV_MUL>(
+      it, sm, k_cache, v_cache, k_scale, v_scale, (size_t)b * S * n_kv + kvh,
       n_kv, r0, min(SPLIT_ROWS, n_rows - r0), p0, nullptr, kv_mul, D, scale);
   decode_attn::finish_split(
-      pt, out + ((size_t)b * H + kvh * kv_mul) * D, part_ml, part_acc,
-      counters, (size_t)b * n_kv + kvh, split, n_splits, gridDim.x, kv_mul,
-      D);
+      it, sm, pt, out + ((size_t)b * H + kvh * kv_mul) * D, part_ml,
+      part_acc, counters, (size_t)b * n_kv + kvh, split, n_splits, gridDim.x,
+      kv_mul, D);
 }
 
 template <int KV>

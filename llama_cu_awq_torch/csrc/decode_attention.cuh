@@ -1,12 +1,16 @@
 // Split-window decode attention (flash-decoding) for one query token per
-// slot, shared by attention_step.cu and batched_attention.cu.
+// slot, shared by attention_step.cu, batched_attention.cu and
+// int4_chain.cu (mono_layer's attention stage).
 //
-// A block owns one split of one (slot, kv head): a fixed run of
+// A work item is one split of one (slot, kv head): a fixed run of
 // SPLIT_ROWS cache rows (below; ops/cuda/attention_step.py's SPLIT_ROWS is
 // the same number for the plain versions and the scratch sizes). The split
 // length never depends on the batch, the card or other slots, so a slot's
 // result depends only on its own position and cache. Threads: D (a
-// multiple of 32). In a split:
+// multiple of 32), a whole block (attention_step.cu, batched_attention.cu:
+// a grid of (splits, kv heads, slots)) or a group of D threads of a
+// persistent block that walks the items (int4_chain.cu's mono_layer,
+// attn_step::GroupItem). In a split:
 //   1. scores: a k row is read as 16-byte vectors, one row across
 //      row_bytes/16 lanes (16 lanes for bf16 at D=128, 8 for int8, 4 for
 //      packed int4); the next rows load while the current ones reduce;
@@ -25,10 +29,11 @@
 // JAX kernel visits it: its p is 1 (times its v scale, rounded to bf16),
 // the split's max starts at its score, and its term enters as
 // acc_cur * alpha + PV, l = alpha + sum p with alpha = exp(s_cur - m), the
-// online softmax's step. The block then writes its partial (m, l,
-// acc[kv_mul][D]) in f32 to scratch. The last block of a (slot, kv head)
-// to finish (a __threadfence and an atomic counter, which that block
-// resets to 0) combines the splits in split order 0..n-1:
+// online softmax's step (step_split, below, is that item whole). The item
+// then writes its partial (m, l, acc[kv_mul][D]) in f32 to scratch. The
+// last item of a (slot, kv head) to finish (a __threadfence and an atomic
+// counter, which that item resets to 0) combines the splits in split
+// order 0..n-1:
 //   M = max m_i (splits with l_i = 0, all rows masked, left out),
 //   L = sum l_i * exp(m_i - M),  A = sum acc_i * exp(m_i - M),
 //   out = A / L,
@@ -76,14 +81,15 @@ __host__ __device__ inline int pow2_at_least(int x) {
   return p;
 }
 
-// Dynamic shared memory of a split block, in floats: m, l and the current
-// token's scores, then q, the scores, the rows' scales and the current
-// token's k values, over which the per-warp PV partials (red) are laid
-// once those are read.
+// Dynamic shared memory of a split item, in floats: m, l, the current
+// token's scores and the item's last-arrival flag, then q, the scores,
+// the rows' scales and the current token's k values, over which the
+// per-warp PV partials (red) are laid once those are read.
 struct Smem {
   float* m;     // [MAX_KV_MUL] the split's max per query head
   float* l;     // [MAX_KV_MUL] the split's sum of p
   float* scur;  // [MAX_KV_MUL] the current token's scores (attention_step)
+  int* last;    // [1] finish_split: this item arrived last
   float* q;     // [kv_mul][D] bf16-rounded q
   float* s;     // [kv_mul][SPLIT_ROWS] scores, then bf16 p
   float* ks;    // [SPLIT_ROWS] k scales of the rows
@@ -103,6 +109,7 @@ __device__ __forceinline__ Smem carve(float* base, int kv_mul, int D) {
   sm.m = base;
   sm.l = base + MAX_KV_MUL;
   sm.scur = base + 2 * MAX_KV_MUL;
+  sm.last = reinterpret_cast<int*>(base + 3 * MAX_KV_MUL);
   sm.q = base + 4 * MAX_KV_MUL;  // 16-byte aligned
   sm.s = sm.q + kv_mul * D;
   sm.ks = sm.s + kv_mul * SPLIT_ROWS;
@@ -112,12 +119,15 @@ __device__ __forceinline__ Smem carve(float* base, int kv_mul, int D) {
   return sm;
 }
 
-// A split's (m, l, acc) as thread t holds it: acc[h] is element t of
-// query head h.
+// A split's (m, l, acc) as the item's thread t holds it: acc[h] is
+// element t of query head h. KVM: the most query heads per kv head the
+// caller compiles for (MAX_KV_MUL, or 1 where kv_mul is 1: fewer
+// registers, the same arithmetic for each head).
+template <int KVM>
 struct Partial {
-  float m[MAX_KV_MUL];
-  float l[MAX_KV_MUL];
-  float acc[MAX_KV_MUL];
+  float m[KVM];
+  float l[KVM];
+  float acc[KVM];
 };
 
 __device__ __forceinline__ float int4_lo(uint32_t w, int k) {
@@ -242,14 +252,14 @@ __device__ __forceinline__ int v_elem(int sub, int i, int D) {
 // each query head's max starts (the current token's scores in
 // attention_step's split 0; nullptr: -1e30). Returns the split's partial
 // over its rows (l = 0 when n = 0 or every row is masked).
-template <int KV>
-__device__ __forceinline__ Partial attend_split(
-    const Smem& sm, const void* __restrict__ k_cache,
+template <int KV, int KVM, typename Item>
+__device__ __forceinline__ Partial<KVM> attend_split(
+    const Item& it, const Smem& sm, const void* __restrict__ k_cache,
     const void* __restrict__ v_cache, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, size_t row0, int n_kv, int r0, int n,
     int p_last, const float* m_start, int kv_mul, int D, float scale) {
   constexpr bool QUANT = KV != KV_BF16;
-  const int t = threadIdx.x;
+  const int t = it.t();
   const int lane = t & 31;
   const int warp = t >> 5;
   const int nwarps = D >> 5;
@@ -262,7 +272,7 @@ __device__ __forceinline__ Partial attend_split(
       sm.vs[j] = v_scale[si];
     }
   }
-  __syncthreads();
+  it.sync();
 
   // ---- scores: a row across LK lanes (padded to LKP), 16 B each; the
   // next ROWS_IN_FLIGHT rows load while the current ones reduce ----
@@ -297,7 +307,7 @@ __device__ __forceinline__ Partial attend_split(
       for (int u = 0; u < ROWS_IN_FLIGHT; ++u) {
         const int j = j0 + u * G + grp;
 #pragma unroll
-        for (int h = 0; h < MAX_KV_MUL; ++h) {
+        for (int h = 0; h < KVM; ++h) {
           if (h < kv_mul) {
             float part = sub < LK ? dot16<KV>(w[u], sm.q + h * D, sub, D)
                                   : 0.0f;
@@ -333,7 +343,7 @@ __device__ __forceinline__ Partial attend_split(
   };
   VT vnext[ROWS_IN_FLIGHT];
   load_v(vnext, vgrp);
-  __syncthreads();
+  it.sync();
 
   // ---- one max over the split, p rounded to bf16 ----
   for (int h = warp; h < kv_mul; h += nwarps) {
@@ -355,12 +365,12 @@ __device__ __forceinline__ Partial attend_split(
       sm.l[h] = sum;
     }
   }
-  __syncthreads();
+  it.sync();
 
   // ---- PV: a row across D/8 lanes (padded to LVP), 8 elements each ----
-  float acc[MAX_KV_MUL][8];
+  float acc[KVM][8];
 #pragma unroll
-  for (int h = 0; h < MAX_KV_MUL; ++h)
+  for (int h = 0; h < KVM; ++h)
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[h][i] = 0.0f;
   if (vsub < LV) {
@@ -376,7 +386,7 @@ __device__ __forceinline__ Partial attend_split(
           float v[8];
           unpack_v<KV>(w[u], v);
 #pragma unroll
-          for (int h = 0; h < MAX_KV_MUL; ++h)
+          for (int h = 0; h < KVM; ++h)
             if (h < kv_mul) {
               const float p = sm.s[h * SPLIT_ROWS + j];
 #pragma unroll
@@ -389,25 +399,25 @@ __device__ __forceinline__ Partial attend_split(
   // the row groups of a warp, then the warps in order
   for (int o = 16; o >= LVP; o >>= 1)
 #pragma unroll
-    for (int h = 0; h < MAX_KV_MUL; ++h)
+    for (int h = 0; h < KVM; ++h)
       if (h < kv_mul)
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           acc[h][i] += __shfl_xor_sync(FULL, acc[h][i], o);
-  __syncthreads();  // q and s are read; red lies over them
+  it.sync();  // q and s are read; red lies over them
   if (lane < LVP && vsub < LV) {
 #pragma unroll
-    for (int h = 0; h < MAX_KV_MUL; ++h)
+    for (int h = 0; h < KVM; ++h)
       if (h < kv_mul)
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           sm.red[(warp * kv_mul + h) * D + v_elem<KV>(vsub, i, D)] =
               acc[h][i];
   }
-  __syncthreads();
-  Partial out;
+  it.sync();
+  Partial<KVM> out;
 #pragma unroll
-  for (int h = 0; h < MAX_KV_MUL; ++h) {
+  for (int h = 0; h < KVM; ++h) {
     float a = 0.0f;
     if (h < kv_mul) {
       for (int w = 0; w < nwarps; ++w) a += sm.red[(w * kv_mul + h) * D + t];
@@ -419,29 +429,32 @@ __device__ __forceinline__ Partial attend_split(
   return out;
 }
 
-// The end of a split block: with one split, out = acc / l; else write the
-// partial and, in the last block of the (slot, kv head) to finish, combine
-// every split in order, and reset the counter. item =
-// b * n_kv + kvh; out points at the item's first query head row; part_ml
-// (items, max_splits, 2, kv_mul) and part_acc (items, max_splits, kv_mul,
-// D) are f32 scratch.
+// The end of a split item: with one split, out = acc / l; else write the
+// partial and, in the last item of the (slot, kv head) to finish, combine
+// every split in order, and reset the counter. item = b * n_kv + kvh; out
+// points at the item's first query head row (f32, or bf16 rounded from
+// the same f32 value); part_ml (items, max_splits, 2, kv_mul) and
+// part_acc (items, max_splits, kv_mul, D) are f32 scratch.
+template <int KVM, typename Item, typename OutT>
 __device__ __forceinline__ void finish_split(
-    const Partial& pt, float* __restrict__ out, float* __restrict__ part_ml,
-    float* __restrict__ part_acc, unsigned* __restrict__ counters,
-    size_t item, int split, int n_splits, int max_splits, int kv_mul, int D) {
-  __shared__ bool last;
-  const int t = threadIdx.x;
+    const Item& it, const Smem& sm, const Partial<KVM>& pt,
+    OutT* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    unsigned* __restrict__ counters, size_t item, int split, int n_splits,
+    int max_splits, int kv_mul, int D) {
+  const int t = it.t();
   if (n_splits == 1) {
 #pragma unroll
-    for (int h = 0; h < MAX_KV_MUL; ++h)
-      if (h < kv_mul) out[(size_t)h * D + t] = pt.acc[h] / pt.l[h];
+    for (int h = 0; h < KVM; ++h)
+      if (h < kv_mul) attn_step::store_out(out + (size_t)h * D + t,
+                                           pt.acc[h] / pt.l[h]);
     return;
   }
   const size_t base = item * max_splits;
   float* pa = part_acc + (base + split) * kv_mul * D;
   float* pm = part_ml + (base + split) * 2 * kv_mul;
 #pragma unroll
-  for (int h = 0; h < MAX_KV_MUL; ++h)
+  for (int h = 0; h < KVM; ++h)
     if (h < kv_mul) {
       pa[(size_t)h * D + t] = pt.acc[h];
       if (t == h) {
@@ -450,10 +463,11 @@ __device__ __forceinline__ void finish_split(
       }
     }
   __threadfence();
-  __syncthreads();
-  if (t == 0) last = atomicAdd(counters + item, 1u) == (unsigned)n_splits - 1;
-  __syncthreads();
-  if (!last) return;
+  it.sync();
+  if (t == 0)
+    *sm.last = atomicAdd(counters + item, 1u) == (unsigned)n_splits - 1;
+  it.sync();
+  if (!*sm.last) return;
   __threadfence();
   const float* ml = part_ml + base * 2 * kv_mul;
   const float* pacc = part_acc + base * kv_mul * D;
@@ -473,9 +487,93 @@ __device__ __forceinline__ void finish_split(
             A, __fmul_rn(__ldcg(pacc + ((size_t)i * kv_mul + h) * D + t), w));
       }
     }
-    out[(size_t)h * D + t] = A / L;
+    attn_step::store_out(out + (size_t)h * D + t, A / L);
   }
   if (t == 0) counters[item] = 0u;
+}
+
+// One split item of attention_step (the bf16, int8 and int4 caches): split
+// `split` of (slot b, kv head kvh) over the history rows below
+// min(pos[b], win); items past the slot's splits return at once. Every
+// split rotates q (kv_mul x D multiplies); split 0 also runs phase 1
+// (attn_step::new_row: the new cache row, written to k_new/v_new and
+// ks_new/vs_new) and visits the current token first. attn gets the
+// kv_mul query heads' rows (OutT f32 or bf16). smem: the item's
+// smem_floats floats (16-byte aligned); red and code: its new_row
+// scratch. max_splits: the scratch's splits per (slot, kv head).
+template <int KV, int KVM, typename Item, typename OutT>
+__device__ __forceinline__ void step_split(
+    const Item& it, float* smem, float (&red)[2][MAX_D / 32],
+    int (&code)[2][MAX_D], const __nv_bfloat16* __restrict__ qkv,
+    const void* __restrict__ k_cache, const void* __restrict__ v_cache,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ pos, const float* __restrict__ cos2,
+    const float* __restrict__ sinm, OutT* __restrict__ attn,
+    void* __restrict__ k_new, void* __restrict__ v_new,
+    float* __restrict__ ks_new, float* __restrict__ vs_new,
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    unsigned* __restrict__ counters, int H, int n_kv, int D, int S, int win,
+    float scale, int split, int kvh, int b, int max_splits) {
+  constexpr bool QUANT = KV != KV_BF16;
+  const int n_hist = min(pos[b], win);
+  const int n_splits = max(1, (n_hist + SPLIT_ROWS - 1) / SPLIT_ROWS);
+  if (split >= n_splits) return;
+  const int t = it.t();
+  const int lane = t & 31;
+  const int kv_mul = H / n_kv;
+  const int half = D / 2;
+  const Smem sm = carve(smem, kv_mul, D);
+  const __nv_bfloat16* row = qkv + (size_t)b * (H + 2 * n_kv) * D;
+  const float c = cos2[(size_t)b * D + t];
+  const float sn = sinm[(size_t)b * D + t];
+  const int partner = t < half ? t + half : t - half;
+  for (int h = 0; h < kv_mul; ++h)
+    sm.q[h * D + t] = attn_step::rope_elem(
+        row + (size_t)(kvh * kv_mul + h) * D, t, partner, c, sn);
+  float vcur = 0.0f;
+  float vsc = 1.0f;
+  if (split == 0) {
+    float kcur, ksc;
+    attn_step::new_row<KV>(it, red, code, row, c, sn, partner, k_new, v_new,
+                           ks_new, vs_new, H, n_kv, D, kvh,
+                           (size_t)b * n_kv + kvh, kcur, vcur, ksc, vsc);
+    sm.kcur[t] = kcur;
+    it.sync();
+    if (t < 32) {
+      // the current token's score, elements lane + 32*i
+      for (int h = 0; h < kv_mul; ++h) {
+        float part = 0.0f;
+        for (int e = lane; e < D; e += 32)
+          part = fmaf(sm.kcur[e], sm.q[h * D + e], part);
+        part = warp_sum(part);
+        if (lane == 0) {
+          float raw = part;
+          if constexpr (QUANT) raw = raw * ksc;
+          sm.scur[h] = raw * scale;
+        }
+      }
+    }
+  }
+  const int r0 = split * SPLIT_ROWS;
+  Partial<KVM> pt = attend_split<KV, KVM>(
+      it, sm, k_cache, v_cache, k_scale, v_scale, (size_t)b * S * n_kv + kvh,
+      n_kv, r0, min(SPLIT_ROWS, n_hist - r0), INT_MAX,
+      split == 0 ? sm.scur : nullptr, kv_mul, D, scale);
+  if (split == 0) {
+    // the current token's term: p = 1 times its v scale, rounded to bf16,
+    // then scaled by alpha = exp(s_cur - m) as the online softmax does
+    const float p = round_bf16(QUANT ? vsc : 1.0f);
+#pragma unroll
+    for (int h = 0; h < KVM; ++h)
+      if (h < kv_mul) {
+        const float alpha = expf(sm.scur[h] - pt.m[h]);
+        pt.l[h] = __fadd_rn(alpha, pt.l[h]);
+        pt.acc[h] = __fadd_rn(__fmul_rn(p * vcur, alpha), pt.acc[h]);
+      }
+  }
+  finish_split(it, sm, pt, attn + ((size_t)b * H + kvh * kv_mul) * D,
+               part_ml, part_acc, counters, (size_t)b * n_kv + kvh, split,
+               n_splits, max_splits, kv_mul, D);
 }
 
 // the launch's dynamic shared memory, raising the kernel's limit above

@@ -10,12 +10,12 @@
 //     stage D:  out = bf16(bf16(silu(g) * u) @ W_down + x1)   g|u = gu
 //               ss  = 1 / sqrt(mean(out^2) + eps)
 //     stage Q (optional): qkv = bf16(bf16(out * ss * attn_norm') @ W_qkv')
-//   mono_layer first runs decode attention for every (slot, kv head)
-//   (attention_step.cuh attention_item: the whole window in one online
-//   softmax, where attention_step.cu splits it across blocks; the new
-//   cache rows come from the same phase 1, new_row), whose bf16 rows are
-//   stage O's attn, and returns the new cache rows (and int8 scales); the
-//   caller scatters them.
+//   mono_layer first runs attention_step's split decode attention
+//   (decode_attention.cuh step_split: every (split, kv head, slot) item,
+//   the new cache rows from split 0's phase 1, the splits combined in
+//   order by the last item of each (slot, kv head) to finish), whose rows,
+//   rounded to bf16, are stage O's attn, and returns the new cache rows
+//   (and int8 scales); the caller scatters them.
 //
 // What bounds it on the H100: the weight bytes. At 7B and m=1 the four
 //   matrices are 105.9 MB of nibbles, fp16 scales and uint8 zeros, read
@@ -43,13 +43,28 @@
 //     prologue). x1, gu and out go through global memory and are read back
 //     through L2 (__ldcg) after the barrier. Rows beyond MAX_ROWS take
 //     further passes over the weights, as the GEMV's do.
-//   - mono_layer's attention stage gives one (slot, kv head) work item at a
-//     time to the first D threads of a block (named barrier 1 among them),
-//     over the persistent blocks; at batch 1 and 7B that is 32 items, so
-//     the other blocks wait at the first barrier. Its scratch (Smem) lies
-//     in the same dynamic shared memory as the staged rows of later stages.
-//   - No L2 prefetch of the next stage's weights before a barrier, no
-//     tensor cores: a simple, right kernel first.
+//   - mono_layer's attention stage walks attention_step's grid of items,
+//     (split, kv head, slot), over the persistent blocks: each block runs
+//     up to `groups` items at once, one on each group of D threads (its
+//     own named barrier, attn_step::GroupItem, and its own slice of the
+//     dynamic shared memory that the later stages stage rows in). At
+//     batch 1 and 7B, position 1500 of a 2048-row window, 384 of the 16
+//     x 32 items hold rows, 12 splits of each kv head (one item per (slot,
+//     kv head) would leave most blocks waiting at the first barrier). Each item runs
+//     attention_step's own body (step_split) and the splits combine in
+//     attention_step's order, so the attention rows, and with them every
+//     output, equal attention_step followed by ffn_chain bit for bit. The
+//     groups are as many as fit the block's threads and the shared memory
+//     the chain's stages already need (at least one), so the attention
+//     stage's shared memory never lowers the grid's occupancy. Its
+//     registers do: mono runs one block of 512 threads an SM (128
+//     registers, none spilled at MHA), where ffn_chain runs two; held to
+//     two, the items spilled and mono ran slower on the H100. The
+//     partials and arrival counters are attention_step's scratch
+//     (ops/cuda/attention_step.py split_scratch), sized by the wrapper.
+//   - No L2 prefetch of the next stage's weights before a barrier (for
+//     W_o behind mono's attention stage it measured slower on the H100),
+//     no tensor cores.
 //   - A launch that cannot be co-resident returns its error (as
 //     cudaFuncSetAttribute, the occupancy query or the cooperative launch
 //     report it); the wrapper raises. It never falls back.
@@ -59,6 +74,7 @@
 #include <mutex>
 
 #include "attention_step.cuh"
+#include "decode_attention.cuh"
 #include "int4_gemv.cuh"
 
 namespace cg = cooperative_groups;
@@ -67,6 +83,7 @@ namespace {
 
 using attn_step::KV_BF16;
 using attn_step::KV_INT8;
+using attn_step::MAX_D;
 using w4gemv::MAX_ROWS;
 using w4gemv::WARPS;
 
@@ -109,9 +126,21 @@ struct AttnArgs {
   void* v_new;
   float* ks_new;             // (B, n_kv), int8 only
   float* vs_new;
+  float* part_ml;            // attention_step's split scratch
+  float* part_acc;
+  unsigned* counters;
   int B, H, n_kv, D, S, win;
+  int max_splits;            // ceil(win / SPLIT_ROWS)
+  int groups;                // items a block runs at once
+  int group_floats;          // shared memory of one group, in floats
   float scale;
 };
+
+// A group's shared memory, in floats: step_split's Smem, then new_row's
+// red and code.
+__host__ __device__ inline int item_floats(int kv_mul, int D) {
+  return decode_attn::smem_floats(kv_mul, D) + 2 * (MAX_D / 32) + 2 * MAX_D;
+}
 
 // The columns of weight w for the mr rows staged in xs: column col goes
 // to the warp of this block that grid-strides onto it.
@@ -224,23 +253,46 @@ __global__ void __launch_bounds__(WARPS * 32) ffn_chain_kernel(ChainArgs a) {
   chain_stages<false>(a, xs, part, ss_rows);
 }
 
-template <int KV>
+// mono_layer's attention stage: attention_step's (split, kv head, slot)
+// items, one at a time on each group of D threads, slot gid * gridDim.x +
+// blockIdx.x, so consecutive items (the splits of one kv head) land on
+// different blocks and SMs.
+template <int KV, int KVM>
+__device__ __forceinline__ void attention_stage(const AttnArgs& t,
+                                                float* smem) {
+  const int gid = static_cast<int>(threadIdx.x) / t.D;
+  if (gid >= t.groups) return;
+  const attn_step::GroupItem it{gid, t.D};
+  float* sm = smem + (size_t)gid * t.group_floats;
+  float(&red)[2][MAX_D / 32] = *reinterpret_cast<float(*)[2][MAX_D / 32]>(
+      sm + decode_attn::smem_floats(t.H / t.n_kv, t.D));
+  int(&code)[2][MAX_D] = *reinterpret_cast<int(*)[2][MAX_D]>(
+      &red[0][0] + 2 * (MAX_D / 32));
+  const int n_items = t.max_splits * t.n_kv * t.B;
+  for (int item = gid * gridDim.x + blockIdx.x; item < n_items;
+       item += gridDim.x * t.groups) {
+    const int split = item % t.max_splits;
+    const int kvh = (item / t.max_splits) % t.n_kv;
+    const int b = item / (t.max_splits * t.n_kv);
+    decode_attn::step_split<KV, KVM>(
+        it, sm, red, code, t.qkv, t.k_cache, t.v_cache, t.k_scale,
+        t.v_scale, t.pos, t.cos2, t.sinm, t.rows, t.k_new, t.v_new,
+        t.ks_new, t.vs_new, t.part_ml, t.part_acc, t.counters, t.H, t.n_kv,
+        t.D, t.S, t.win, t.scale, split, kvh, b, t.max_splits);
+    it.sync();  // the group's shared memory is free for its next item
+  }
+}
+
+// KVM: the query heads per kv head compiled for (1 or MAX_KV_MUL), the
+// split item's accumulators: at KVM 1 (MHA, 7B) the kernel spills no
+// register.
+template <int KV, int KVM>
 __global__ void __launch_bounds__(WARPS * 32)
 mono_layer_kernel(AttnArgs t, ChainArgs a) {
   extern __shared__ __align__(16) __nv_bfloat16 xs[];
   __shared__ float part[w4gemv::RMS_THREADS / 32];
   __shared__ float ss_rows[MAX_ROWS];
-  // ---- attention: one (slot, kv head) item at a time on D threads ----
-  if (static_cast<int>(threadIdx.x) < t.D) {
-    attn_step::Smem& sm = *reinterpret_cast<attn_step::Smem*>(xs);
-    for (int item = blockIdx.x; item < t.B * t.n_kv; item += gridDim.x) {
-      attn_step::attention_item<KV, true>(
-          sm, t.qkv, t.k_cache, t.v_cache, t.k_scale, t.v_scale, t.pos,
-          t.cos2, t.sinm, t.rows, t.k_new, t.v_new, t.ks_new, t.vs_new, t.H,
-          t.n_kv, t.D, t.S, t.win, t.scale, item / t.n_kv, item % t.n_kv);
-      attn_step::item_sync<true>(t.D);  // sm is free for the next item
-    }
-  }
+  attention_stage<KV, KVM>(t, reinterpret_cast<float*>(xs));
   cg::this_grid().sync();  // every attention row is written
   chain_stages<true>(a, xs, part, ss_rows);
 }
@@ -257,7 +309,8 @@ struct LaunchInfo {
   int per_sm = 0;
 };
 constexpr int MAX_DEVICES = 64;
-constexpr int N_KERNELS = 3;  // ffn_chain, mono_layer bf16, mono_layer int8
+// ffn_chain, then mono_layer for bf16 and int8 KV at KVM 1 and MAX_KV_MUL
+constexpr int N_KERNELS = 5;
 LaunchInfo launch_info[N_KERNELS][MAX_DEVICES];
 bool launch_info_read[N_KERNELS][MAX_DEVICES] = {};
 std::mutex launch_info_mu;
@@ -415,15 +468,18 @@ LLAMA_EXPORT int ffn_chain(const void* attn, const void* res,
 // The attention stage's arguments as attention_step's (qkv (B, (H +
 // 2*n_kv)*D) bf16; caches (B, S, n_kv, D) bf16, or int8 with k_scale and
 // v_scale (B, S, n_kv) f32; pos (B,) int32; cos2, sinm (B, D) f32; k_new,
-// v_new (B, n_kv, D) and, int8 only, ks_new, vs_new (B, n_kv) f32), plus
-// rows (B, H*D) bf16 scratch and the window win <= S; then ffn_chain's
-// arguments after attn, with m = B and n_o = H*D. The cache is not written.
+// v_new (B, n_kv, D) and, int8 only, ks_new, vs_new (B, n_kv) f32; its
+// scratch part_ml, part_acc and counters, sized and zeroed as
+// attention_step's for the window), plus rows (B, H*D) bf16 scratch and
+// the window 1 <= win <= S; then ffn_chain's arguments after attn, with
+// m = B and n_o = H*D. The cache is not written.
 LLAMA_EXPORT int mono_layer(
     const void* qkv_in, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* pos,
     const void* cos2, const void* sinm, void* k_new, void* v_new,
-    void* ks_new, void* vs_new, void* rows, int B, int H, int n_kv, int D,
-    int S, int win, const void* res, const void* ffn_norm, const void* qw_o,
+    void* ks_new, void* vs_new, void* part_ml, void* part_acc,
+    void* counters, void* rows, int B, int H, int n_kv, int D, int S,
+    int win, const void* res, const void* ffn_norm, const void* qw_o,
     const void* s_o, const void* z_o, const void* qw_gu, const void* s_gu,
     const void* z_gu, const void* qw_d, const void* s_d, const void* z_d,
     const void* attn_norm, const void* qw_q, const void* s_q,
@@ -431,8 +487,10 @@ LLAMA_EXPORT int mono_layer(
     void* qkv, int dim, int hid, float eps, int rpp_o, int rpp_gu,
     int rpp_d, int rpp_q, void* stream) {
   if (D % 32 != 0 || D > attn_step::MAX_D || n_kv < 1 || H % n_kv != 0 ||
-      H / n_kv > attn_step::MAX_KV_MUL || B < 1 || win < 0 || win > S ||
-      (k_scale == nullptr) != (v_scale == nullptr))
+      H / n_kv > attn_step::MAX_KV_MUL || B < 1 || win < 1 || win > S ||
+      (k_scale == nullptr) != (v_scale == nullptr) ||
+      reinterpret_cast<uintptr_t>(k_cache) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v_cache) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs t;
   t.qkv = static_cast<const __nv_bfloat16*>(qkv_in);
@@ -448,26 +506,43 @@ LLAMA_EXPORT int mono_layer(
   t.v_new = v_new;
   t.ks_new = static_cast<float*>(ks_new);
   t.vs_new = static_cast<float*>(vs_new);
+  t.part_ml = static_cast<float*>(part_ml);
+  t.part_acc = static_cast<float*>(part_acc);
+  t.counters = static_cast<unsigned*>(counters);
   t.B = B;
   t.H = H;
   t.n_kv = n_kv;
   t.D = D;
   t.S = S;
   t.win = win;
+  t.max_splits = (win + decode_attn::SPLIT_ROWS - 1) / decode_attn::SPLIT_ROWS;
   t.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   ChainArgs a = make_chain(rows, res, ffn_norm, qw_o, s_o, z_o, qw_gu, s_gu,
                            z_gu, qw_d, s_d, z_d, attn_norm, qw_q, s_q, z_q,
                            n_q, x1, gu, out, ss, qkv, B, H * D, dim, hid, eps,
                            rpp_o, rpp_gu, rpp_d, rpp_q);
   const bool int8 = k_scale != nullptr;
-  const void* kernel =
-      int8 ? reinterpret_cast<const void*>(&mono_layer_kernel<KV_INT8>)
-           : reinterpret_cast<const void*>(&mono_layer_kernel<KV_BF16>);
+  const bool mha = H == n_kv;
+  const void* kernels[4] = {
+      reinterpret_cast<const void*>(&mono_layer_kernel<KV_BF16, 1>),
+      reinterpret_cast<const void*>(
+          &mono_layer_kernel<KV_BF16, attn_step::MAX_KV_MUL>),
+      reinterpret_cast<const void*>(&mono_layer_kernel<KV_INT8, 1>),
+      reinterpret_cast<const void*>(
+          &mono_layer_kernel<KV_INT8, attn_step::MAX_KV_MUL>)};
+  const int which = (int8 ? 2 : 0) + (mha ? 0 : 1);
+  const void* kernel = kernels[which];
+  // at least one group; then as many as the chain's shared memory holds
+  t.group_floats = item_floats(H / n_kv, D);
+  const size_t group_bytes = sizeof(float) * t.group_floats;
   size_t smem = 0;
   int grid = 0;
-  cudaError_t e = chain_launch_shape(a, kernel, int8 ? 2 : 1,
-                                     sizeof(attn_step::Smem), &smem, &grid);
+  cudaError_t e = chain_launch_shape(a, kernel, 1 + which, group_bytes,
+                                     &smem, &grid);
   if (e != cudaSuccess) return launch_refused(e);
+  t.groups = static_cast<int>(smem / group_bytes);
+  if (t.groups > WARPS * 32 / D) t.groups = WARPS * 32 / D;
+  if (t.groups > attn_step::MAX_GROUPS) t.groups = attn_step::MAX_GROUPS;
   void* args[] = {&t, &a};
   e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(WARPS * 32), args,
                                   smem, static_cast<cudaStream_t>(stream));

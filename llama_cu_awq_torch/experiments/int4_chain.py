@@ -18,15 +18,13 @@ Each is one cooperative launch of `csrc/int4_chain.cu` (persistent blocks
 with a grid barrier between the stages; see its header). Each column sums
 as the standalone GEMV sums it and each rms scale as rms_scale reduces it,
 so on the card ffn_chain's outputs equal the launch sequence it replaces
-bit for bit. mono's attention stage walks the window unsplit in one
-online softmax (csrc/attention_step.cuh attention_item), where
-attention_step splits it across blocks: its new cache rows and scales
-equal attention_step's bit for bit (the same phase 1), its attention rows
-agree with attention_step's to bf16 rounding of p, and so do the chain's
-outputs after them. The plain versions are the sequence's plain versions,
-mono's attention walked unsplit (attention_step_plain(split=False)). A
-CPU tensor takes the plain version; a CUDA tensor reaches the kernel or
-raises.
+bit for bit. mono's attention stage runs attention_step's own split
+items (csrc/decode_attention.cuh step_split, several at once on groups of
+threads of each persistent block) and combines the splits in
+attention_step's order, so every output of mono_layer, the new cache rows
+and scales included, equals attention_step followed by ffn_chain bit for
+bit. The plain versions are the sequence's plain versions. A CPU tensor
+takes the plain version; a CUDA tensor reaches the kernel or raises.
 
 The JAX kernels pad n_in to its planar block and assert unpadded o and
 down outputs; this layout has no padding. Its own limits are in
@@ -55,7 +53,8 @@ from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
 from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
                                                         attention_step_plain,
                                                         kernel_takes,
-                                                        rope_rows)
+                                                        rope_rows,
+                                                        split_scratch)
 from llama_cu_awq_torch.ops.cuda.int4_matmul import (_SMEM_BUDGET,
                                                      _as_rows,
                                                      int4_matmul_fused_plain,
@@ -72,7 +71,7 @@ _F = ctypes.c_float
 # W_o, W_gate_up, W_down, attn_norm and W_qkv', n_q, x1, gu, out, ss, qkv
 _CHAIN_TAIL = [_P] * 15 + [_I] + [_P] * 5
 _FFN_ARGS = [_P] + _CHAIN_TAIL + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P]
-_MONO_ARGS = ([_P] * 13 + [_I] * 6 + _CHAIN_TAIL
+_MONO_ARGS = ([_P] * 16 + [_I] * 6 + _CHAIN_TAIL
               + [_I, _I, _F, _I, _I, _I, _I, _P])
 
 
@@ -251,9 +250,9 @@ def mono_layer_plain(qkv, x_res, ffn_norm, wo, w_gate_up, w_down, k_cache,
                      v_cache, pos, cos2, sinm, k_scale=None, v_scale=None, *,
                      n_heads: int, win: int, eps: float, wqkv_next=None,
                      attn_norm_next=None):
-    """attention_step's plain version over the window's rows, walked
-    unsplit as the kernel's attention stage walks them (split=False), its
-    rows rounded to bf16, then ffn_chain's plain version."""
+    """attention_step's plain version over the window's rows (its
+    splits, as the kernel's attention stage walks them), its rows rounded
+    to bf16, then ffn_chain's plain version."""
     B = qkv.shape[0]
 
     def window(t):
@@ -261,7 +260,7 @@ def mono_layer_plain(qkv, x_res, ffn_norm, wo, w_gate_up, w_down, k_cache,
 
     attn, kn, vn, ksn, vsn = attention_step_plain(
         qkv, window(k_cache), window(v_cache), pos, cos2, sinm,
-        window(k_scale), window(v_scale), n_heads=n_heads, split=False)
+        window(k_scale), window(v_scale), n_heads=n_heads)
     chain = ffn_chain_plain(attn.reshape(B, -1).to(torch.bfloat16), x_res,
                             ffn_norm, wo, w_gate_up, w_down, eps=eps,
                             wqkv_next=wqkv_next,
@@ -312,6 +311,9 @@ def mono_layer(qkv, x_res, ffn_norm, wo, w_gate_up, w_down, k_cache,
     check_tensor(qkv, "qkv", torch.bfloat16, (B, (H + 2 * n_kv) * D), dev)
     check_tensor(k_cache, "k_cache", kv_dtype, (B, S, n_kv, D), dev)
     check_tensor(v_cache, "v_cache", kv_dtype, (B, S, n_kv, D), dev)
+    require(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
+            "the caches must start 16-byte aligned (the attention stage's "
+            "vector loads)")
     if quantized:
         check_tensor(k_scale, "k_scale", torch.float32, (B, S, n_kv), dev)
         check_tensor(v_scale, "v_scale", torch.float32, (B, S, n_kv), dev)
@@ -332,12 +334,13 @@ def mono_layer(qkv, x_res, ffn_norm, wo, w_gate_up, w_down, k_cache,
     tail, nums, (out, ss, qkv_next) = _chain_tail(
         x_res, ffn_norm, wo, w_gate_up, w_down, wqkv_next, attn_norm_next,
         B, eps)
+    scratch = split_scratch(dev, B, n_kv, H // n_kv, D, win)
     fn = _build.function("int4_chain", "mono_layer", _MONO_ARGS)
     rc = fn(qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             ptr(k_scale), ptr(v_scale), pos.data_ptr(), cos2.data_ptr(),
             sinm.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            ptr(ks_new), ptr(vs_new), rows.data_ptr(), B, H, n_kv, D, S, win,
-            *tail, *nums, stream_ptr())
+            ptr(ks_new), ptr(vs_new), *scratch, rows.data_ptr(), B, H, n_kv,
+            D, S, win, *tail, *nums, stream_ptr())
     _build.check(rc, "int4_chain", "mono_layer")
     fmt = "int8" if quantized else "bf16"
     count("mono_layer", f"{fmt}/B{B}/H{H}/kv{n_kv}/D{D}/"
@@ -360,10 +363,9 @@ def decode_step(params, cfg, tokens: torch.Tensor, pos: torch.Tensor,
 
     tokens: (B, 1); pos: (B,) int32; cache: a bf16 or int8 KVCache,
     updated in place. attn_len: the window (default the cache). On the
-    card the "ffn_chain" logits equal forward(attn_impl="fused_step")'s bit
-    for bit (the same sums in the same order); "mono" walks attention
-    unsplit and agrees with them to bf16 rounding of p. Returns (logits
-    (B, vocab) f32, cache)."""
+    card the logits of both equal forward(attn_impl="fused_step")'s bit
+    for bit (the same sums in the same order). Returns (logits (B, vocab)
+    f32, cache)."""
     require(layer_impl in LAYER_IMPLS, f"layer_impl must be one of "
             f"{LAYER_IMPLS}, got {layer_impl!r}")
     B, T = tokens.shape

@@ -25,8 +25,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "llama_cu_awq_torch")
-SOURCES = ("int4_gemv", "int4_gemm", "dense_gemv", "attention_step",
-           "prefill_attention", "batched_attention", "down_qkv", "int4_chain")
+SOURCES = ("int4_gemv", "int4_gemm", "dense_gemm", "attention_step",
+           "prefill_attention", "batched_attention", "down_qkv",
+           "int4_chain")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

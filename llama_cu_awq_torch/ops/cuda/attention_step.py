@@ -24,14 +24,15 @@ slot's result depends only on its own position and cache, never on the
 batch. The plain version walks the same splits (`online_partial` for
 split 0, `split_partial` and `combine_splits`, the last two shared with
 batched_attention.py), so kernel and plain version differ only in the
-order of f32 sums.
+order of f32 sums. experiments/int4_chain.py's mono_layer runs the same
+split items (`step_split`) inside its cooperative launch, on this
+module's scratch.
 
 `split=False` walks the window in one online softmax, the current token
 first and then chunks of CHUNK rows, p rounded against the running max:
-the unsplit walk of mono_layer's attention stage (csrc/attention_step.cuh
-attention_item), which experiments/int4_chain.py's plain version runs.
-(The JAX kernel walks blocks of its own size; against it both walks agree
-to bf16 rounding of p.)
+the tests' unsplit oracle, which no kernel runs. (The JAX kernel walks
+blocks of its own size; against it both walks agree to bf16 rounding of
+p.)
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from llama_cu_awq_torch.quant.kv import kv4_values, quantize_kv, quantize_kv4
 # compile-time constant there (tests/test_torch_decode_split.py holds the
 # two equal), chosen among 64, 128 and 256 by timing on the H100 (PERF.md)
 SPLIT_ROWS = 128
-CHUNK = 64  # the unsplit walk's chunk (CHUNK in csrc/attention_step.cuh)
+CHUNK = 64  # the unsplit walk's chunk
 _NEG = -1e30
 # per (device, stream): (f32 partials, int32 arrival counters) of the
 # split kernels
@@ -180,7 +181,7 @@ def attention_step_plain(qkv, k_cache, v_cache, pos, cos2, sinm,
                          kv_bits: int = 8, attn_len: int | None = None,
                          split: bool = True):
     """The kernel's arithmetic in PyTorch (see the module docstring);
-    split=False walks the window unsplit, as mono_layer's kernel does."""
+    split=False walks the window unsplit (the tests' oracle)."""
     B = qkv.shape[0]
     _, S, n_kv, Dc = k_cache.shape
     kv4 = kv_bits == 4

@@ -2,8 +2,11 @@
 
 Counterpart of llama_cu_awq_tpu/ops/pallas/dense_gemv.py. w is the
 row-major (vocab, dim) head, bf16, or int8 with a per-row f32 scale
-applied to the accumulated sum (quant/int8.py). The kernel is
-`csrc/dense_gemv.cu` (one warp per vocab row, see its header).
+applied to the accumulated sum (quant/int8.py). A CUDA call launches
+`csrc/dense_gemm.cu` at every m: tensor-core tiles of 128 vocab rows by
+up to 128 rows of x, each head byte read once per tile of rows (see its
+header). It sums the exactly widened operands in f32, as
+`dense_gemv_plain` does.
 """
 
 from __future__ import annotations
@@ -16,17 +19,24 @@ import torch
 from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
                                          require, stream_ptr, use_plain)
 
-_SMEM_BUDGET = 200 * 1024
-_MAX_ROWS = 8  # matches MAX_ROWS in csrc/dense_gemv.cu
+GEMM_V_TILE = 128  # vocab rows of a tile (BV in csrc/dense_gemm.cu)
+GEMM_N_TILES = (16, 32, 64, 128)  # the tile kernel's widths in rows of x
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P]
+_GEMM_ARGS = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 
 
-def rows_per_pass(m: int, d: int, int8: bool) -> int:
-    e = 16 if int8 else 8
-    per_row = (d // e) * (e + 2) * 2  # padded bf16 staging
-    return max(1, min(m, _MAX_ROWS, _SMEM_BUDGET // per_row))
+def gemm_n_tile(m: int) -> int:
+    """Rows of x a tile-kernel block takes: the narrowest width that covers
+    m, else the widest (m > 128 takes several column tiles)."""
+    return next((n for n in GEMM_N_TILES if n >= m), GEMM_N_TILES[-1])
+
+
+def gemm_grid(m: int, v: int) -> tuple[int, int]:
+    """The tile kernel's grid: (vocab tiles, column tiles); the last of
+    each may be ragged (the kernel zero-fills its loads past v and m and
+    skips those stores)."""
+    return -(-v // GEMM_V_TILE), -(-m // gemm_n_tile(m))
 
 
 def dense_gemv_plain(x: torch.Tensor, w: torch.Tensor,
@@ -43,6 +53,33 @@ def dense_gemv_plain(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(*lead, w.shape[0])
 
 
+def _launch(x2: torch.Tensor, w: torch.Tensor, scale):
+    """One launch of the tile kernel on x2 (m, d) bf16; returns out (m, v)
+    f32."""
+    m, d = x2.shape
+    v = w.shape[0]
+    dev = x2.device
+    int8 = scale is not None
+    require(d % 16 == 0, f"the kernel needs dim % 16 == 0, got {d}")
+    check_tensor(w, "w", torch.int8 if int8 else torch.bfloat16, (v, d), dev)
+    if int8:
+        scale = scale.reshape(v)
+        check_tensor(scale, "scale", torch.float32, (v,), dev)
+    require(x2.dtype == torch.bfloat16, "bad x")
+    # unit element stride, and for the kernel's 16-byte copies 16-byte
+    # aligned rows
+    if not (x2.stride(1) == 1 and x2.stride(0) % 8 == 0
+            and x2.data_ptr() % 16 == 0):
+        x2 = x2.contiguous()
+    out = torch.empty(m, v, dtype=torch.float32, device=dev)
+    args = (x2.data_ptr(), x2.stride(0), w.data_ptr(),
+            scale.data_ptr() if int8 else None, out.data_ptr(), m, d, v)
+    fn = _build.function("dense_gemm", "dense_gemm", _GEMM_ARGS)
+    rc = fn(*args, gemm_n_tile(m), *gemm_grid(m, v), stream_ptr())
+    _build.check(rc, "dense_gemm", "dense_gemm")
+    return out
+
+
 def dense_gemv(x: torch.Tensor, w: torch.Tensor,
                scale: torch.Tensor | None = None, *,
                plain: bool = False) -> torch.Tensor:
@@ -53,21 +90,7 @@ def dense_gemv(x: torch.Tensor, w: torch.Tensor,
     v, d = w.shape
     lead = tuple(x.shape[:-1])
     m = math.prod(lead)
-    dev = x.device
-    int8 = scale is not None
-    require(d % 16 == 0, f"the kernel needs dim % 16 == 0, got {d}")
-    check_tensor(w, "w", torch.int8 if int8 else torch.bfloat16, (v, d), dev)
-    if int8:
-        scale = scale.reshape(v)
-        check_tensor(scale, "scale", torch.float32, (v,), dev)
-    x2 = x.to(torch.bfloat16).reshape(m, d)
-    if x2.stride(1) != 1:
-        x2 = x2.contiguous()
-    out = torch.empty(m, v, dtype=torch.float32, device=dev)
-    fn = _build.function("dense_gemv", "dense_gemv", _ARGS)
-    rc = fn(x2.data_ptr(), x2.stride(0), w.data_ptr(),
-            scale.data_ptr() if int8 else None, out.data_ptr(), m, d, v,
-            rows_per_pass(m, d, int8), stream_ptr())
-    _build.check(rc, "dense_gemv", "dense_gemv")
-    count("dense_gemv", f"{'int8' if int8 else 'bf16'}/m{m}/{v}x{d}")
+    out = _launch(x.to(torch.bfloat16).reshape(m, d), w, scale)
+    fmt = "int8" if scale is not None else "bf16"
+    count("dense_gemv", f"{fmt}/m{m}/{v}x{d}")
     return out.reshape(*lead, v)

@@ -158,15 +158,29 @@ def test_int4_matmul_matches_plain(gen, m):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("m", [1, 5, 9])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 16, 128, 200])
 def test_dense_gemv_matches_plain(gen, int8, m):
+    """The tile kernel at every m: a 1000-row head (a ragged last tile of
+    104 vocab rows), 5, 9 and 200 rows of x (ragged column tiles; 200
+    takes two), d = 256 (four K stages)."""
     w = (_randn(gen, 1000, 256, dtype=torch.float32) * 0.05).bfloat16()
     args = (quantize_dense_int8(w).w8, quantize_dense_int8(w).scale) \
         if int8 else (w,)
     x = _randn(gen, m, 256)
+    want = dense_gemv(x, *args, plain=True)
     # operands widen exactly to f32; only the order of f32 sums differs
-    _close(dense_gemv(x, *args), dense_gemv(x, *args, plain=True),
-           rtol=1e-3, atol=1e-4)
+    _close(dense_gemv(x, *args), want, rtol=1e-3, atol=1e-4)
+
+
+def test_dense_gemv_counts_one_launch_per_call(gen):
+    """The 128-row head (a prefill block, perplexity), decode's one row
+    and the serving step's 8 each launch the tile kernel once."""
+    w = _randn(gen, 1000, 256)
+    reset_launches()
+    for m in (128, 1, 8):
+        dense_gemv(_randn(gen, m, 256), w)
+    assert VARIANT_LAUNCHES == {f"dense_gemv/bf16/m{m}/1000x256": 1
+                                for m in (128, 1, 8)}
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -351,21 +365,30 @@ def test_batched_attention_splits_match_plain(gen, early_exit, quant, H,
 
 def test_split_kernels_refuse_a_misaligned_cache(gen):
     """The kernels read the cache as 16-byte vectors: a contiguous cache
-    that starts off a 16-byte boundary raises before any launch."""
+    that starts off a 16-byte boundary raises before any launch, mono_layer's
+    cooperative one included."""
+    from llama_cu_awq_torch.experiments.int4_chain import mono_layer
+
     B, S, n_kv, H, D = 1, 64, 2, 4, 128
     n = B * S * n_kv * D
     k = _randn(gen, n + 8)[7:n + 7].view(B, S, n_kv, D)
     v = _randn(gen, B, S, n_kv, D)
     pos = torch.tensor([5], dtype=torch.int32, device="cuda")
     cos2, sinm = rope_rows(pos, D, 10000.0)
+    qkv = _randn(gen, B, (H + 2 * n_kv) * D)
+    ws, nw, kw, _, x = _chain_case(gen, B, H * D, 256, 384,
+                                   (H + 2 * n_kv) * D)
     reset_launches()
     with pytest.raises(ValueError, match="aligned"):
-        attention_step(_randn(gen, B, (H + 2 * n_kv) * D), k, v, pos, cos2,
-                       sinm, n_heads=H)
+        attention_step(qkv, k, v, pos, cos2, sinm, n_heads=H)
     with pytest.raises(ValueError, match="aligned"):
         batched_decode_attention(_randn(gen, B, H, D), k, v, pos)
+    with pytest.raises(ValueError, match="aligned"):
+        mono_layer(qkv, x, nw, *ws, k, v, pos, cos2, sinm, n_heads=H,
+                   eps=1e-5, **kw)
     assert LAUNCHES["attention_step"] == 0
     assert LAUNCHES["batched_decode_attention"] == 0
+    assert LAUNCHES["mono_layer"] == 0
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -683,20 +706,23 @@ def test_ffn_chain_matches_plain_and_gemv_sequence(gen, m, has_qkv):
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("B", [1, 3, 8, 11])
 def test_mono_layer_matches_plain_and_launch_sequence(gen, B, quant):
-    """The whole layer in one launch against its plain version, and
-    against the launch sequence: attention_step's new rows and scales bit
-    for bit (the same phase 1), and the GEMV launches of the chain over
-    the attention rows walked unsplit as mono walks them, rounded to bf16,
-    to the chain bar; GQA 4/2 over a 200-row cache (positions from 0 up,
-    a window of 160 rows), bf16 and int8."""
+    """The whole layer in one launch against its plain version (the chain
+    bar; new rows and scales bit for bit) and bit for bit against the
+    launch sequence it replaces (attention_step's split kernel, then the
+    GEMV launches of the chain over its rows rounded to bf16), whose
+    attention rows agree with the unsplit walk to bf16 rounding of p (the
+    int4 bar; through the chain a one-ulp flip of an attention row grows
+    past the chain bar: 22 of 3072 qkv values at B=3); GQA 4/2 over a
+    420-row cache (positions from 0 up, a window of 400 rows: up to 4
+    splits), bf16 and int8."""
     from llama_cu_awq_torch.experiments.int4_chain import mono_layer
 
-    H, n_kv, D, S, win = 4, 2, 128, 200, 160
+    H, n_kv, D, S, win = 4, 2, 128, 420, 400
     ws, nw, kw, _, x = _chain_case(gen, B, H * D, 256, 384,
                                    (H + 2 * n_kv) * D)
     qkv = _randn(gen, B, (H + 2 * n_kv) * D)
-    pos = torch.tensor([(0, 150, 199, 37, 64, 128, 159, 1, 100, 63,
-                         65)[b] for b in range(B)], dtype=torch.int32,
+    pos = torch.tensor([(0, 350, 419, 37, 264, 128, 259, 1, 300, 63,
+                         385)[b] for b in range(B)], dtype=torch.int32,
                        device="cuda")
     cos2, sinm = rope_rows(pos, D, 10000.0)
     if quant:
@@ -717,27 +743,27 @@ def test_mono_layer_matches_plain_and_launch_sequence(gen, B, quant):
                      **kw)
     window = [t[:, :win].contiguous() if t is not None else None
               for t in (kc, vc, ks, vs)]
-    _, kn, vn, ksn, vsn = attention_step(qkv, window[0], window[1], pos,
-                                         cos2, sinm, *window[2:], n_heads=H)
-    # the attention rows walked unsplit, as mono's stage walks them (the
-    # split attention_step rounds p against other maxima)
-    attn = attention_step_plain(qkv, window[0], window[1], pos, cos2, sinm,
-                                *window[2:], n_heads=H, split=False)[0]
+    attn, kn, vn, ksn, vsn = attention_step(qkv, window[0], window[1], pos,
+                                            cos2, sinm, *window[2:],
+                                            n_heads=H)
     seq = _gemv_sequence(attn.reshape(B, H * D).bfloat16(), x, nw, *ws,
                          **kw)
+    unsplit = attention_step_plain(qkv, window[0], window[1], pos, cos2,
+                                   sinm, *window[2:], n_heads=H,
+                                   split=False)[0]
     torch.cuda.synchronize()
+    _close(attn, unsplit, **INT4)
     want = seq[:2] + (kn, vn, ksn, vsn) + seq[2:]
     assert len(got) == len(ref) == len(want) == 7
     for i, (a, b, c) in enumerate(zip(got, ref, want)):
         if c is None:
             assert a is None and b is None
             continue
+        assert torch.equal(a, c.reshape(a.shape)), i
         if i in (2, 3, 4, 5):  # new rows and scales: same IEEE arithmetic
             assert torch.equal(a, b)
-            assert torch.equal(a, c.reshape(a.shape))
         else:
             _chain_close(a, b)
-            _chain_close(a, c.reshape(a.shape))
 
 
 def test_cooperative_kernels_raise_where_not_co_resident(gen, monkeypatch):
@@ -786,12 +812,9 @@ def test_cooperative_kernels_raise_where_not_co_resident(gen, monkeypatch):
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_decode_step_on_card_equals_forward(gen, quantized):
-    """Whole decode steps composed through ffn_chain give
-    forward(attn_impl="fused_step")'s logits and cache bit for bit on the
-    card, at B=2, launching their kernels once a layer; through mono_layer
-    (attention walked unsplit) the logits agree to the bar of two paths
-    that round differently (tests/test_fused_path.py:51-52) and every new
-    cache row of layer 0 is bit-equal."""
+    """Whole decode steps composed through ffn_chain and through
+    mono_layer give forward(attn_impl="fused_step")'s logits and cache bit
+    for bit on the card, at B=2, launching their kernels once a layer."""
     from llama_cu_awq_torch.experiments import int4_chain
 
     cfg = ModelConfig(dim=256, hidden_dim=384, n_layers=2, n_heads=2,
@@ -811,19 +834,9 @@ def test_decode_step_on_card_equals_forward(gen, quantized):
                                             caches[impl], layer_impl=impl)
             kernel = "mono_layer" if impl == "mono" else "ffn_chain"
             assert LAUNCHES[kernel] == cfg.n_layers
-            if impl == "mono":
-                torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
-            else:
-                assert torch.equal(got, want), impl
+            assert torch.equal(got, want), impl
     for impl in int4_chain.LAYER_IMPLS:
         c, r = caches[impl], caches["forward"]
-        for i, (a, b) in enumerate(zip(c.k + c.v + c.k_scale + c.v_scale,
-                                       r.k + r.v + r.k_scale + r.v_scale)):
-            if impl != "mono" or i % cfg.n_layers == 0:  # layer 0's rows
-                assert torch.equal(a, b)
-            elif a.dtype == torch.int8:  # codes: at most one apart
-                torch.testing.assert_close(a.float(), b.float(), rtol=0,
-                                           atol=1)
-            else:  # bf16 rows and the scales
-                torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
-                                           atol=2e-2)
+        for a, b in zip(c.k + c.v + c.k_scale + c.v_scale,
+                        r.k + r.v + r.k_scale + r.v_scale):
+            assert torch.equal(a, b), impl

@@ -128,8 +128,7 @@ def test_batched_split_matches_pallas_interpret(rng, early_exit, quantized,
 @pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
 def test_attention_step_slot_alone_equals_batch(rng, fmt):
     """Each slot of a mixed batch gives the same bits alone, and the split
-    walk agrees with the unsplit one (mono_layer's) to bf16 rounding of
-    p."""
+    walk agrees with the unsplit one to bf16 rounding of p."""
     p = np.array(POSITIONS["mixed"], np.int32)
     B, H, n_kv = len(p), 8, 2
     _, qkv = _bf16(rng.standard_normal((B, (H + 2 * n_kv) * D),

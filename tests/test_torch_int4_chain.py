@@ -261,11 +261,11 @@ def test_mono_layer_plain_matches_jax(rng, quantized, has_qkv):
                                       np.asarray(w_, np.float32))
 
     # and the port's own two-launch sequence: bit for bit where attention
-    # walks the window unsplit, as mono's kernel does; against the split
-    # attention_step (the port's launch) the new rows are bit-equal and the
-    # rest agree to the JAX bars above
+    # walks the window's splits, as attention_step and mono's kernel do;
+    # against the unsplit walk the new rows are bit-equal and the rest
+    # agree to the JAX bars above
     kw = dict(wqkv_next=tw[3], attn_norm_next=nw2[1]) if has_qkv else {}
-    for split in (False, True):
+    for split in (True, False):
         attn, kn, vn, ksn, vsn = t_attention_step_plain(
             qkv[1], kc[1], vc[1], pos[1], cos2[1], sinm[1], ks[1], vs[1],
             n_heads=H, split=split)
@@ -275,7 +275,7 @@ def test_mono_layer_plain_matches_jax(rng, quantized, has_qkv):
         for i, (a, b) in enumerate(zip(got, seq)):
             if a is None or b is None:
                 assert a is None and b is None
-            elif not split or i in (2, 3, 4, 5):
+            elif split or i in (2, 3, 4, 5):
                 assert torch.equal(a, b)
             else:
                 _close(a, b.float().numpy(),

@@ -19,6 +19,7 @@ from llama_cu_awq_torch.ops.cuda import LAUNCHES, VARIANT_LAUNCHES
 from llama_cu_awq_torch.ops.cuda.attention_step import (
     attention_step as t_attention_step)
 from llama_cu_awq_torch.ops.cuda.attention_step import rope_rows as t_rope_rows
+from llama_cu_awq_torch.ops.cuda import dense_gemv as t_dense_gemv_mod
 from llama_cu_awq_torch.ops.cuda.int4_matmul import int4_matmul
 from llama_cu_awq_torch.ops.linear import dense_matmul as t_dense_matmul
 from llama_cu_awq_torch.ops.linear import qmatmul as t_qmatmul
@@ -36,6 +37,7 @@ from llama_cu_awq_tpu.ops.norms import rmsnorm as j_rmsnorm
 from llama_cu_awq_tpu.ops.pallas.attention_step import (
     attention_step as j_attention_step)
 from llama_cu_awq_tpu.ops.pallas.attention_step import rope_rows as j_rope_rows
+from llama_cu_awq_tpu.ops.pallas.dense_gemv import dense_gemv as j_dense_gemv
 from llama_cu_awq_tpu.ops.pallas.int4_matmul import (int4_matmul_fused as
                                                      j_int4_matmul_fused)
 from llama_cu_awq_tpu.ops.rope import apply_rope as j_apply_rope
@@ -185,21 +187,46 @@ def test_int4_matmul_plain_matches_pallas_interpret(rng):
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-3)
 
 
+@pytest.mark.parametrize("m", [2, 128])
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
-def test_dense_matmul_plain_matches_jax(rng, kind):
-    w = rng.standard_normal((320, 128), dtype=np.float32) * 0.05
+def test_dense_matmul_plain_matches_jax(rng, kind, m):
+    """Against the JAX dequant path and the JAX dense_gemv kernel in
+    interpret mode (its vocab tiles need v a multiple of 128: 384); m = 2
+    is a decode step's few rows, m = 128 a prefill block's, the port's
+    tile kernel's route."""
+    w = rng.standard_normal((384, 128), dtype=np.float32) * 0.05
     jw, tw = _bf16(w)
-    jx, tx = _bf16(rng.standard_normal((2, 128), dtype=np.float32))
+    jx, tx = _bf16(rng.standard_normal((m, 128), dtype=np.float32))
     if kind == "int8":
         jw, tw = j_q8(jw), t_q8(tw)
         # the same codes and scales: round half to even in both
         assert np.array_equal(np.asarray(jw.w8), tw.w8.numpy())
         assert np.array_equal(np.asarray(jw.scale), tw.scale.numpy())
         assert isinstance(tw, TInt8Dense)
+        kernel = j_dense_gemv(jx, jw.w8, jw.scale.reshape(1, -1),
+                              interpret=True)
+    else:
+        kernel = j_dense_gemv(jx, jw, interpret=True)
     got = _np(t_dense_matmul(tx, tw))
-    want = _np(j_dense_matmul(jx, jw, "dequant"))
     # operands widen exactly to f32; only the order of f32 sums differs
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    for want in (j_dense_matmul(jx, jw, "dequant"), kernel):
+        np.testing.assert_allclose(got, _np(want), rtol=1e-5, atol=1e-6)
+
+
+def test_dense_gemv_route_and_tiles():
+    """The tile kernel's widths and ragged-edge grid, as the wrapper
+    computes them for the C launcher (which checks them)."""
+    mod = t_dense_gemv_mod
+    assert [mod.gemm_n_tile(m) for m in (1, 16, 17, 32, 33, 64, 65, 128,
+                                         129, 200, 4096)] == [
+        16, 16, 32, 32, 64, 64, 128, 128, 128, 128, 128]
+    # 7B's head at a block: 250 vocab tiles, one column tile
+    assert mod.gemm_grid(128, 32000) == (250, 1)
+    # a 1000-row head: 7 full tiles and one of 104 rows; 200 rows of x:
+    # a full column tile and one of 72 rows; 9 rows: one tile of 16
+    assert mod.gemm_grid(200, 1000) == (8, 2)
+    assert mod.gemm_grid(9, 1000) == (8, 1) and mod.gemm_n_tile(9) == 16
+    assert mod.gemm_grid(1, 1) == (1, 1)
 
 
 def test_quantize_kv_bit_equal(rng):
