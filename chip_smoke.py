@@ -16,7 +16,10 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      the GEMV-against-GEMM sweep over m that sets GEMM_MIN_M; the lm_head
      (the tile kernel dense_gemm.cu) at m=1, m=8 (the serving step) and
      m=128 (a prefill block), bf16 and int8; decode attention (the split
-     kernels) at position 1500 and at B=8 over positions 960-1100;
+     kernels) at position 1500 and at B=8 over positions 960-1100; the
+     w4 GEMV at m=1 and m=8 (the serving step), and each row of an m=8
+     call of the GEMV, down_qkv and ffn_chain held bit for bit to the
+     m=1 call on that row;
   4. end to end: synthetic 7B w4-g128 weights on the card, 256 greedy
      decode steps through InferenceEngine.generate_benchmark, then short
      runs through the options that reach the other kernels (fused_step
@@ -281,14 +284,16 @@ def kernel_phase(torch, timer, rows):
         return torch.randn(*shape, device="cuda", generator=g).to(dtype)
 
     # --- int4_matmul_fused, the four projections of a 7B layer, at a
-    # decode step (m=1, the GEMV) and a prefill block (m=128, the GEMM) ---
+    # decode step (m=1, the GEMV), a serving step of 8 slots (m=8, the
+    # GEMV) and a prefill block (m=128, the GEMM) ---
     cases = [
         ("qkv_prescale", dim, 3 * dim, "prescale"),
         ("o_residual_ss", dim, dim, "residual"),
         ("gate_up_prescale", dim, 2 * hid, "prescale"),
         ("down_silu_residual_ss", hid, dim, "silu"),
     ]
-    for m, prefix, path in ((1, "", "main"), (128, "gemm_", "prefill")):
+    for m, prefix, path in ((1, "", "main"), (8, "m8_", "batch_engine"),
+                            (128, "gemm_", "prefill")):
         for tag, n_in, n_out, kind in cases:
             tag = prefix + tag
             qt = random_qtensor(torch, QTensor, n_in, n_out, g)
@@ -327,6 +332,8 @@ def kernel_phase(torch, timer, rows):
                                                          **kw)),
                 bound_ms=b, bound_by=src,
                 library_ms=timer(int4pack_library(torch, qt, x))))
+
+    row_independence(torch, g)
 
     # --- int4_matmul: the w4 lm_head at m=1, 16- and 128-row blocks on
     # qkv (no 7B run launches int4_matmul at the qkv shape: the forward
@@ -460,6 +467,80 @@ def kernel_phase(torch, timer, rows):
                               "max_abs_err", "rtol", "atol", "plain_ms",
                               "library_ms", "bound_ms", "bound_by")}}),
               flush=True)
+
+
+def row_independence(torch, g):
+    """Each row of an m=8 call bit for bit against the m=1 call on that
+    row alone, at 7B shapes: int4_matmul_fused on the four projections,
+    down_qkv and ffn_chain (with the next qkv). The tile's sums depend on
+    n_in alone (int4_gemv.cuh), so a row gives the same bits in whatever
+    batch it is in; a BatchEngine slot's stream equals the single
+    sequence's only because of it. Raises on a difference."""
+    from llama_cu_awq_torch.experiments.int4_chain import ffn_chain
+    from llama_cu_awq_torch.ops.cuda.down_qkv import down_qkv_fused
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import int4_matmul_fused
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    dim, hid, m = 4096, 11008, 8
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).bfloat16()
+
+    def check(name, fn):
+        """fn(rows) runs the kernel on those rows of this case's inputs."""
+        full = fn(slice(0, m))
+        diff, equal = 0.0, True
+        for i in range(m):
+            for a, b in zip(full, fn(slice(i, i + 1))):
+                if a is None:
+                    continue
+                a_i = a.reshape(m, -1)[i]
+                diff = max(diff, float((a_i.float() - b.float().reshape(-1))
+                                       .abs().max()))
+                equal = equal and torch_equal(a_i, b)
+        torch.cuda.synchronize()
+        print(json.dumps({"check": f"row_independence/{name}", "rows": m,
+                          "bit_equal": equal, "max_abs_err": diff,
+                          "why": "every row of an m=8 call against the m=1 "
+                                 "call on that row: the tile's sums depend "
+                                 "on n_in alone (int4_gemv.cuh)"}),
+              flush=True)
+        if not equal:
+            raise AssertionError(f"row_independence/{name}: a row of the "
+                                 f"m={m} call differs from the m=1 call "
+                                 f"(max abs err {diff})")
+
+    for tag, n_in, n_out, kind in (
+            ("qkv_prescale", dim, 3 * dim, "prescale"),
+            ("o_residual_ss", dim, dim, "residual"),
+            ("gate_up_prescale", dim, 2 * hid, "prescale"),
+            ("down_silu_residual_ss", hid, dim, "silu")):
+        qt = random_qtensor(torch, QTensor, n_in, n_out, g)
+        x, res, u = randn(m, n_in), randn(m, n_out), randn(m, n_in)
+        ss = torch.rand(m, 1, device="cuda", generator=g) + 0.5
+        nw = torch.rand(n_in, device="cuda", generator=g) + 0.5
+
+        def fused(r, qt=qt, x=x, res=res, u=u, ss=ss, nw=nw, kind=kind):
+            if kind == "prescale":
+                return int4_matmul_fused(x[r], qt, prescale=(ss[r], nw))
+            return int4_matmul_fused(
+                x[r], qt, residual=res[r], emit_ss_eps=1e-5,
+                silu_u=u[r] if kind == "silu" else None)
+
+        check(f"int4_matmul_fused/{tag}", fused)
+    wd = random_qtensor(torch, QTensor, hid, dim, g)
+    wq = random_qtensor(torch, QTensor, dim, 3 * dim, g)
+    wo = random_qtensor(torch, QTensor, dim, dim, g)
+    wgu = random_qtensor(torch, QTensor, dim, 2 * hid, g)
+    nw = torch.rand(dim, device="cuda", generator=g) + 0.5
+    gate, up = randn(m, 2 * hid).chunk(2, dim=-1)
+    attn, res = randn(m, dim), randn(m, dim)
+    check("down_qkv", lambda r: down_qkv_fused(
+        gate[r], up[r], res[r], wd, wq, nw, eps=1e-5,
+        out_dtype=torch.bfloat16))
+    check("ffn_chain", lambda r: ffn_chain(
+        attn[r], res[r], nw, wo, wgu, wd, eps=1e-5, wqkv_next=wq,
+        attn_norm_next=nw))
 
 
 B8_POSITIONS = (1024, 1000, 1100, 990, 1050, 1020, 1075, 960)
@@ -710,7 +791,7 @@ def gemm_crossover(torch, timer, g):
 
     qt = random_qtensor(torch, QTensor, 4096, 3 * 4096, g)
     sweep = []
-    for m in (1, 2, 4, 8, 12, 16, 24, 32, 64, 128):
+    for m in (1, 2, 4, 8, 12, 16, 24, 32, 48, 64, 80, 96, 128):
         x = torch.randn(m, 4096, device="cuda", generator=g).bfloat16()
         gemv = _launch(x, qt, out_dtype=torch.float32, kernel="gemv")[0]
         gemm = _launch(x, qt, out_dtype=torch.float32, kernel="gemm")[0]

@@ -28,14 +28,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Shared-memory layout of a staged activation row: every 32-element chunk
-// (one lane's 16-byte weight vector covers 32 int4 rows) is followed by 2
-// pad elements, so the 32 lanes of a warp, which read chunks 34 elements
-// (17 words) apart, hit 32 different banks.
-__device__ __forceinline__ int xs_index(int k) {
-  return (k >> 5) * 34 + (k & 31);
-}
-
 // D += A * B on the tensor cores, one warp: A 16x16 bf16 (row), B 16x8
 // bf16 (col), D 16x8 f32. Fragments as the PTX ISA lays them out for
 // mma.m16n8k16 (g = lane / 4, c = lane % 4):

@@ -8,6 +8,7 @@
 //               ss1 = 1 / sqrt(mean(x1^2) + eps)          (over bf16 x1)
 //     stage GU: gu  = bf16(bf16(x1 * ss1 * ffn_norm) @ W_gate_up)
 //     stage D:  out = bf16(bf16(silu(g) * u) @ W_down + x1)   g|u = gu
+//               (h = bf16(silu(g) * u) first, once for the launch)
 //               ss  = 1 / sqrt(mean(out^2) + eps)
 //     stage Q (optional): qkv = bf16(bf16(out * ss * attn_norm') @ W_qkv')
 //   mono_layer first runs attention_step's split decode attention
@@ -29,20 +30,35 @@
 //     needs the previous stage's whole row (and its rms scale). So this is
 //     one cooperative launch (cudaLaunchCooperativeKernel) of persistent
 //     blocks, as many as can be resident at once (occupancy times the SM
-//     count, at most one per 16 columns of the widest stage), which stride
-//     over each stage's output columns, with cooperative_groups' grid.sync()
-//     between the stages: down_qkv.cu's design, with two more stages.
-//   - Each column is the standalone GEMV's column (int4_gemv.cuh: one warp
-//     per column, a pass's rows staged once as bf16 in shared memory with
-//     the prologue applied) and each block computes the rms scale of a
-//     pass's rows itself with rms_scale's exact reduction. So ffn_chain's
-//     x_out, ss and qkv are bit-equal to the launch sequence of the
-//     standalone path:
+//     count, at most one per column tile of the widest stage), which
+//     stride over each stage's column tiles, with cooperative_groups'
+//     grid.sync() between the stages: down_qkv.cu's design, with two more
+//     stages.
+//   - Each stage is int4_gemv.cuh's tensor-core column tile (mma.sync
+//     m16n8k16: 16 weight columns in M, a pass's rows in N, raw codes in
+//     bf16, zero and scale per group in f32) over rows staged once per
+//     pass as bf16 in shared memory with the prologue applied, and each
+//     block computes the rms scale of a pass's rows itself with
+//     rms_scale's exact reduction. The tile's sums depend on n_in alone,
+//     never on the grid, m or the pass, so ffn_chain's x_out, ss and qkv
+//     are bit-equal to the launch sequence of the standalone path:
 //     int4_gemv (residual), rms_scale, int4_gemv (rmsnorm prologue),
 //     int4_gemv (SwiGLU + residual), rms_scale, int4_gemv (rmsnorm
-//     prologue). x1, gu and out go through global memory and are read back
-//     through L2 (__ldcg) after the barrier. Rows beyond MAX_ROWS take
-//     further passes over the weights, as the GEMV's do.
+//     prologue), and each row to the same launch on that row alone. x1,
+//     gu and out go through global memory and are read back through L2
+//     (__ldcg) after the barrier. Rows beyond MAX_ROWS take further passes
+//     over the weights, as the GEMV's do.
+//   - Staging bytes: every block stages each pass's rows at full width
+//     from L2, so a stage moves grid * mr * n_in * 2 bytes. Stage D's
+//     SwiGLU prologue is computed once, over the grid, into the gate half
+//     of gu (swiglu_rows) behind one more grid barrier, and stage D stages
+//     h: each block would otherwise read g and u and redo the exp. At 7B
+//     and m=8 stage D's rows are 8 x 11008 x 2 B = 176 KB a block and the
+//     others' 8 x 4096 x 2 B = 64 KB; with one block an SM (stage D's
+//     staged rows) the launch stages 132 x 368 KB = 49 MB from L2 against
+//     106 MB of weights from device memory. Each warp's first code loads
+//     are issued before a pass stages its rows, so they are in flight
+//     while it does.
 //   - mono_layer's attention stage walks attention_step's grid of items,
 //     (split, kv head, slot), over the persistent blocks: each block runs
 //     up to `groups` items at once, one on each group of D threads (its
@@ -63,15 +79,12 @@
 //     partials and arrival counters are attention_step's scratch
 //     (ops/cuda/attention_step.py split_scratch), sized by the wrapper.
 //   - No L2 prefetch of the next stage's weights before a barrier (for
-//     W_o behind mono's attention stage it measured slower on the H100),
-//     no tensor cores.
+//     W_o behind mono's attention stage it measured slower on the H100).
 //   - A launch that cannot be co-resident returns its error (as
 //     cudaFuncSetAttribute, the occupancy query or the cooperative launch
 //     report it); the wrapper raises. It never falls back.
 
 #include <cooperative_groups.h>
-
-#include <mutex>
 
 #include "attention_step.cuh"
 #include "decode_attention.cuh"
@@ -85,16 +98,8 @@ using attn_step::KV_BF16;
 using attn_step::KV_INT8;
 using attn_step::MAX_D;
 using w4gemv::MAX_ROWS;
+using w4gemv::W4;
 using w4gemv::WARPS;
-
-// one packed w4-g128 weight: qw (n_out, n_in/8) int32, s and z
-// (n_out, groups) fp16 and uint8
-struct W4 {
-  const uint4* qw;
-  const __half* s;
-  const uint8_t* z;
-  int n_in, n_out, groups;
-};
 
 struct ChainArgs {
   const __nv_bfloat16* attn;  // (m, wo.n_in)
@@ -142,49 +147,34 @@ __host__ __device__ inline int item_floats(int kv_mul, int D) {
   return decode_attn::smem_floats(kv_mul, D) + 2 * (MAX_D / 32) + 2 * MAX_D;
 }
 
-// The columns of weight w for the mr rows staged in xs: column col goes
-// to the warp of this block that grid-strides onto it.
-template <bool RES_L2>
-__device__ __forceinline__ void pass_columns(const W4& w,
-                                             const __nv_bfloat16* xs,
-                                             int r0, int mr,
-                                             const __nv_bfloat16* res,
-                                             __nv_bfloat16* out) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nvec = w.n_in >> 5;
-  for (int col = blockIdx.x * WARPS + warp; col < w.n_out;
-       col += gridDim.x * WARPS) {
-    float acc[MAX_ROWS];
-    w4gemv::column_partials(acc, xs, nvec * 34, w.qw, w.s, w.z, col, nvec,
-                            w.groups, mr, lane);
-    w4gemv::store_column<RES_L2>(acc, mr, lane, r0, col, w.n_out, res, out,
-                                 1);
-  }
-}
-
-// ss_rows[r] for rows r0..r0+mr-1 of x (m, n) bf16, written in this same
-// launch: rms_scale's reduction. Block 0 also stores them to ss_out.
-__device__ __forceinline__ void rms_rows(const __nv_bfloat16* x, int n,
-                                         int r0, int mr, float eps,
-                                         float* part, float* ss_rows,
-                                         float* ss_out) {
-  for (int r = 0; r < mr; ++r) {
-    const float s = w4gemv::rms_scale_row<true>(x + (size_t)(r0 + r) * n, 1,
-                                                n, eps, part);
-    if (threadIdx.x == 0) {
-      ss_rows[r] = s;
-      if (ss_out != nullptr && blockIdx.x == 0) ss_out[r0 + r] = s;
-    }
-  }
+// The rmsnorm-apply prologue of rows r0..r0+mr-1 of x (m, n) bf16,
+// written in this same launch: the rows copied to shared memory behind the
+// staged rows, ss_rows[r] from the copy (rms_scale's reduction; block 0
+// also stores them to ss_out), then the copy staged with nw.
+__device__ __forceinline__ void rms_stage(__nv_bfloat16* xs,
+                                          const __nv_bfloat16* x, int n,
+                                          const float* nw, int r0, int mr,
+                                          float eps, float* part,
+                                          float* ss_rows, float* ss_out) {
+  __nv_bfloat16* raw = xs + w4gemv::raw_offset(mr, n) / 2;
+  w4gemv::copy_rows(raw, x, n, r0, mr, n);
+  __syncthreads();
+  w4gemv::rms_scale_rows<false>(raw, 1, n, mr, n, eps, part, ss_rows);
+  if (ss_out != nullptr && blockIdx.x == 0 && threadIdx.x < mr)
+    ss_out[r0 + threadIdx.x] = ss_rows[threadIdx.x];
+  w4gemv::stage_rows<1, false>(xs, raw, n, nullptr, 0, ss_rows, nw, 0, mr,
+                               n);
 }
 
 // Stages O, GU, D and (with a next layer) Q, a grid barrier after each but
-// the last. ATTN_L2: attn was written in this launch (mono_layer).
+// the last. ATTN_L2: attn was written in this launch (mono_layer). Each
+// pass issues its warps' first code loads (prefetch) before it stages its
+// rows (held across a grid barrier, they cost the chain spilled registers
+// and time on the H100); red: the tiles' partial sums.
 template <bool ATTN_L2>
 __device__ __forceinline__ void chain_stages(const ChainArgs& a,
-                                             __nv_bfloat16* xs, float* part,
-                                             float* ss_rows) {
+                                             __nv_bfloat16* xs, float* red,
+                                             float* part, float* ss_rows) {
   cg::grid_group grid = cg::this_grid();
   const int dim = a.wo.n_out;
   const int hid = a.wd.n_in;
@@ -192,65 +182,71 @@ __device__ __forceinline__ void chain_stages(const ChainArgs& a,
   // ---- stage O: x1 = bf16(attn @ W_o + x_res) ----
   for (int r0 = 0; r0 < a.m; r0 += a.rpp_o) {
     const int mr = min(a.rpp_o, a.m - r0);
+    const w4gemv::TileLoads pre = w4gemv::prefetch(a.wo);
     __syncthreads();  // the previous pass has finished reading xs
     w4gemv::stage_rows<0, ATTN_L2>(xs, a.attn, a.wo.n_in, nullptr, 0,
                                    nullptr, nullptr, r0, mr, a.wo.n_in);
     __syncthreads();
-    pass_columns<false>(a.wo, xs, r0, mr, a.res, a.x1);
+    w4gemv::tile_pass<false>(a.wo, pre, xs, r0, mr, a.res, a.x1, 1, red);
   }
   grid.sync();
 
   // ---- stage GU: gu = bf16(bf16(x1 * ss1 * ffn_norm) @ W_gate_up) ----
   for (int r0 = 0; r0 < a.m; r0 += a.rpp_gu) {
     const int mr = min(a.rpp_gu, a.m - r0);
+    const w4gemv::TileLoads pre = w4gemv::prefetch(a.wgu);
     __syncthreads();
-    rms_rows(a.x1, dim, r0, mr, a.eps, part, ss_rows, nullptr);
+    rms_stage(xs, a.x1, dim, a.ffn_norm, r0, mr, a.eps, part, ss_rows,
+              nullptr);
     __syncthreads();
-    w4gemv::stage_rows<1, true>(xs, a.x1, dim, nullptr, 0, ss_rows,
-                                a.ffn_norm, r0, mr, dim);
-    __syncthreads();
-    pass_columns<false>(a.wgu, xs, r0, mr, nullptr, a.gu);
+    w4gemv::tile_pass<false>(a.wgu, pre, xs, r0, mr, nullptr, a.gu, 1,
+                             red);
   }
   grid.sync();
 
-  // ---- stage D: out = bf16(bf16(silu(g) * u) @ W_down + x1) ----
+  // ---- h = bf16(silu(g) * u), over the gate half of gu in place ----
+  w4gemv::swiglu_rows<true>(a.gu, 2 * hid, a.gu + hid, 2 * hid, a.gu,
+                            2 * hid, a.m, hid);
+  grid.sync();
+
+  // ---- stage D: out = bf16(h @ W_down + x1) ----
   for (int r0 = 0; r0 < a.m; r0 += a.rpp_d) {
     const int mr = min(a.rpp_d, a.m - r0);
+    const w4gemv::TileLoads pre = w4gemv::prefetch(a.wd);
     __syncthreads();
-    w4gemv::stage_rows<2, true>(xs, a.gu, 2 * hid, a.gu + hid, 2 * hid,
-                                nullptr, nullptr, r0, mr, hid);
+    w4gemv::stage_rows<0, true>(xs, a.gu, 2 * hid, nullptr, 0, nullptr,
+                                nullptr, r0, mr, hid);
     __syncthreads();
-    pass_columns<true>(a.wd, xs, r0, mr, a.x1, a.out);
+    w4gemv::tile_pass<true>(a.wd, pre, xs, r0, mr, a.x1, a.out, 1, red);
   }
   grid.sync();
 
   if (a.qkv == nullptr) {
     // ---- ss of out, one row per block ----
-    for (int r = blockIdx.x; r < a.m; r += gridDim.x) {
-      const float s = w4gemv::rms_scale_row<true>(a.out + (size_t)r * dim, 1,
-                                                  dim, a.eps, part);
-      if (threadIdx.x == 0) a.ss[r] = s;
-    }
+    for (int r = blockIdx.x; r < a.m; r += gridDim.x)
+      w4gemv::rms_scale_rows<true>(a.out + (size_t)r * dim, 1, dim, 1, dim,
+                                   a.eps, part, a.ss + r);
     return;
   }
   // ---- stage Q: qkv = bf16(bf16(out * ss * attn_norm') @ W_qkv') ----
   for (int r0 = 0; r0 < a.m; r0 += a.rpp_q) {
     const int mr = min(a.rpp_q, a.m - r0);
+    const w4gemv::TileLoads pre = w4gemv::prefetch(a.wq);
     __syncthreads();
-    rms_rows(a.out, dim, r0, mr, a.eps, part, ss_rows, a.ss);
+    rms_stage(xs, a.out, dim, a.attn_norm, r0, mr, a.eps, part, ss_rows,
+              a.ss);
     __syncthreads();
-    w4gemv::stage_rows<1, true>(xs, a.out, dim, nullptr, 0, ss_rows,
-                                a.attn_norm, r0, mr, dim);
-    __syncthreads();
-    pass_columns<false>(a.wq, xs, r0, mr, nullptr, a.qkv);
+    w4gemv::tile_pass<false>(a.wq, pre, xs, r0, mr, nullptr, a.qkv, 1,
+                             red);
   }
 }
 
 __global__ void __launch_bounds__(WARPS * 32) ffn_chain_kernel(ChainArgs a) {
   extern __shared__ __align__(16) __nv_bfloat16 xs[];
-  __shared__ float part[w4gemv::RMS_THREADS / 32];
+  __shared__ float red[2 * w4gemv::RED_FLOATS];
+  __shared__ float part[w4gemv::RMS_PART];
   __shared__ float ss_rows[MAX_ROWS];
-  chain_stages<false>(a, xs, part, ss_rows);
+  chain_stages<false>(a, xs, red, part, ss_rows);
 }
 
 // mono_layer's attention stage: attention_step's (split, kv head, slot)
@@ -290,75 +286,17 @@ template <int KV, int KVM>
 __global__ void __launch_bounds__(WARPS * 32)
 mono_layer_kernel(AttnArgs t, ChainArgs a) {
   extern __shared__ __align__(16) __nv_bfloat16 xs[];
-  __shared__ float part[w4gemv::RMS_THREADS / 32];
+  __shared__ float red[2 * w4gemv::RED_FLOATS];
+  __shared__ float part[w4gemv::RMS_PART];
   __shared__ float ss_rows[MAX_ROWS];
   attention_stage<KV, KVM>(t, reinterpret_cast<float*>(xs));
   cg::this_grid().sync();  // every attention row is written
-  chain_stages<true>(a, xs, part, ss_rows);
+  chain_stages<true>(a, xs, red, part, ss_rows);
 }
 
-// What a launch needs to know of its device, read once per device (SM
-// count, cooperative support) and once per kernel and shared-memory size
-// (the attribute, occupancy): the queries cost host time on every layer of
-// a host-bound decode step.
-struct LaunchInfo {
-  int sms = 0;
-  int coop = 0;
-  size_t smem_attr = 0;  // the largest size the kernel's attribute allows
-  size_t occ_smem = 0;   // the size per_sm was computed for
-  int per_sm = 0;
-};
-constexpr int MAX_DEVICES = 64;
 // ffn_chain, then mono_layer for bf16 and int8 KV at KVM 1 and MAX_KV_MUL
 constexpr int N_KERNELS = 5;
-LaunchInfo launch_info[N_KERNELS][MAX_DEVICES];
-bool launch_info_read[N_KERNELS][MAX_DEVICES] = {};
-std::mutex launch_info_mu;
-
-// Resident blocks per SM times the SM count for a launch of `kernel` (slot
-// `which` of launch_info) with `smem` bytes of dynamic shared memory on the
-// current device, or an error.
-cudaError_t resident_blocks(const void* kernel, int which, size_t smem,
-                            int* blocks) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(launch_info_mu);
-  LaunchInfo& li = launch_info[which][dev];
-  if (!launch_info_read[which][dev]) {
-    e = cudaDeviceGetAttribute(&li.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&li.coop, cudaDevAttrCooperativeLaunch, dev);
-    if (e != cudaSuccess) return e;
-    launch_info_read[which][dev] = true;
-  }
-  if (!li.coop) return cudaErrorNotSupported;
-  if (smem > li.smem_attr) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    li.smem_attr = smem;
-  }
-  if (smem != li.occ_smem || li.per_sm == 0) {
-    int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      WARPS * 32, smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-    li.per_sm = per_sm;
-    li.occ_smem = smem;
-  }
-  *blocks = li.per_sm * li.sms;
-  return cudaSuccess;
-}
-
-W4 make_w4(const void* qw, const void* s, const void* z, int n_in,
-           int n_out) {
-  return W4{static_cast<const uint4*>(qw), static_cast<const __half*>(s),
-            static_cast<const uint8_t*>(z), n_in, n_out, (n_in + 127) / 128};
-}
+w4gemv::Residency<N_KERNELS> residency;
 
 bool rpp_ok(int rpp) { return rpp >= 1 && rpp <= MAX_ROWS; }
 
@@ -370,28 +308,32 @@ cudaError_t chain_launch_shape(const ChainArgs& a, const void* kernel,
   const int dim = a.wo.n_out;
   const int hid = a.wd.n_in;
   if (a.wo.n_in % 32 != 0 || dim % 32 != 0 || hid % 32 != 0 || a.m < 1 ||
+      reinterpret_cast<uintptr_t>(a.attn) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.ffn_norm) % 16 != 0 ||
+      (a.qkv != nullptr &&
+       reinterpret_cast<uintptr_t>(a.attn_norm) % 16 != 0) ||
       a.wgu.n_in != dim || a.wgu.n_out != 2 * hid || a.wd.n_out != dim ||
       !rpp_ok(a.rpp_o) || !rpp_ok(a.rpp_gu) || !rpp_ok(a.rpp_d) ||
       (a.qkv != nullptr && (a.wq.n_in != dim || !rpp_ok(a.rpp_q) ||
                             a.attn_norm == nullptr)))
     return cudaErrorInvalidValue;
   size_t need = min_smem;
-  auto grow = [&need](int rpp, int n_in) {
-    const size_t b = w4gemv::staged_bytes(rpp, n_in);
+  auto grow = [&need](size_t b) {
     if (b > need) need = b;
   };
-  grow(a.rpp_o, a.wo.n_in);
-  grow(a.rpp_gu, dim);
-  grow(a.rpp_d, hid);
+  grow(w4gemv::staged_bytes(a.rpp_o, a.wo.n_in));
+  grow(w4gemv::staged_raw_bytes(a.rpp_gu, dim));
+  grow(w4gemv::staged_bytes(a.rpp_d, hid));
   int cols = a.wgu.n_out;
   if (a.wo.n_out > cols) cols = a.wo.n_out;
   if (a.qkv != nullptr) {
-    grow(a.rpp_q, dim);
+    grow(w4gemv::staged_raw_bytes(a.rpp_q, dim));
     if (a.wq.n_out > cols) cols = a.wq.n_out;
   }
-  cudaError_t e = resident_blocks(kernel, which, need, grid);
+  cudaError_t e = residency.blocks(kernel, which, need, true, grid);
   if (e != cudaSuccess) return e;
-  if (*grid > (cols + WARPS - 1) / WARPS) *grid = (cols + WARPS - 1) / WARPS;
+  const int tiles = (cols + w4gemv::TILE_N - 1) / w4gemv::TILE_N;
+  if (*grid > tiles) *grid = tiles;
   *smem = need;
   return cudaSuccess;
 }
@@ -410,10 +352,10 @@ ChainArgs make_chain(const void* attn, const void* res, const void* ffn_norm,
   a.res = static_cast<const __nv_bfloat16*>(res);
   a.ffn_norm = static_cast<const float*>(ffn_norm);
   a.attn_norm = static_cast<const float*>(attn_norm);
-  a.wo = make_w4(qw_o, s_o, z_o, n_o, dim);
-  a.wgu = make_w4(qw_gu, s_gu, z_gu, dim, 2 * hid);
-  a.wd = make_w4(qw_d, s_d, z_d, hid, dim);
-  a.wq = make_w4(qw_q, s_q, z_q, dim, n_q);
+  a.wo = w4gemv::make_w4(qw_o, s_o, z_o, n_o, dim);
+  a.wgu = w4gemv::make_w4(qw_gu, s_gu, z_gu, dim, 2 * hid);
+  a.wd = w4gemv::make_w4(qw_d, s_d, z_d, hid, dim);
+  a.wq = w4gemv::make_w4(qw_q, s_q, z_q, dim, n_q);
   a.x1 = static_cast<__nv_bfloat16*>(x1);
   a.gu = static_cast<__nv_bfloat16*>(gu);
   a.out = static_cast<__nv_bfloat16*>(out);
@@ -436,7 +378,8 @@ ChainArgs make_chain(const void* attn, const void* res, const void* ffn_norm,
 // attn_norm (dim,) f32 and W_qkv' (dim -> n_q), and qkv (m, n_q) bf16 is
 // written; qkv null: no stage Q. Scratch x1 (m, dim) and gu (m, 2*hid)
 // bf16. Outputs out (m, dim) bf16 and ss (m,) f32. rpp_*: rows per pass of
-// each stage (1..MAX_ROWS). Needs n_o, dim and hid multiples of 32.
+// each stage (1..MAX_ROWS). Needs n_o, dim and hid multiples of 32, attn
+// and the norm weights 16-byte aligned.
 LLAMA_EXPORT int ffn_chain(const void* attn, const void* res,
                            const void* ffn_norm, const void* qw_o,
                            const void* s_o, const void* z_o,

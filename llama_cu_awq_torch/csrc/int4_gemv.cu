@@ -5,27 +5,32 @@
 //   (int4_matmul). One source serves both: the prologue and epilogue are
 //   runtime choices.
 //
-// What bounds it on the H100: the weight bytes. At batch 1 every packed
-//   nibble, fp16 scale and uint8 zero is read once per token and used for
-//   one multiply-add per row of x, far below the ~295 operations per byte
-//   where the tensor cores would take over. At 7B the qkv projection reads
-//   4096*12288/2 B of nibbles plus 12288*32*3 B of scales and zeros,
-//   about 26 MB: 7.8 us at 3.35 TB/s.
+// What bounds it on the H100: the weight bytes. Every packed nibble, fp16
+//   scale and uint8 zero is read once per launch for up to MAX_ROWS rows of
+//   x, far below the ~295 operations per byte where the tensor cores would
+//   take over. At 7B the qkv projection reads 4096*12288/2 B of nibbles
+//   plus 12288*32*3 B of scales and zeros, about 26 MB: 7.8 us at
+//   3.35 TB/s, at m=1 as at m=8.
 //
 // What the design does about it:
-//   - The weights keep the checkpoint's own layout, qw (n_out, n_in/8)
-//     int32: one output column's input rows are contiguous, so one warp
-//     streams one column, each lane reading 16 bytes (32 nibbles, all in
-//     one 128-row group) per load, 512 contiguous bytes per warp.
-//   - Dequantization is (q - z) * s in f32, as the reference CUDA kernel
-//     does (gpu_kernels.h:196-197). The TPU kernel's sum(x)*(z+128) bias
-//     trick exists for the TPU's matrix unit and is not needed here.
+//   - Every output column comes from int4_gemv.cuh's tensor-core column
+//     tile (mma.sync m16n8k16, 16 weight columns in M, the pass's rows of
+//     x in N, the raw codes exact in bf16 and the group's zero and scale
+//     applied in f32), for every m from 1 to MAX_ROWS: no per-weight
+//     dequantize and no per-row multiply-add loop on the CUDA cores, so the
+//     time follows the weight bytes, not the rows. The weights keep the
+//     checkpoint's own layout, qw (n_out, n_in/8) int32.
 //   - The effective x of a pass (up to MAX_ROWS rows) is staged once per
 //     block into shared memory as bf16, with the prologue applied:
 //     bf16(x*ss*norm_w) (rmsnorm apply) or bf16(silu(g)*u) (SwiGLU), the
-//     staging of ops/linear.py:122-128 and int4_matmul.py:421-428.
-//     Rows beyond MAX_ROWS take further passes over the weights; that is
-//     the large-m case, whose speed is later work.
+//     staging of ops/linear.py:122-128 and int4_matmul.py:421-428. The
+//     grid is at most the resident blocks (occupancy times the SM count),
+//     each striding over the column tiles, so a launch stages
+//     grid * mr * n_in * 2 bytes from L2 (x2 with the SwiGLU operand u):
+//     at 7B and m=8 the down projection's 132 blocks stage 46 MB, twice its
+//     23.6 MB of weights. Rows beyond MAX_ROWS take further passes over the
+//     weights; that is the large-m case, which the GEMM takes from
+//     GEMM_MIN_M rows on.
 //   - The epilogue adds the residual in f32 and casts. The rms scale of
 //     the output, ss' = rsqrt(mean(out^2) + eps), is a reduction over all
 //     n_out columns, which blocks running in parallel cannot finish, so a
@@ -44,35 +49,21 @@ __global__ void __launch_bounds__(WARPS * 32)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
                  const __nv_bfloat16* __restrict__ u, int ldu,
                  const float* __restrict__ ss,
-                 const float* __restrict__ nw,
-                 const uint4* __restrict__ qw,
-                 const __half* __restrict__ scales,
-                 const uint8_t* __restrict__ zeros,
+                 const float* __restrict__ nw, w4gemv::W4 w,
                  const __nv_bfloat16* __restrict__ res,
-                 void* __restrict__ out, int out_bf16,
-                 int m, int n_in, int n_out, int groups,
+                 void* __restrict__ out, int out_bf16, int m,
                  int rows_per_pass) {
   extern __shared__ __align__(16) __nv_bfloat16 xs[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col = blockIdx.x * WARPS + warp;
-  const int nvec = n_in >> 5;        // 16-byte vectors per column
-  const int row_elems = nvec * 34;   // padded staged row (see xs_index)
-
+  __shared__ float red[2 * w4gemv::RED_FLOATS];
   for (int r0 = 0; r0 < m; r0 += rows_per_pass) {
     const int mr = min(rows_per_pass, m - r0);
+    const w4gemv::TileLoads pre = w4gemv::prefetch(w);
     __syncthreads();  // the previous pass has finished reading xs
     w4gemv::stage_rows<MODE, false>(xs, x, ldx, u, ldu,
                                     ss != nullptr ? ss + r0 : nullptr, nw,
-                                    r0, mr, n_in);
+                                    r0, mr, w.n_in);
     __syncthreads();
-    if (col < n_out) {
-      float acc[MAX_ROWS];
-      w4gemv::column_partials(acc, xs, row_elems, qw, scales, zeros, col,
-                              nvec, groups, mr, lane);
-      w4gemv::store_column(acc, mr, lane, r0, col, n_out, res, out,
-                           out_bf16);
-    }
+    w4gemv::tile_pass<false>(w, pre, xs, r0, mr, res, out, out_bf16, red);
   }
 }
 
@@ -80,35 +71,35 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
 __global__ void __launch_bounds__(w4gemv::RMS_THREADS)
 rms_scale_kernel(const void* __restrict__ out, int out_bf16,
                  float* __restrict__ ss, int n, float eps) {
-  __shared__ float part[w4gemv::RMS_THREADS / 32];
+  __shared__ float part[w4gemv::RMS_PART];
   const int r = blockIdx.x;
   const size_t elem = out_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  const float s = w4gemv::rms_scale_row<false>(
-      static_cast<const char*>(out) + (size_t)r * n * elem, out_bf16, n, eps,
-      part);
-  if (threadIdx.x == 0) ss[r] = s;
+  w4gemv::rms_scale_rows<false>(
+      static_cast<const char*>(out) + (size_t)r * n * elem, out_bf16, n, 1,
+      n, eps, part, ss + r);
 }
+
+// kernel slots: the three prologue modes
+w4gemv::Residency<3> residency;
 
 template <int MODE>
 int launch_gemv(const void* x, int ldx, const void* u, int ldu,
-                const void* ss, const void* nw, const void* qw,
-                const void* scales, const void* zeros, const void* res,
-                void* out, int out_bf16, int m, int n_in, int n_out,
-                int groups, int rows_per_pass, cudaStream_t stream) {
-  const size_t smem = w4gemv::staged_bytes(rows_per_pass, n_in);
-  cudaError_t e = cudaFuncSetAttribute(
-      int4_gemv_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((n_out + WARPS - 1) / WARPS);
+                const void* ss, const void* nw, const w4gemv::W4& w,
+                const void* res, void* out, int out_bf16, int m,
+                int rows_per_pass, cudaStream_t stream) {
+  const size_t smem = w4gemv::staged_bytes(rows_per_pass, w.n_in);
+  const void* kernel = reinterpret_cast<const void*>(&int4_gemv_kernel<MODE>);
+  int grid = 0;
+  cudaError_t e = residency.blocks(kernel, MODE, smem, false, &grid);
+  if (e != cudaSuccess) return launch_refused(e);
+  const int tiles = (w.n_out + w4gemv::TILE_N - 1) / w4gemv::TILE_N;
+  if (grid > tiles) grid = tiles;
   int4_gemv_kernel<MODE><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), ldx,
       static_cast<const __nv_bfloat16*>(u), ldu,
-      static_cast<const float*>(ss), static_cast<const float*>(nw),
-      static_cast<const uint4*>(qw), static_cast<const __half*>(scales),
-      static_cast<const uint8_t*>(zeros),
-      static_cast<const __nv_bfloat16*>(res), out, out_bf16, m, n_in, n_out,
-      groups, rows_per_pass);
+      static_cast<const float*>(ss), static_cast<const float*>(nw), w,
+      static_cast<const __nv_bfloat16*>(res), out, out_bf16, m,
+      rows_per_pass);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -118,27 +109,33 @@ int launch_gemv(const void* x, int ldx, const void* u, int ldu,
 // row stride ldu, or null. ss: (m,) f32 and nw: (n_in,) f32 for the
 // rmsnorm-apply prologue, or null. qw: (n_out, n_in/8) int32; scales:
 // (n_out, groups) fp16; zeros: (n_out, groups) uint8. res: (m, n_out)
-// bf16 or null. out: (m, n_out), bf16 when out_bf16 else f32.
-// Needs n_in % 32 == 0.
+// bf16 or null. out: (m, n_out), bf16 when out_bf16 else f32. Needs
+// n_in % 32 == 0, groups = ceil(n_in / 128), x, u and nw 16-byte aligned,
+// row strides % 8 == 0.
 LLAMA_EXPORT int int4_gemv(const void* x, int ldx, const void* u, int ldu,
                            const void* ss, const void* nw, const void* qw,
                            const void* scales, const void* zeros,
                            const void* res, void* out, int out_bf16, int m,
                            int n_in, int n_out, int groups,
                            int rows_per_pass, void* stream) {
-  if (n_in % 32 != 0 || rows_per_pass < 1 || rows_per_pass > MAX_ROWS)
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 && ldx % 8 == 0 &&
+      (u == nullptr ||
+       (reinterpret_cast<uintptr_t>(u) % 16 == 0 && ldu % 8 == 0)) &&
+      (ss == nullptr || reinterpret_cast<uintptr_t>(nw) % 16 == 0);
+  if (n_in % 32 != 0 || groups != w4gemv::n_groups(n_in) || m < 1 ||
+      rows_per_pass < 1 || rows_per_pass > MAX_ROWS || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
+  const w4gemv::W4 w = w4gemv::make_w4(qw, scales, zeros, n_in, n_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (u != nullptr)
-    return launch_gemv<2>(x, ldx, u, ldu, ss, nw, qw, scales, zeros, res,
-                          out, out_bf16, m, n_in, n_out, groups,
+    return launch_gemv<2>(x, ldx, u, ldu, ss, nw, w, res, out, out_bf16, m,
                           rows_per_pass, st);
   if (ss != nullptr)
-    return launch_gemv<1>(x, ldx, u, ldu, ss, nw, qw, scales, zeros, res,
-                          out, out_bf16, m, n_in, n_out, groups,
+    return launch_gemv<1>(x, ldx, u, ldu, ss, nw, w, res, out, out_bf16, m,
                           rows_per_pass, st);
-  return launch_gemv<0>(x, ldx, u, ldu, ss, nw, qw, scales, zeros, res, out,
-                        out_bf16, m, n_in, n_out, groups, rows_per_pass, st);
+  return launch_gemv<0>(x, ldx, u, ldu, ss, nw, w, res, out, out_bf16, m,
+                        rows_per_pass, st);
 }
 
 // ss: (m,) f32 from out (m, n) bf16 or f32

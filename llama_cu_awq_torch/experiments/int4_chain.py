@@ -56,9 +56,11 @@ from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
                                                         rope_rows,
                                                         split_scratch)
 from llama_cu_awq_torch.ops.cuda.int4_matmul import (_SMEM_BUDGET,
-                                                     _as_rows,
+                                                     _as_rows, aligned16,
                                                      int4_matmul_fused_plain,
+                                                     raw_row_bytes,
                                                      rows_per_pass,
+                                                     rows_per_pass_raw,
                                                      staged_row_bytes)
 from llama_cu_awq_torch.ops.linear import qmatmul_fused
 from llama_cu_awq_torch.ops.norms import RMS_EPS
@@ -94,7 +96,8 @@ def ffn_chain_supported(wo: QTensor, w_gate_up: QTensor, w_down: QTensor,
         return False
     widths = (wo.n_in, dim, hid)
     return (all(n % 32 == 0 for n in widths)
-            and max(staged_row_bytes(n) for n in widths) <= _SMEM_BUDGET)
+            and max(staged_row_bytes(wo.n_in), staged_row_bytes(hid),
+                    raw_row_bytes(dim)) <= _SMEM_BUDGET)
 
 
 def mono_supported(wo, w_gate_up, w_down, m, head_dim, attn_len, n_heads,
@@ -172,11 +175,11 @@ def _chain_tail(x_res, ffn_norm, wo, w_gate_up, w_down, wqkv_next,
     _check_weights(dev, *weights)
     res = x_res.to(torch.bfloat16).reshape(m, dim).contiguous()
     check_tensor(res, "x_res", torch.bfloat16, (m, dim), dev)
-    nw = ffn_norm.reshape(dim).float().contiguous()
+    nw = aligned16(ffn_norm.reshape(dim).float().contiguous())
     check_tensor(nw, "ffn_norm", torch.float32, (dim,), dev)
     nw2 = None
     if has_qkv:
-        nw2 = attn_norm_next.reshape(dim).float().contiguous()
+        nw2 = aligned16(attn_norm_next.reshape(dim).float().contiguous())
         check_tensor(nw2, "attn_norm_next", torch.float32, (dim,), dev)
     n_q = wqkv_next.n_out if has_qkv else 0
 
@@ -199,8 +202,8 @@ def _chain_tail(x_res, ffn_norm, wo, w_gate_up, w_down, wqkv_next,
             + w(w_down) + [ptr(nw2)] + w(wqkv_next)
             + [n_q, x1.data_ptr(), gu.data_ptr(), out.data_ptr(),
                ss.data_ptr(), ptr(qkv)])
-    rpp = [rows_per_pass(m, wo.n_in), rows_per_pass(m, dim),
-           rows_per_pass(m, hid), rows_per_pass(m, dim)]
+    rpp = [rows_per_pass(m, wo.n_in), rows_per_pass_raw(m, dim),
+           rows_per_pass(m, hid), rows_per_pass_raw(m, dim)]
     return args, [dim, hid, float(eps)] + rpp, (out, ss, qkv)
 
 

@@ -25,15 +25,16 @@ import torch
 
 from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
                                          require, stream_ptr, use_plain)
-from llama_cu_awq_torch.ops.cuda.int4_matmul import (_as_rows,
+from llama_cu_awq_torch.ops.cuda.int4_matmul import (_as_rows, aligned16,
                                                      int4_matmul_fused_plain,
-                                                     rows_per_pass)
+                                                     rows_per_pass,
+                                                     rows_per_pass_raw)
 from llama_cu_awq_torch.quant.qtensor import QTensor
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I,
-         _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P]
+         _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P]
 
 
 def supported(w_down: QTensor, wqkv: QTensor, m: int) -> bool:
@@ -93,9 +94,10 @@ def down_qkv_fused(g: torch.Tensor, u: torch.Tensor, residual: torch.Tensor,
                      (qt.n_out, qt.n_groups), dev)
     g2, u2 = _as_rows(g, m, hid), _as_rows(u, m, hid)
     res = residual.to(torch.bfloat16).reshape(m, dim).contiguous()
-    nw = attn_norm_next.reshape(dim).contiguous()
+    nw = aligned16(attn_norm_next.reshape(dim).contiguous())
     check_tensor(nw, "attn_norm", torch.float32, (dim,), dev)
     check_tensor(res, "residual", torch.bfloat16, (m, dim), dev)
+    h = torch.empty(m, hid, dtype=torch.bfloat16, device=dev)  # scratch
     x2 = torch.empty(m, dim, dtype=torch.bfloat16, device=dev)
     ss2 = torch.empty(m, dtype=torch.float32, device=dev)
     qkv = torch.empty(m, n_q, dtype=out_dtype, device=dev)
@@ -105,9 +107,9 @@ def down_qkv_fused(g: torch.Tensor, u: torch.Tensor, residual: torch.Tensor,
             w_down.scales.data_ptr(), w_down.zeros.data_ptr(), hid, dim,
             w_down.n_groups, wqkv_next.qw.data_ptr(),
             wqkv_next.scales.data_ptr(), wqkv_next.zeros.data_ptr(), n_q,
-            wqkv_next.n_groups, x2.data_ptr(), ss2.data_ptr(),
+            wqkv_next.n_groups, h.data_ptr(), x2.data_ptr(), ss2.data_ptr(),
             qkv.data_ptr(), int(out_dtype == torch.bfloat16), m, float(eps),
-            rows_per_pass(m, hid), rows_per_pass(m, dim), stream_ptr())
+            rows_per_pass(m, hid), rows_per_pass_raw(m, dim), stream_ptr())
     _build.check(rc, "down_qkv", "down_qkv")
     count("down_qkv", f"m{m}/{hid}x{dim}+{dim}x{n_q}")
     return (x2.reshape(*lead, dim), ss2.reshape(*lead, 1),

@@ -2,9 +2,10 @@
 
 Counterparts of llama_cu_awq_tpu/ops/pallas/int4_matmul.py. Both take one
 of two kernels by the number of rows m (`route`): below GEMM_MIN_M rows
-`csrc/int4_gemv.cu` (one warp per output column, decode), from GEMM_MIN_M
-rows on `csrc/int4_gemm.cu` (tensor-core tiles of 128 rows, prefill
-blocks); see their headers. `int4_matmul_fused` adds a prologue on x and
+`csrc/int4_gemv.cu` (int4_gemv.cuh's tensor-core column tile of 16
+columns by up to 8 rows, decode and serving), from GEMM_MIN_M rows on
+`csrc/int4_gemm.cu` (tensor-core tiles of 128 rows, prefill blocks); see
+their headers. `int4_matmul_fused` adds a prologue on x and
 an epilogue on the output:
 
   prologue  x_eff = bf16(x * ss * norm_w)      (rmsnorm apply)
@@ -29,13 +30,14 @@ from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
                                          require, stream_ptr, use_plain)
 from llama_cu_awq_torch.quant.qtensor import QTensor
 
-# rows from which a CUDA call takes the GEMM: below it the GEMV, whose
-# passes of 8 rows each read the whole weight, is faster (chip_smoke.py's
-# gemm_crossover line; PERF.md)
-GEMM_MIN_M = 9
+# rows from which a CUDA call takes the GEMM: below it the GEMV's
+# tensor-core tile, whose passes of 8 rows each read the whole weight, is
+# faster. chip_smoke.py's gemm_crossover line on the H100 (PERF.md): the
+# tile ahead at every m of the sweep up to 64, the GEMM at 128.
+GEMM_MIN_M = 65
 # shared-memory budget of one pass's staged x (of the card's 227 KB)
 _SMEM_BUDGET = 200 * 1024
-_MAX_ROWS = 8  # matches MAX_ROWS in csrc/int4_gemv.cu
+_MAX_ROWS = 8  # matches MAX_ROWS in csrc/int4_gemv.cuh
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,13 +62,29 @@ def route(m: int) -> str:
 
 
 def staged_row_bytes(n_in: int) -> int:
-    """Shared memory of one staged row of x: padded bf16 (csrc/common.cuh's
-    xs_index layout)."""
-    return (n_in // 32) * 34 * 2
+    """Shared memory of one staged row of x (csrc/int4_gemv.cuh
+    staged_bytes): 17 units of 16 bytes a 128-input group, the row padded
+    to 2 mod 8 units, plus one f32 group sum a group."""
+    groups = -(-n_in // 128)
+    units = 17 * groups
+    return (units + (2 - units) % 8) * 16 + groups * 4
 
 
 def rows_per_pass(m: int, n_in: int) -> int:
+    """Rows of x a pass stages."""
     return max(1, min(m, _MAX_ROWS, _SMEM_BUDGET // staged_row_bytes(n_in)))
+
+
+def raw_row_bytes(n_in: int) -> int:
+    """Shared memory of one staged row plus a copy of the row as it is:
+    the chains' rmsnorm-apply stages (csrc/int4_gemv.cuh copy_rows), with
+    16 bytes for the copy's alignment."""
+    return staged_row_bytes(n_in) + 2 * n_in + 16
+
+
+def rows_per_pass_raw(m: int, n_in: int) -> int:
+    """Rows a pass of a stage that keeps the raw copy stages."""
+    return max(1, min(m, _MAX_ROWS, _SMEM_BUDGET // raw_row_bytes(n_in)))
 
 
 def _as_rows(a: torch.Tensor, m: int, n: int) -> torch.Tensor:
@@ -77,6 +95,12 @@ def _as_rows(a: torch.Tensor, m: int, n: int) -> torch.Tensor:
     ok = (a2.stride(1) == 1 and a2.stride(0) % 8 == 0
           and a2.data_ptr() % 16 == 0)
     return a2 if ok else a2.contiguous()
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels read norm weights in 16-byte vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
@@ -202,9 +226,7 @@ def int4_matmul_fused(x, qt: QTensor, *, prescale=None, silu_u=None,
     ss = nw = None
     if prescale is not None:
         ss = prescale[0].reshape(m).contiguous()
-        nw = prescale[1].reshape(qt.n_in).contiguous()
-        if nw.data_ptr() % 16:  # the GEMM reads it in 16-byte vectors
-            nw = nw.clone()
+        nw = aligned16(prescale[1].reshape(qt.n_in).contiguous())
     res = (residual.reshape(m, qt.n_out).contiguous()
            if residual is not None else None)
     kernel = route(m)

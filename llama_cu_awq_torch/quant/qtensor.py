@@ -6,7 +6,8 @@ what the reference's CUDA GEMV reads (gpu_kernels.h:171-210):
   qw:     int32   (n_out, ceil(n_in/8)) -- the 8 input rows 8y..8y+7 of
           output column x sit in word [x, y], nibble i = row 8y+i
           (sequential order, not AWQ's interleaved order). Input rows are
-          contiguous per output column, so one warp streams one column.
+          contiguous per output column: a 128-row group is 64 contiguous
+          bytes, which one quad of lanes loads (csrc/int4_gemv.cuh).
   scales: float16 (n_out, ceil(n_in/128)) -- exact: the file stores fp16.
   zeros:  uint8   (n_out, ceil(n_in/128)).
 

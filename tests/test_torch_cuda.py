@@ -90,9 +90,13 @@ def _fused_kwargs(gen, variant, m, n_in, n_out):
 
 
 @pytest.mark.parametrize("variant", ["prescale", "residual", "silu"])
-@pytest.mark.parametrize("m", [1, 3, 11])
-def test_int4_matmul_fused_matches_plain(gen, variant, m):
-    n_in, n_out = 320, 200  # a partial last group; a tail of columns
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 7, 8, 11])
+@pytest.mark.parametrize("n_in,n_out", [(320, 200), (288, 40), (352, 23)])
+def test_int4_matmul_fused_matches_plain(gen, variant, m, n_in, n_out):
+    """Every row count of the GEMV's tile (1 to 8 in one pass, 11 in two)
+    at widths whose last 128-row group is partial (n_in % 128 of 64, 32
+    and 96) and whose last 16-column tile is partial (n_out % 16 of 8, 8
+    and 7)."""
     qt = _qtensor(gen, n_in, n_out)
     x = _randn(gen, m, n_in)
     kw = _fused_kwargs(gen, variant, m, n_in, n_out)
@@ -580,6 +584,51 @@ def test_down_qkv_matches_plain_and_gemv_pair(gen, m):
         _close(x2, rx2, **INT4)
         assert torch.equal(x2, px2) and torch.equal(qkv, pqkv)
         assert torch.equal(ss2.reshape(-1), pss2.reshape(-1))
+
+
+@pytest.mark.parametrize("kernel", ["gemv_prescale", "gemv_residual",
+                                    "gemv_silu", "down_qkv", "ffn_chain"])
+def test_rows_match_single_row_calls(gen, kernel):
+    """Each row of an 8-row call bit for bit against the call on that row
+    alone: the tile's sums depend on n_in alone (csrc/int4_gemv.cuh), not
+    on the rows beside a row, the grid or the pass."""
+    from llama_cu_awq_torch.experiments.int4_chain import ffn_chain
+    from llama_cu_awq_torch.ops.cuda.down_qkv import down_qkv_fused
+
+    m, n_in, n_out = 8, 352, 200
+    if kernel.startswith("gemv"):
+        qt = _qtensor(gen, n_in, n_out)
+        x = _randn(gen, m, n_in)
+        kw = _fused_kwargs(gen, kernel[5:], m, n_in, n_out)
+
+        def run(r):
+            k = {name: ((v[0][r], v[1]) if name == "prescale"
+                        else v[r] if isinstance(v, torch.Tensor) else v)
+                 for name, v in kw.items()}
+            return int4_matmul_fused(x[r], qt, **k)
+    elif kernel == "down_qkv":
+        hid, dim, n_q = 352, 288, 200
+        wd, wq = _qtensor(gen, hid, dim), _qtensor(gen, dim, n_q)
+        g, u = _randn(gen, m, 2 * hid).chunk(2, dim=-1)
+        res = _randn(gen, m, dim)
+        nw = torch.rand(dim, device="cuda", generator=gen) + 0.5
+
+        def run(r):
+            return down_qkv_fused(g[r], u[r], res[r], wd, wq, nw, eps=1e-5)
+    else:
+        ws, nw, kw, attn, x = _chain_case(gen, m, 256, 288, 352, 200)
+
+        def run(r):
+            return ffn_chain(attn[r], x[r], nw, *ws, eps=1e-5, **kw)
+    full = run(slice(0, m))
+    for i in range(m):
+        one = run(slice(i, i + 1))
+        for a, b in zip(full, one):
+            if a is None:
+                assert b is None
+                continue
+            assert torch.equal(a.reshape(m, -1)[i], b.reshape(-1)), (
+                f"row {i} of {kernel} differs from its single-row call")
 
 
 @pytest.mark.parametrize("chain", [False, True])

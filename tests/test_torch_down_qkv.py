@@ -61,6 +61,7 @@ def _inputs(rng, m, dim, hid):
     (1, 1024, 1536, 1536),
     (4, 1024, 1536, 1536),
     (1, 1024, 1024, 1024),
+    (8, 1024, 1536, 1536),
 ])
 def test_plain_matches_jax_kernel(rng, m, dim, hid, qkv_out):
     """tests/test_down_qkv.py:20-54's shapes and bars: the JAX kernel keeps

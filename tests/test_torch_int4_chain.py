@@ -121,7 +121,7 @@ SS_TOL = dict(rtol=1e-2, atol=1e-4)
 QKV_TOL = dict(rtol=4e-2, atol=4e-2)
 
 
-@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("m", [1, 4, 8])
 @pytest.mark.parametrize("dim,hidden", [(512, 1024), (512, 1408)])
 def test_ffn_chain_plain_matches_jax(rng, m, dim, hidden):
     (x, ss), (want_x, want_ss) = _run_chain(rng, (m,), dim, hidden)

@@ -142,9 +142,12 @@ def _variant_args(rng, variant, m, n_in, n_out):
 
 
 @pytest.mark.parametrize("variant", _VARIANTS)
-@pytest.mark.parametrize("m", [1, 3])
-def test_qmatmul_fused_plain_matches_dequant(rng, variant, m):
-    n_in, n_out = 256, 192
+@pytest.mark.parametrize("m,n_in", [(1, 256), (3, 256), (8, 256), (8, 160)],
+                         ids=["1", "3", "8", "8-n160"])
+def test_qmatmul_fused_plain_matches_dequant(rng, variant, m, n_in):
+    """m=8 is the serving step's row count (the card kernel's one pass);
+    n_in 160 (tiny_config's hidden) ends in a partial 128-row group."""
+    n_out = 192
     jq, tq = _qtensors(rng, n_in, n_out)
     jx, tx, jk, tk = _variant_args(rng, variant, m, n_in, n_out)
     got, ss_t = t_qmatmul_fused(tx, tq, **tk)
