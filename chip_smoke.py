@@ -12,8 +12,13 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      stated tolerance, timed with CUDA events (median after warm-up, L2
      flushed before every timed launch) beside its bound;
      The prefill kernels (prefill_attention at T=128 over a 2048-row
-     window at position 1024; the int4 GEMM at m=128) join them, with
-     the GEMV-against-GEMM sweep over m that sets GEMM_MIN_M; the lm_head
+     window at positions 0, 1024 and 1920; the int4 GEMM at m=128, with
+     F.linear on the dequantized bf16 weight as a second yardstick, and
+     its rows at m=65 and 100 held bit for bit to the 128-row call) join
+     them, with the GEMV-against-GEMM sweep over m that sets GEMM_MIN_M,
+     the sweep of the GEMM's split count behind gemm_splits, and
+     check-only rows at 13B's shapes (the four GEMM rows at m=128 and
+     prefill_attention MHA bf16, one synthetic layer); the lm_head
      (the tile kernel dense_gemm.cu) at m=1, m=8 (the serving step) and
      m=128 (a prefill block), bf16 and int8; decode attention (the split
      kernels) at position 1500 and at B=8 over positions 960-1100; the
@@ -33,7 +38,8 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      tokens/s; the lm_head runs once a prompt, on its last block), a
      256-token prompt with int8 KV, a 256-token prompt with the int8
      lm_head (its tile kernel at 128 rows), a profile of one 128-token
-     block, the
+     block (with the busy share of the GEMM's and prefill_attention's
+     kernels), the
      perplexity of a 1023-token sequence through the kernels and through
      the plain versions (|delta ln ppl| <= 0.01; the head on each block),
      and
@@ -212,6 +218,16 @@ def int4pack_library(torch, qt, x):
     return lambda: torch._weight_int4pack_mm(xb, packed, 128, sz)
 
 
+def linear_yardstick(torch, timer, qt, x):
+    """F.linear of x on qt's weight dequantized to bf16 (converted once,
+    outside the timed call): the card's tensor-core rate on the same
+    product, a yardstick and not the same function (it reads no codes and
+    rounds the weight to bf16)."""
+    w = qt.dequantize_t().bfloat16()
+    xb = x.bfloat16().contiguous()
+    return timer(lambda: torch.nn.functional.linear(xb, w))
+
+
 def sdpa_library(torch, q, k_rows, v_rows, mask=None):
     """F.scaled_dot_product_attention of bf16 q (B, H, D) over the given
     rows (B, rows, Hkv, D), laid out as it wants them outside the timed
@@ -322,7 +338,7 @@ def kernel_phase(torch, timer, rows):
             b, src = bound_ms(
                 nbytes(qt.qw, qt.scales, qt.zeros, x, out, ss_k, *extra),
                 2 * m * n_in * n_out)
-            rows.append(dict(
+            row = dict(
                 name=f"int4_matmul_fused/{tag}", kernel="int4_matmul_fused",
                 route="cuda", source=int4_source(variant),
                 replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:543",
@@ -331,9 +347,13 @@ def kernel_phase(torch, timer, rows):
                 plain_ms=timer(lambda: int4_matmul_fused(x, qt, plain=True,
                                                          **kw)),
                 bound_ms=b, bound_by=src,
-                library_ms=timer(int4pack_library(torch, qt, x))))
+                library_ms=timer(int4pack_library(torch, qt, x)))
+            if m == 128:
+                row["linear_ms"] = linear_yardstick(torch, timer, qt, x)
+            rows.append(row)
 
     row_independence(torch, g)
+    gemm_row_independence(torch, g)
 
     # --- int4_matmul: the w4 lm_head at m=1, 16- and 128-row blocks on
     # qkv (no 7B run launches int4_matmul at the qkv shape: the forward
@@ -359,13 +379,16 @@ def kernel_phase(torch, timer, rows):
                               (lib_out.float() - ref).abs().max()),
                           "max_abs_plain": float(ref.abs().max())}),
               flush=True)
-        rows.append(dict(
+        row = dict(
             name=f"int4_matmul/{tag}", kernel="int4_matmul", route="cuda",
             source=int4_source(variant),
             replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:281",
             variant=variant, path=path, **chk, ms=timer(lambda: int4_matmul(x, qt)),
             plain_ms=timer(lambda: int4_matmul(x, qt, plain=True)),
-            bound_ms=b, bound_by=src, library_ms=timer(lib)))
+            bound_ms=b, bound_by=src, library_ms=timer(lib))
+        if m == 128:
+            row["linear_ms"] = linear_yardstick(torch, timer, qt, x)
+        rows.append(row)
 
     # --- dense_gemv: the 7B lm_head, bf16 and int8 rows; m=8 the serving
     # step's head, m=128 a prefill block's (every row for perplexity) ---
@@ -461,11 +484,15 @@ def kernel_phase(torch, timer, rows):
     batched_attention_rows(torch, timer, rows, g)
     prefill_attention_rows(torch, timer, rows, g)
     gemm_crossover(torch, timer, g)
+    gemm_split_sweep(torch, timer, g)
+    rows_13b(torch, timer, rows, g)
     for r in rows:
         print(json.dumps({"kernel_check": r["name"], "kernel_ms": r["ms"],
                           **{k: r[k] for k in (
                               "max_abs_err", "rtol", "atol", "plain_ms",
-                              "library_ms", "bound_ms", "bound_by")}}),
+                              "library_ms", "bound_ms", "bound_by")},
+                          **({"linear_ms": r["linear_ms"]}
+                             if "linear_ms" in r else {})}),
               flush=True)
 
 
@@ -541,6 +568,60 @@ def row_independence(torch, g):
     check("ffn_chain", lambda r: ffn_chain(
         attn[r], res[r], nw, wo, wgu, wd, eps=1e-5, wqkv_next=wq,
         attn_norm_next=nw))
+
+
+def gemm_row_independence(torch, g):
+    """The GEMM at 7B's four projections: the first 65 and 100 rows of a
+    128-row call, each called alone, and a second 128-row call, bit for
+    bit against the first 128-row call. Every sum's order depends on the
+    weight's shape and the tile, never on m or a row's neighbours, and
+    no atomics (int4_gemm.cu). Raises on a difference."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import int4_matmul_fused
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    dim, hid, m = 4096, 11008, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).bfloat16()
+
+    for tag, n_in, n_out, kind in (
+            ("qkv_prescale", dim, 3 * dim, "prescale"),
+            ("o_residual_ss", dim, dim, "residual"),
+            ("gate_up_prescale", dim, 2 * hid, "prescale"),
+            ("down_silu_residual_ss", hid, dim, "silu")):
+        qt = random_qtensor(torch, QTensor, n_in, n_out, g)
+        x, res, u = randn(m, n_in), randn(m, n_out), randn(m, n_in)
+        ss = torch.rand(m, 1, device="cuda", generator=g) + 0.5
+        nw = torch.rand(n_in, device="cuda", generator=g) + 0.5
+
+        def run(r, qt=qt, x=x, res=res, u=u, ss=ss, nw=nw, kind=kind):
+            if kind == "prescale":
+                return int4_matmul_fused(x[:r], qt, prescale=(ss[:r], nw))
+            return int4_matmul_fused(
+                x[:r], qt, residual=res[:r], emit_ss_eps=1e-5,
+                silu_u=u[:r] if kind == "silu" else None)
+
+        full = run(m)
+        equal, diff = True, 0.0
+        for r in (65, 100, m):
+            for a, b in zip(full, run(r)):
+                if a is None:
+                    continue
+                diff = max(diff, float((a[:r].float() - b.float())
+                                       .abs().max()))
+                equal = equal and torch_equal(a[:r], b)
+        torch.cuda.synchronize()
+        print(json.dumps({"check": f"row_independence/gemm_{tag}",
+                          "rows": [65, 100, m], "bit_equal": equal,
+                          "max_abs_err": diff,
+                          "why": "the first 65 and 100 rows of a 128-row "
+                                 "GEMM call called alone, and the call "
+                                 "again: sums ordered by the weight's "
+                                 "shape and the tile alone, no atomics"}),
+              flush=True)
+        if not equal:
+            raise AssertionError(f"row_independence/gemm_{tag}: rows differ "
+                                 f"between calls (max abs err {diff})")
 
 
 B8_POSITIONS = (1024, 1000, 1100, 990, 1050, 1020, 1075, 960)
@@ -717,69 +798,74 @@ def batched_attention_rows(torch, timer, rows, g):
 
 def prefill_attention_rows(torch, timer, rows, g):
     """prefill_attention at 7B's head shape (and GQA 32/8, check only):
-    a 128-token block at position 1024 over a 2048-row cache. The bf16
-    rows are also timed against F.scaled_dot_product_attention over the
-    window the block sees, with the causal mask (GQA through
+    128-token blocks at positions 0 (a prompt's first block), 1024 and
+    1920 (a 2048-token prompt's last block) over a 2048-row cache. The
+    bf16 rows are also timed against F.scaled_dot_product_attention over
+    the keys the block sees, with the causal mask (GQA through
     enable_gqa)."""
+    B, T, S, D, H = 1, 128, 2048, 128, 32
+    for pos_v in (0, 1024, 1920):
+        suffix = "" if pos_v == 1024 else f"_pos{pos_v}"
+        for n_kv in (32, 8):
+            for quant in (False, True):
+                tag = (f"{'mha' if n_kv == H else 'gqa'}{H}_{n_kv}_"
+                       f"{'int8' if quant else 'bf16'}{suffix}")
+                path = (None if n_kv != H else
+                        "prefill_int8kv" if quant else "prefill")
+                prefill_attention_row(torch, timer, rows, g, tag, path, B,
+                                      T, S, D, H, n_kv, pos_v, quant)
+
+
+def prefill_attention_row(torch, timer, rows, g, tag, path, B, T, S, D, H,
+                          n_kv, pos_v, quant):
+    """One prefill_attention row: a block of T tokens at pos_v over an
+    S-row cache of random rows, kernel against plain, timed beside its
+    bound and (bf16) SDPA."""
     from llama_cu_awq_torch.ops.cuda.prefill_attention import (
         prefill_attention)
 
-    B, T, S, D, H, pos_v = 1, 128, 2048, 128, 32, 1024
     pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
     horizon = pos_v + T  # keys the block reads
-    for n_kv in (32, 8):
-        q = torch.randn(B, T, H, D, device="cuda", generator=g).bfloat16()
-        for quant in (False, True):
-            tag = f"{'mha' if n_kv == H else 'gqa'}{H}_{n_kv}_" + (
-                "int8" if quant else "bf16")
-            if quant:
-                kc, vc = (torch.randint(-127, 128, (B, S, n_kv, D),
-                                        dtype=torch.int8, device="cuda",
-                                        generator=g) for _ in range(2))
-                ks, vs = (torch.rand(B, S, n_kv, device="cuda", generator=g)
-                          * 0.02 for _ in range(2))
-            else:
-                kc, vc = (torch.randn(B, S, n_kv, D, device="cuda",
-                                      generator=g).bfloat16()
-                          for _ in range(2))
-                ks = vs = None
-            args = (q, kc, vc, pos, ks, vs)
-            out, variant = launched_variant(
-                lambda: prefill_attention(*args, attn_len=S))
-            ref = prefill_attention(*args, attn_len=S, plain=True)
-            torch.cuda.synchronize()
-            chk = check_close(f"prefill_attention/{tag}", out, ref,
-                              **ATTN_TOL)
-            kv_bytes = horizon * n_kv * (D * kc.element_size()
-                                         + (4 if quant else 0)) * 2
-            causal_keys = T * pos_v + T * (T + 1) // 2
-            b, src = bound_ms(kv_bytes + nbytes(q, out),
-                              4 * causal_keys * H * D)
-            lib = None
-            if not quant:
-                qh = q.transpose(1, 2).contiguous()
-                kh = kc[:, :horizon].transpose(1, 2).contiguous()
-                vh = vc[:, :horizon].transpose(1, 2).contiguous()
-                s_idx = torch.arange(horizon, device="cuda")
-                t_idx = torch.arange(T, device="cuda")
-                mask = s_idx[None, :] <= pos_v + t_idx[:, None]
-                lib = timer(lambda: torch.nn.functional
-                            .scaled_dot_product_attention(
-                                qh, kh, vh, attn_mask=mask,
-                                enable_gqa=n_kv != H))
-            rows.append(dict(
-                name=f"prefill_attention/{tag}", kernel="prefill_attention",
-                route="cuda",
-                source="llama_cu_awq_torch/csrc/prefill_attention.cu",
-                replaces="llama_cu_awq_tpu/ops/pallas/prefill_attention.py"
-                         ":189",
-                variant=variant,
-                path=(None if n_kv != H else
-                      "prefill_int8kv" if quant else "prefill"), **chk,
-                ms=timer(lambda: prefill_attention(*args, attn_len=S)),
-                plain_ms=timer(lambda: prefill_attention(
-                    *args, attn_len=S, plain=True), iters=5),
-                bound_ms=b, bound_by=src, library_ms=lib))
+    q = torch.randn(B, T, H, D, device="cuda", generator=g).bfloat16()
+    if quant:
+        kc, vc = (torch.randint(-127, 128, (B, S, n_kv, D), dtype=torch.int8,
+                                device="cuda", generator=g)
+                  for _ in range(2))
+        ks, vs = (torch.rand(B, S, n_kv, device="cuda", generator=g) * 0.02
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.randn(B, S, n_kv, D, device="cuda",
+                              generator=g).bfloat16() for _ in range(2))
+        ks = vs = None
+    args = (q, kc, vc, pos, ks, vs)
+    out, variant = launched_variant(
+        lambda: prefill_attention(*args, attn_len=S))
+    ref = prefill_attention(*args, attn_len=S, plain=True)
+    torch.cuda.synchronize()
+    chk = check_close(f"prefill_attention/{tag}", out, ref, **ATTN_TOL)
+    kv_bytes = horizon * n_kv * (D * kc.element_size()
+                                 + (4 if quant else 0)) * 2
+    causal_keys = T * pos_v + T * (T + 1) // 2
+    b, src = bound_ms(kv_bytes + nbytes(q, out), 4 * causal_keys * H * D)
+    lib = None
+    if not quant:
+        qh = q.transpose(1, 2).contiguous()
+        kh = kc[:, :horizon].transpose(1, 2).contiguous()
+        vh = vc[:, :horizon].transpose(1, 2).contiguous()
+        s_idx = torch.arange(horizon, device="cuda")
+        t_idx = torch.arange(T, device="cuda")
+        mask = s_idx[None, :] <= pos_v + t_idx[:, None]
+        lib = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=n_kv != H))
+    rows.append(dict(
+        name=f"prefill_attention/{tag}", kernel="prefill_attention",
+        route="cuda", source="llama_cu_awq_torch/csrc/prefill_attention.cu",
+        replaces="llama_cu_awq_tpu/ops/pallas/prefill_attention.py:189",
+        variant=variant, path=path, **chk,
+        ms=timer(lambda: prefill_attention(*args, attn_len=S)),
+        plain_ms=timer(lambda: prefill_attention(*args, attn_len=S,
+                                                 plain=True), iters=5),
+        bound_ms=b, bound_by=src, library_ms=lib))
 
 
 def gemm_crossover(torch, timer, g):
@@ -805,6 +891,91 @@ def gemm_crossover(torch, timer, g):
                       "GEMM_MIN_M": GEMM_MIN_M, "sweep": sweep}), flush=True)
 
 
+def gemm_split_sweep(torch, timer, g):
+    """The GEMM at m=128 on 7B's four projections (x as given, f32 out)
+    with 1 to 4 splits of the groups and the rule's count, launched
+    directly (not counted), each checked against the rule's output: the
+    data behind int4_matmul.gemm_splits."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import _launch, gemm_splits
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    for tag, n_in, n_out in (("qkv", 4096, 3 * 4096), ("o", 4096, 4096),
+                             ("gate_up", 4096, 2 * 11008),
+                             ("down", 11008, 4096)):
+        qt = random_qtensor(torch, QTensor, n_in, n_out, g)
+        x = torch.randn(128, n_in, device="cuda", generator=g).bfloat16()
+        rule = gemm_splits(n_in, n_out)
+        want = _launch(x, qt, out_dtype=torch.float32, kernel="gemm")[0]
+        sweep = []
+        for sp in sorted({1, 2, 3, 4, rule}):
+            got = _launch(x, qt, out_dtype=torch.float32, kernel="gemm",
+                          splits=sp)[0]
+            torch.cuda.synchronize()
+            check_close(f"gemm_splits/{tag}/s{sp}", got, want, **GEMV_TOL)
+            sweep.append({"splits": sp, "ms": timer(lambda sp=sp: _launch(
+                x, qt, out_dtype=torch.float32, kernel="gemm",
+                splits=sp))})
+        print(json.dumps({"gemm_splits": f"{tag} {n_in}x{n_out} m128",
+                          "rule": rule, "sweep": sweep}), flush=True)
+
+
+def rows_13b(torch, timer, rows, g):
+    """Check-only rows at Llama-2 13B's shapes (dim 5120, hidden 13824,
+    40 heads of 128), one synthetic layer: the GEMM on the four
+    projections at m=128 and prefill_attention MHA bf16, a 128-token
+    block at position 1024 over a 2048-row cache."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import int4_matmul_fused
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    dim, hid, m = 5120, 13824, 128
+    for tag, n_in, n_out, kind in (
+            ("13b_gemm_qkv_prescale", dim, 3 * dim, "prescale"),
+            ("13b_gemm_o_residual_ss", dim, dim, "residual"),
+            ("13b_gemm_gate_up_prescale", dim, 2 * hid, "prescale"),
+            ("13b_gemm_down_silu_residual_ss", hid, dim, "silu")):
+        qt = random_qtensor(torch, QTensor, n_in, n_out, g)
+        x = torch.randn(m, n_in, device="cuda", generator=g).bfloat16()
+        if kind == "prescale":
+            ss = torch.rand(m, 1, device="cuda", generator=g) + 0.5
+            nw = torch.rand(n_in, device="cuda", generator=g) + 0.5
+            kw = dict(prescale=(ss, nw))
+            extra = [ss, nw]
+        else:
+            res = torch.randn(m, n_out, device="cuda",
+                              generator=g).bfloat16()
+            kw = dict(residual=res, emit_ss_eps=1e-5)
+            extra = [res]
+            if kind == "silu":
+                kw["silu_u"] = torch.randn(m, n_in, device="cuda",
+                                           generator=g).bfloat16()
+                extra.append(kw["silu_u"])
+        (out, ss_k), variant = launched_variant(
+            lambda: int4_matmul_fused(x, qt, **kw))
+        ref, ss_p = int4_matmul_fused(x, qt, plain=True, **kw)
+        torch.cuda.synchronize()
+        chk = check_close(f"int4_matmul_fused/{tag}", out, ref, **INT4_TOL)
+        if ss_p is not None:
+            check_close(f"int4_matmul_fused/{tag}/ss", ss_k, ss_p,
+                        **INT4_TOL)
+        b, src = bound_ms(
+            nbytes(qt.qw, qt.scales, qt.zeros, x, out, ss_k, *extra),
+            2 * m * n_in * n_out)
+        rows.append(dict(
+            name=f"int4_matmul_fused/{tag}", kernel="int4_matmul_fused",
+            route="cuda", source=int4_source(variant),
+            replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:543",
+            variant=variant, path=None, **chk,
+            ms=timer(lambda: int4_matmul_fused(x, qt, **kw)),
+            plain_ms=timer(lambda: int4_matmul_fused(x, qt, plain=True,
+                                                     **kw)),
+            bound_ms=b, bound_by=src,
+            library_ms=timer(int4pack_library(torch, qt, x)),
+            linear_ms=linear_yardstick(torch, timer, qt, x)))
+        del qt
+    prefill_attention_row(torch, timer, rows, g, "13b_mha40_40_bf16", None,
+                          1, 128, 2048, 128, 40, 40, 1024, False)
+
+
 def run_path(torch, name, fn, launches):
     """Counters to 0 just before the path, read just after: launches per
     kernel and per kernel/variant."""
@@ -821,7 +992,7 @@ def run_path(torch, name, fn, launches):
     return result
 
 
-def profile_run(torch, label, prepare, run, n, per):
+def profile_run(torch, label, prepare, run, n, per, shares=None):
     """Where the time of run(*prepare()) goes, for n units of `per`
     (tokens, blocks): the host clock without the profiler (median of 3),
     then one run traced with torch.profiler for the device's own time per
@@ -865,6 +1036,10 @@ def profile_run(torch, label, prepare, run, n, per):
             gaps.append(s - end)
         end = e_ if end is None else max(end, e_)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    # busy share of each family of kernels, by the profiler's kernel names
+    share = {fam: sum(v[1] for name, v in by_name.items()
+                      if any(k in name for k in keys)) / 1e3 / busy_ms
+             for fam, keys in (shares or {}).items()} if busy_ms else {}
     top_host = sorted(host.items(), key=lambda kv: -kv[1][1])[:10]
     print(json.dumps({
         "profile": label, per + "s": n,
@@ -877,6 +1052,7 @@ def profile_run(torch, label, prepare, run, n, per):
         "device_gaps_over_0.1ms": len(gaps),
         "device_gap_ms": sum(gaps) / 1e3,
         "largest_device_gap_ms": max(gaps, default=0.0) / 1e3,
+        **({"busy_share": share} if shares else {}),
         "top_device_ops": [{"name": n_[:80], "count": c, "ms": us / 1e3}
                            for n_, (c, us) in top],
         "top_host_ops_self_cpu": [{"name": n_[:60], "count": c,
@@ -1130,7 +1306,13 @@ def prefill_phase(torch, params, launches):
         return (prompt[1024:1152],)
 
     profile_run(torch, "prefill_block_pos1024", prepare_block, eng._prefill,
-                1, "block")
+                1, "block", shares={
+                    "int4_gemm": ["int4_gemm_kernel", "stage_x_kernel",
+                                  "split_sum_kernel"],
+                    "prefill_attention": ["prefill_split_kernel",
+                                          "prefill_merge_kernel"],
+                    "rms_scale": ["rms_scale_kernel"],
+                    "lm_head": ["dense_gemm"]})
 
     # perplexity of a 1023-token sequence: 8 blocks with every row's
     # logits, through the kernels, then with the engine's forward bound

@@ -4,7 +4,7 @@ Counterparts of llama_cu_awq_tpu/ops/pallas/int4_matmul.py. Both take one
 of two kernels by the number of rows m (`route`): below GEMM_MIN_M rows
 `csrc/int4_gemv.cu` (int4_gemv.cuh's tensor-core column tile of 16
 columns by up to 8 rows, decode and serving), from GEMM_MIN_M rows on
-`csrc/int4_gemm.cu` (tensor-core tiles of 128 rows, prefill blocks); see
+`csrc/int4_gemm.cu` (wgmma over 128-row tiles of x, prefill blocks); see
 their headers. `int4_matmul_fused` adds a prologue on x and
 an epilogue on the output:
 
@@ -33,8 +33,8 @@ from llama_cu_awq_torch.quant.qtensor import QTensor
 # rows from which a CUDA call takes the GEMM: below it the GEMV's
 # tensor-core tile, whose passes of 8 rows each read the whole weight, is
 # faster. chip_smoke.py's gemm_crossover line on the H100 (PERF.md): the
-# tile ahead at every m of the sweep up to 64, the GEMM at 128.
-GEMM_MIN_M = 65
+# tile ahead at every m of the sweep up to 16, the wgmma GEMM from 24 on.
+GEMM_MIN_M = 17
 # shared-memory budget of one pass's staged x (of the card's 227 KB)
 _SMEM_BUDGET = 200 * 1024
 _MAX_ROWS = 8  # matches MAX_ROWS in csrc/int4_gemv.cuh
@@ -43,7 +43,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _GEMV_ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
               _I, _I, _P]
-_GEMM_ARGS = _GEMV_ARGS[:-2] + [_P]
+_GEMM_ARGS = _GEMV_ARGS[:-2] + [_I, _P, _P, _P, _P]
+# csrc/int4_gemm.cu's tiles: 128 output columns by 128 rows of x by one
+# 128-input group, and the H100's streaming multiprocessors
+_GEMM_TILE = 128
+_SMS = 132
 _RMS_ARGS = [_P, _I, _P, _I, _I, ctypes.c_float, _P]
 
 
@@ -59,6 +63,16 @@ def route(m: int) -> str:
     """The kernel a CUDA call with m rows of x launches: "gemm" from
     GEMM_MIN_M rows on, else "gemv". Both take any n_in % 32 == 0."""
     return "gemm" if m >= GEMM_MIN_M else "gemv"
+
+
+def gemm_splits(n_in: int, n_out: int) -> int:
+    """Splits of the GEMM's groups (csrc/int4_gemm.cu): as many as keep
+    (column tiles x splits) within one wave of 132 SMs, each split at
+    least 8 groups. A function of the weight's shape alone, so a row's
+    sums never depend on m."""
+    tiles = -(-n_out // _GEMM_TILE)
+    groups = -(-n_in // 128)
+    return max(1, min(_SMS // tiles, groups // 8))
 
 
 def staged_row_bytes(n_in: int) -> int:
@@ -104,9 +118,10 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
-            out_dtype, eps=None, kernel: str):
+            out_dtype, eps=None, kernel: str, splits: int | None = None):
     """One launch of `kernel` ("gemv" or "gemm"; callers pass route(m)),
-    plus the rms_scale launch when eps is given."""
+    plus the rms_scale launch when eps is given. `splits` overrides
+    gemm_splits (chip_smoke.py's sweep of the rule)."""
     m, n_in = x2.shape
     dev = x2.device
     require(n_in % 32 == 0, f"the kernel needs n_in % 32 == 0, got {n_in}")
@@ -138,8 +153,19 @@ def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
             res.data_ptr() if res is not None else None, out.data_ptr(),
             out_bf16, m, n_in, qt.n_out, qt.n_groups]
     if kernel == "gemm":
+        # scratch: the staged x_eff tiles and group sums, and the split
+        # partials
+        row_tiles = -(-m // _GEMM_TILE)
+        tiles = row_tiles * qt.n_groups
+        xs = torch.empty(tiles, _GEMM_TILE * 128, dtype=torch.bfloat16,
+                         device=dev)
+        sx = torch.empty(tiles, _GEMM_TILE, dtype=torch.float32, device=dev)
+        splits = splits or gemm_splits(n_in, qt.n_out)
+        part = (torch.empty(splits, m, qt.n_out, dtype=torch.float32,
+                            device=dev) if splits > 1 else None)
         fn = _build.function("int4_gemm", "int4_gemm", _GEMM_ARGS)
-        rc = fn(*args, stream)
+        rc = fn(*args, splits, xs.data_ptr(), sx.data_ptr(),
+                part.data_ptr() if part is not None else None, stream)
     else:
         fn = _build.function("int4_gemv", "int4_gemv", _GEMV_ARGS)
         rc = fn(*args, rows_per_pass(m, n_in), stream)

@@ -7,12 +7,16 @@ block's own k/v. q is rounded to bf16; scores are f32 dots of bf16
 operands, times k_scale (int8) before * 1/sqrt(D); masked scores are -1e30
 and their p is 0; p is multiplied by v_scale (int8) before it is rounded
 to bf16 for the PV product; out = acc / l. The kernel is
-`csrc/prefill_attention.cu` (one block per slot, kv head and 64 query
-rows, see its header).
+`csrc/prefill_attention.cu` (one block per query tile of 64 rows, split
+of SPLIT_ROWS keys, kv head and slot, then a merge launch; see its
+header).
 
-The online softmax walks the keys in chunks of CHUNK rows from 0, and p
-rounds to bf16 against each chunk's running max, so the plain version
-walks the same chunks; kernel and plain version then differ only in the
+The keys are cut into splits of SPLIT_ROWS rows at fixed boundaries;
+each split runs its own online softmax over chunks of CHUNK rows from m
+= -1e30, l = 0, so p rounds to bf16 against the running max of its own
+split; a row then combines the splits 0 .. horizon // SPLIT_ROWS in
+order (attention_step.combine_splits). The plain version walks the same
+splits and chunks; kernel and plain version then differ only in the
 order of f32 sums. (The JAX kernel walks blocks of 256 to 1024 keys;
 against it the two agree to bf16 rounding of p.)
 """
@@ -26,12 +30,16 @@ import torch
 from llama_cu_awq_torch.ops.cuda import (_build, attn_scale, check_tensor,
                                          count, require, stream_ptr,
                                          use_plain)
+from llama_cu_awq_torch.ops.cuda.attention_step import combine_splits
 
-CHUNK = 64  # matches KC in csrc/prefill_attention.cu
+# SPLIT and KC in csrc/prefill_attention.cu (compile-time constants there;
+# tests/test_torch_prefill.py holds the three equal)
+SPLIT_ROWS = 256
+CHUNK = 64
 _NEG = -1e30
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]
+_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P]
 
 
 def kernel_takes(n_heads: int, n_kv: int, head_dim: int, T: int) -> bool:
@@ -40,6 +48,12 @@ def kernel_takes(n_heads: int, n_kv: int, head_dim: int, T: int) -> bool:
     kv head."""
     return (head_dim in (64, 128) and n_kv >= 1 and n_heads % n_kv == 0
             and T >= 1)
+
+
+def n_splits(window: int) -> int:
+    """Splits of a window of `window` keys: the kernel's grid and the
+    rows of its scratch."""
+    return -(-window // SPLIT_ROWS)
 
 
 def prefill_attention_plain(q, k, v, pos, k_scale=None, v_scale=None, *,
@@ -58,32 +72,39 @@ def prefill_attention_plain(q, k, v, pos, k_scale=None, v_scale=None, *,
     for b in range(B):
         p0 = int(pos[b])
         horizon = min(p0 + T - 1, window - 1)
-        m = torch.full((T, n_kv, kv_mul), _NEG, device=dev)
-        l = torch.zeros(T, n_kv, kv_mul, device=dev)
-        acc = torch.zeros(T, n_kv, kv_mul, D, device=dev)
-        for c0 in range(0, horizon + 1, CHUNK):
-            c1 = min(c0 + CHUNK, window)
-            kb = k[b, c0:c1].float()  # (n, n_kv, D)
-            vb = v[b, c0:c1].float()
-            raw = torch.einsum("thgd,shd->thgs", qg[b], kb)
-            if quantized:
-                raw = raw * k_scale[b, c0:c1].T[None, :, None, :]
-            sc = raw * scale
-            s_idx = torch.arange(c0, c1, device=dev)
-            valid = (s_idx[None, :] <= p0 + t_idx[:, None])[:, None, None, :]
-            sc = torch.where(valid, sc, torch.full_like(sc, _NEG))
-            m_new = torch.maximum(m, sc.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.where(valid, torch.exp(sc - m_new[..., None]),
-                            torch.zeros_like(sc))
-            l = l * alpha + p.sum(-1)
-            m = m_new
-            if quantized:
-                p = p * v_scale[b, c0:c1].T[None, :, None, :]
-            pv = torch.einsum("thgs,shd->thgd",
-                              p.to(torch.bfloat16).float(), vb)
-            acc = acc * alpha[..., None] + pv
-        out[b] = (acc / l[..., None]).reshape(T, H, D)
+        parts = []
+        for s0 in range(0, horizon + 1, SPLIT_ROWS):
+            # one split: its own online softmax over chunks of CHUNK keys
+            # (a row that sees none of them keeps l = 0 and stays out of
+            # the combine)
+            m = torch.full((T, n_kv, kv_mul), _NEG, device=dev)
+            l = torch.zeros(T, n_kv, kv_mul, device=dev)
+            acc = torch.zeros(T, n_kv, kv_mul, D, device=dev)
+            for c0 in range(s0, min(s0 + SPLIT_ROWS, horizon + 1), CHUNK):
+                c1 = min(c0 + CHUNK, window)
+                kb = k[b, c0:c1].float()  # (n, n_kv, D)
+                vb = v[b, c0:c1].float()
+                raw = torch.einsum("thgd,shd->thgs", qg[b], kb)
+                if quantized:
+                    raw = raw * k_scale[b, c0:c1].T[None, :, None, :]
+                sc = raw * scale
+                s_idx = torch.arange(c0, c1, device=dev)
+                valid = (s_idx[None, :] <= p0 + t_idx[:, None])[
+                    :, None, None, :]
+                sc = torch.where(valid, sc, torch.full_like(sc, _NEG))
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(valid, torch.exp(sc - m_new[..., None]),
+                                torch.zeros_like(sc))
+                l = l * alpha + p.sum(-1)
+                m = m_new
+                if quantized:
+                    p = p * v_scale[b, c0:c1].T[None, :, None, :]
+                pv = torch.einsum("thgs,shd->thgd",
+                                  p.to(torch.bfloat16).float(), vb)
+                acc = acc * alpha[..., None] + pv
+            parts.append((m, l, acc))
+        out[b] = combine_splits(parts).reshape(T, H, D)
     return out
 
 
@@ -112,13 +133,21 @@ def prefill_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
         check_tensor(k_scale, "k_scale", torch.float32, (B, S, n_kv), dev)
         check_tensor(v_scale, "v_scale", torch.float32, (B, S, n_kv), dev)
     check_tensor(pos, "pos", torch.int32, (B,), dev)
+    require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+            "the caches must start 16-byte aligned (the kernel's 16-byte "
+            "copies)")
     out = torch.empty(B, T, H, D, dtype=torch.float32, device=dev)
+    # the splits' partials: (m, l) and acc of every (slot, split, kv head,
+    # row); a split above a row's horizon leaves its entry unwritten
+    n_part = B * n_splits(window) * H * T
+    part_ml = torch.empty(n_part, 2, dtype=torch.float32, device=dev)
+    part_acc = torch.empty(n_part, D, dtype=torch.float32, device=dev)
     fn = _build.function("prefill_attention", "prefill_attention", _ARGS)
     rc = fn(qb.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None, pos.data_ptr(),
-            out.data_ptr(), B, T, H, n_kv, D, S, window, attn_scale(D),
-            stream_ptr())
+            out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(), B, T,
+            H, n_kv, D, S, window, attn_scale(D), stream_ptr())
     _build.check(rc, "prefill_attention", "prefill_attention")
     count("prefill_attention",
           f"{'int8' if quantized else 'bf16'}/B{B}/T{T}/H{H}/kv{n_kv}/D{D}")

@@ -169,14 +169,14 @@ class _RouterHandler(BaseHTTPRequestHandler):
         for b in self.router.candidates():
             self.router.acquire(b)
             self._relay_started = False  # bytes sent to the client?
+            self._released = False       # b released for this request?
             try:
                 _probe_tcp(b.base)  # fast-fail black-holed hosts
                 req = urllib.request.Request(
                     b.base + self.path, data=body,
                     headers={"Content-Type": "application/json"})
                 with urllib.request.urlopen(req, timeout=600) as resp:
-                    self._relay(resp)
-                self.router.release(b, ok=True)
+                    self._relay(resp, b)  # releases b, ok=True
                 return
             except urllib.error.HTTPError as e:
                 # backend answered: 4xx/5xx. 429/503 = that backend is
@@ -185,10 +185,10 @@ class _RouterHandler(BaseHTTPRequestHandler):
                 # the client's answer, not a routing issue.
                 payload = e.read()
                 if e.code not in (429, 503):
-                    self.router.release(b, ok=True)
+                    self._release(b, ok=True)
                     self._raw(e.code, "application/json", payload)
                     return
-                self.router.release(b, ok=False)
+                self._release(b, ok=False)
                 try:
                     last_err = (e.code, json.loads(payload))
                 except ValueError:
@@ -197,12 +197,12 @@ class _RouterHandler(BaseHTTPRequestHandler):
                 # the CLIENT died mid-relay: the backend is healthy —
                 # do not mark it down, do not replay the request, and
                 # do not write anything more to this connection
-                self.router.release(b, ok=True)
+                self._release(b, ok=True)
                 self.close_connection = True
                 return
             except (urllib.error.URLError, OSError,
                     http.client.HTTPException):
-                self.router.release(b, ok=False)
+                self._release(b, ok=False)
                 self.router.mark_down(b)
                 if self._relay_started:
                     # headers/partial body already went out: a retry
@@ -213,17 +213,29 @@ class _RouterHandler(BaseHTTPRequestHandler):
                     return
         self._json(*last_err)
 
-    def _relay(self, resp):
+    def _release(self, b: _Backend, ok: bool):
+        """Release b for this request once: _relay counts a served
+        request before the last bytes go out, and a later failure of
+        the same request must not release it again."""
+        if not self._released:
+            self._released = True
+            self.router.release(b, ok=ok)
+
+    def _relay(self, resp, b: _Backend):
         """Stream a backend response through: SSE re-chunked as bytes
         arrive (time-to-first-token survives the hop), plain JSON sent
         with Content-Length. Sets self._relay_started once any bytes
         have been written to the client (the caller must not write a
         second response after that). Client-side write failures raise
         _ClientGone so the caller never confuses them with a backend
-        failure (which would trigger mark-down + replay)."""
+        failure (which would trigger mark-down + replay). Once the
+        backend's answer is whole, b is released as served before the
+        client's last bytes are written, so a client that reads /stats
+        after its answer sees its request counted."""
         ctype = resp.headers.get("Content-Type", "application/json")
         if "text/event-stream" not in ctype:
             payload = resp.read()  # backend read OUTSIDE client writes
+            self._release(b, ok=True)
             self._relay_started = True
             try:
                 self._raw(resp.status, ctype, payload)
@@ -243,6 +255,7 @@ class _RouterHandler(BaseHTTPRequestHandler):
                     self.end_headers()
                     self._relay_started = True
                 if not chunk:
+                    self._release(b, ok=True)
                     self.wfile.write(b"0\r\n\r\n")
                     self.wfile.flush()
                     self.close_connection = True

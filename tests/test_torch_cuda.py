@@ -36,6 +36,8 @@ from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
 from llama_cu_awq_torch.ops.cuda.int4_matmul import (GEMM_MIN_M,
                                                      int4_matmul,
                                                      int4_matmul_fused)
+from llama_cu_awq_torch.ops.cuda.prefill_attention import (
+    SPLIT_ROWS as PFA_SPLIT)
 from llama_cu_awq_torch.ops.cuda.prefill_attention import prefill_attention
 from llama_cu_awq_torch.quant.int8 import quantize_dense_int8
 from llama_cu_awq_torch.quant.qtensor import QTensor
@@ -112,14 +114,17 @@ def test_int4_matmul_fused_matches_plain(gen, variant, m, n_in, n_out):
 
 @pytest.mark.parametrize("variant", ["prescale", "residual", "silu",
                                      "silu_gate_up_halves"])
-@pytest.mark.parametrize("m", [GEMM_MIN_M, 128, 200])
-def test_int4_gemm_matches_plain(gen, variant, m):
-    """The tensor-core GEMM from GEMM_MIN_M rows on: the four prologue and
-    epilogue forms, a whole 128-row tile, and 200 rows (a partial second
-    tile), over a partial last group and a tail of columns; the SwiGLU
-    form also from the gate and up halves of one (m, 2 * n_in) tensor,
-    as the forward passes them."""
-    n_in, n_out = 320, 200
+@pytest.mark.parametrize("m", [GEMM_MIN_M, 65, 100, 128, 200])
+@pytest.mark.parametrize("n_in,n_out", [(320, 200), (2048, 384),
+                                        (11008, 200)])
+def test_int4_gemm_matches_plain(gen, variant, m, n_in, n_out):
+    """The wgmma GEMM from GEMM_MIN_M rows on: the four prologue and
+    epilogue forms, partial and whole 128-row tiles of x and 200 rows (a
+    partial second tile), over a partial last group (320), two splits of
+    the groups (2048) and 86 groups in ten splits (11008, down's n_in),
+    with column counts that are not a multiple of the 128-column tile;
+    the SwiGLU form also from the gate and up halves of one (m, 2 * n_in)
+    tensor, as the forward passes them."""
     qt = _qtensor(gen, n_in, n_out)
     if variant == "silu_gate_up_halves":
         x, up = _randn(gen, m, 2 * n_in).chunk(2, dim=-1)
@@ -137,6 +142,34 @@ def test_int4_gemm_matches_plain(gen, variant, m):
     _close(out, ref, **INT4)
     if ss_ref is not None:
         _close(ss, ss_ref, **INT4)
+
+
+@pytest.mark.parametrize("variant", ["prescale", "residual", "silu"])
+@pytest.mark.parametrize("n_in,n_out", [(320, 200), (2048, 384)])
+def test_int4_gemm_rows_are_independent_and_repeatable(gen, variant, n_in,
+                                                       n_out):
+    """The first GEMM_MIN_M, 65 and 100 rows of a 128-row GEMM call, each
+    called alone, give the same bits as in the 128-row call (the order of
+    every sum depends on the weight's shape, never on m), and a second
+    128-row call gives the same bits as the first (no atomics), with one
+    split and with two."""
+    m = 128
+    qt = _qtensor(gen, n_in, n_out)
+    x = _randn(gen, m, n_in)
+    kw = _fused_kwargs(gen, variant, m, n_in, n_out)
+
+    def run(rows):
+        k = {name: ((v[0][:rows], v[1]) if name == "prescale"
+                    else v[:rows] if isinstance(v, torch.Tensor) else v)
+             for name, v in kw.items()}
+        return int4_matmul_fused(x[:rows], qt, **k)
+
+    full = run(m)
+    for rows in (GEMM_MIN_M, 65, 100, m):
+        for a, b in zip(full, run(rows)):
+            if a is not None:
+                assert torch.equal(a[:rows], b), (
+                    f"the first {rows} rows differ from the 128-row call")
 
 
 def test_int4_matmul_route_by_rows(gen):
@@ -397,11 +430,14 @@ def test_split_kernels_refuse_a_misaligned_cache(gen):
 
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("H,n_kv,D", [(4, 4, 128), (8, 2, 128), (32, 4, 64)])
-@pytest.mark.parametrize("positions", [(0,), (150,), (0, 201)])
+@pytest.mark.parametrize("positions", [
+    (0,), (150,), (0, 201), (PFA_SPLIT - 80,), (PFA_SPLIT - 79, 0)])
 def test_prefill_attention_matches_plain(gen, quant, H, n_kv, D, positions):
     """MHA and GQA, bf16 and int8, a block at position 0, one mid-window,
-    and two slots at different positions; T = 80 leaves a partial query
-    tile, and attn_len 320 stops short of the 384-row cache."""
+    two slots at different positions, and blocks whose last key (pos + T
+    - 1) is the last row of the first split and the first row of the
+    second; T = 80 leaves a partial query tile, and attn_len 320 stops
+    short of the 384-row cache."""
     B, S, T, attn_len = len(positions), 384, 80, 320
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     q = _randn(gen, B, T, H, D)

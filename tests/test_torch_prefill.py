@@ -30,8 +30,11 @@ from llama_cu_awq_torch.engine import engine as t_engine_mod
 from llama_cu_awq_torch.engine import perplexity as t_ppl
 from llama_cu_awq_torch.io.checkpoint import random_checkpoint as t_random
 from llama_cu_awq_torch.models import llama as tl
-from llama_cu_awq_torch.ops.cuda.int4_matmul import (int4_matmul,
+from llama_cu_awq_torch.ops.cuda.int4_matmul import (gemm_splits,
+                                                     int4_matmul,
                                                      int4_matmul_fused)
+from llama_cu_awq_torch.ops.cuda.prefill_attention import (
+    CHUNK, SPLIT_ROWS)
 from llama_cu_awq_torch.ops.cuda.prefill_attention import (
     prefill_attention as t_prefill_attention)
 from llama_cu_awq_torch.tokenizer import Tokenizer as TTokenizer
@@ -110,6 +113,55 @@ def test_prefill_attention_int8_plain_matches_pallas_interpret(rng):
     np.testing.assert_allclose(_np(got), _np(want), **ATTN)
 
 
+# blocks whose keys cross no split boundary, one, and three: the last key
+# (pos + T - 1) at 115, at SPLIT_ROWS (one row past the first split) and
+# at 3 * SPLIT_ROWS + 47
+_SPLIT_CASES = {"none": (16, 100), "one": (16, SPLIT_ROWS - 15),
+                "several": (32, 3 * SPLIT_ROWS + 16)}
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "gqa"])
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_prefill_attention_splits_match_pallas_interpret(rng, kind, case):
+    """The plain version's split walk and merge against the Pallas kernel
+    in interpret mode, for blocks whose keys cross 0, 1 and 3 split
+    boundaries: MHA bf16, MHA int8 (codes and scales into both) and GQA
+    2/1 bf16."""
+    T, pos = _SPLIT_CASES[case]
+    B, A, H, D = 1, 4 * SPLIT_ROWS, 2, 128
+    n_kv = 1 if kind == "gqa" else 2
+    (jq, tq), (jk, tk), (jv, tv) = _attn_inputs(rng, B, T, A, H, n_kv, D)
+    p = np.full(B, pos, np.int32)
+    if kind == "int8":
+        jkq, jks = j_quantize_kv(jk)
+        jvq, jvs = j_quantize_kv(jv)
+        want = j_prefill_attention(jq, jkq, jvq, jnp.asarray(p), jks, jvs,
+                                   interpret=True)
+        tk, tv, tks, tvs = (torch.from_numpy(np.array(a))
+                            for a in (jkq, jvq, jks, jvs))
+        got = t_prefill_attention(tq, tk, tv, torch.from_numpy(p), tks, tvs)
+    else:
+        want = j_prefill_attention(jq, jk, jv, jnp.asarray(p),
+                                   interpret=True)
+        got = t_prefill_attention(tq, tk, tv, torch.from_numpy(p))
+    np.testing.assert_allclose(_np(got), _np(want), **ATTN)
+
+
+def test_prefill_split_constants_match_the_kernel():
+    """The plain version splits and chunks where the kernel does: SPLIT
+    and KC are compile-time constants of csrc/prefill_attention.cu."""
+    import re
+    from pathlib import Path
+
+    import llama_cu_awq_torch
+
+    src = (Path(llama_cu_awq_torch.__file__).parent / "csrc"
+           / "prefill_attention.cu").read_text()
+    assert re.findall(r"constexpr int SPLIT = (\d+);", src) == [
+        str(SPLIT_ROWS)]
+    assert re.findall(r"constexpr int KC = (\d+);", src) == [str(CHUNK)]
+
+
 @pytest.mark.parametrize("quant", [False, True])
 def test_prefill_attention_causal(rng, quant):
     """Keys past pos + t do not change the output: poisoning them leaves
@@ -148,6 +200,21 @@ def test_int4_matmul_fused_plain_m128_matches_pallas_interpret(rng, variant):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-3)
     if ss_j is not None:
         np.testing.assert_allclose(_np(ss_t), _np(ss_j), rtol=2e-2)
+
+
+@pytest.mark.parametrize("n_in,n_out,splits", [
+    (4096, 3 * 4096, 1), (4096, 4096, 4), (4096, 2 * 11008, 1),
+    (11008, 4096, 4),                       # 7B: qkv, o, gate_up, down
+    (5120, 3 * 5120, 1), (5120, 5120, 3), (5120, 2 * 13824, 1),
+    (13824, 5120, 3),                       # 13B
+    (320, 200, 1), (2048, 384, 2), (11008, 200, 10)])
+def test_gemm_splits(n_in, n_out, splits):
+    """The GEMM's split rule at the 7B and 13B projections and the card
+    tests' shapes: no more (column tiles x splits) than 132 SMs, at least
+    8 groups a split, and no split where the tiles alone fill a wave."""
+    assert gemm_splits(n_in, n_out) == splits
+    tiles, groups = -(-n_out // 128), -(-n_in // 128)
+    assert splits == 1 or (tiles * splits <= 132 and groups // splits >= 8)
 
 
 def test_int4_matmul_plain_m128_matches_pallas_interpret(rng):

@@ -419,6 +419,59 @@ def test_router_over_two_servers(model):
             _stop(httpd, eng)
 
 
+def test_router_counts_before_the_answer(server):
+    """The router counts a request as served before the client's last
+    bytes go out: when the body of a plain JSON answer, or the
+    terminating chunk of an SSE answer, is written to the client, the
+    backend's `served` already includes that request. A client that
+    reads /stats right after its answer then sees its request."""
+    backend, _ = server
+    rhttpd, router = make_router([backend], host="127.0.0.1", port=0)
+    handler = rhttpd.RequestHandlerClass
+    seen = []  # (kind of last write, served at that moment)
+
+    class _Spy:
+        """The connection's writer: notes `served` at the SSE
+        terminator."""
+
+        def __init__(self, f):
+            self._f = f
+
+        def write(self, data):
+            if data == b"0\r\n\r\n":
+                seen.append(("sse", router.backends[0].served))
+            return self._f.write(data)
+
+        def __getattr__(self, name):
+            return getattr(self._f, name)
+
+    raw, setup = handler._raw, handler.setup
+
+    def spy_raw(self, code, ctype, body):
+        if self.command == "POST":
+            seen.append(("json", router.backends[0].served))
+        return raw(self, code, ctype, body)
+
+    def spy_setup(self):
+        setup(self)
+        self.wfile = _Spy(self.wfile)
+
+    handler._raw, handler.setup = spy_raw, spy_setup
+    threading.Thread(target=rhttpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{rhttpd.server_address[1]}"
+    try:
+        assert _post(base, {"prompt": "the cat", "max_tokens": 3})[0] == 200
+        assert seen == [("json", 1)]
+        assert router.backends[0].served == 1
+        assert _stream(base, {"prompt": "the mat", "max_tokens": 3})
+        assert seen == [("json", 1), ("sse", 2)]
+        assert _get(base, "/stats")[1]["backends"][0]["served"] == 2
+        assert router.backends[0].inflight == 0
+    finally:
+        rhttpd.shutdown()
+        rhttpd.server_close()
+
+
 def test_router_all_down_503():
     rhttpd, _ = make_router(["http://127.0.0.1:9"], host="127.0.0.1",
                             port=0, retry_s=0.1)
