@@ -4,7 +4,8 @@
     python3 chip_smoke.py    # needs one card
 
 Phases (any failure raises, so the script exits non-zero; none is caught):
-  1. the card: nvidia-smi name and power limit, torch and CUDA versions;
+  1. the card: nvidia-smi name and power limit, torch, CUDA, driver and
+     nvcc versions;
   2. build every kernel from llama_cu_awq_torch/csrc (one nvcc per source,
      all at once) and print the build seconds;
   3. kernels at Llama-2 7B shapes: each kernel and variant against its
@@ -89,6 +90,21 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      profile of one step each; and one 7B step at B=8 through (a), (b)
      and (c) from the same random cache, (b)'s and (c)'s logits
      bit-equal to (a)'s.
+  9. (run after phase 5) the engine's CUDA graphs
+     (llama_cu_awq_torch/engine/graphs.py): every
+     InferenceEngine path above already replays them (decode steps,
+     forced prompt steps, prefill blocks, perplexity), with every launch
+     count as before; this phase holds each against an engine made with
+     capture=False, bit for bit (tokens and the whole cache) and launch
+     for launch, in turns (eager, graph, graph, eager, after one untimed
+     run each way): the main path (256 greedy steps, and once sampled at
+     temperature 0.5, topp 0.6), fused_step over bf16 and int8 KV at the
+     2048 bucket (64 steps after a 1024-token prompt) and the 1920-token
+     prompt (time to first token); tok/s, TTFT, capture seconds and pool
+     bytes per graph; profiles of one decode chunk and of one block at
+     position 1024 each way; and the decode graph's design: a chunk of 16
+     steps as 16 replays of the step graph against one graph of the
+     whole chunk.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm, torch._weight_int8pack_mm; the
@@ -127,6 +143,22 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def toolkit_versions() -> dict:
+    """The driver's version (nvidia-smi) and nvcc's release line: CUDA
+    graphs of programmatic dependent and cooperative launches need a
+    recent CUDA 12 runtime and driver."""
+    from llama_cu_awq_torch.ops.cuda import _build
+
+    drv = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[-2:]
+    return {"driver": drv, "nvcc": " ".join(nvcc)}
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -1061,21 +1093,19 @@ def profile_run(torch, label, prepare, run, n, per, shares=None):
           flush=True)
 
 
-def profile_decode(torch, eng, prompt, steps=16):
-    """One decode chunk of `steps` tokens after the prompt."""
+def profile_decode(torch, eng, prompt, steps=16, label="decode_chunk"):
+    """One decode chunk of `steps` tokens after the prompt (through the
+    engine's graphs unless it was made with capture=False)."""
 
     def prepare():
         eng.reset()
         eng._prefill(prompt[:-1])
-        token = torch.tensor([prompt[-1]], dtype=torch.int32, device="cuda")
-        coins = eng._coins(steps)
+        eng._tok.fill_(prompt[-1])
         torch.cuda.synchronize()
-        return token, coins
+        return ()
 
-    def run(token, coins):
-        eng._decode_chunk(token, coins, eng._bucket_for(eng.pos + steps))
-
-    profile_run(torch, "decode_chunk", prepare, run, steps, "token")
+    profile_run(torch, label, prepare, lambda: eng._decode_chunk(steps),
+                steps, "token")
 
 
 def random_cache(torch, cfg, kv_quant, g, kv_bits=8, batch=1):
@@ -1167,7 +1197,7 @@ def e2e_phase(torch, launches):
                                max_seq=kw.pop("max_seq", 512), **kw)
 
     eng = engine()
-    eng.generate_benchmark(prompt, 16)  # warm-up
+    eng.generate_benchmark(prompt, 256)  # warm-up: captures the graphs
     toks, dt, tps = run_path(torch, "main",
                              lambda: eng.generate_benchmark(prompt, 256),
                              launches)
@@ -1234,7 +1264,9 @@ def prefill_phase(torch, params, launches):
                                seed=1234, max_seq=2048, **kw)
 
     eng = engine()
-    eng.generate_benchmark(prompt[:256], 256)  # warm-up: 2 blocks, 1 step
+    # warm-up: every block and step graph of the 1920-token prompt is
+    # captured before the timed run
+    eng.generate_benchmark(prompt, len(prompt))
 
     def prefill_run():
         # generate_benchmark: 1919 prompt tokens in 15 blocks (the last
@@ -1272,6 +1304,7 @@ def prefill_phase(torch, params, launches):
                              f"rows for 2 prompts of 15 blocks")
 
     eng8 = engine(kv_quant=True)
+    eng8.generate_benchmark(prompt[:256], 256)  # warm-up: the graphs
     toks8, dt8, _ = run_path(
         torch, "prefill_int8kv",
         lambda: eng8.generate_benchmark(prompt[:256], 256), launches)
@@ -1287,6 +1320,7 @@ def prefill_phase(torch, params, launches):
     # rows of int8 codes)
     eng_h8 = InferenceEngine(quantize_lm_head(params, 8), cfg, None,
                              temperature=0.0, seed=1234, max_seq=2048)
+    eng_h8.generate_benchmark(prompt[:256], 256)  # warm-up: the graphs
     toks_h8, dt_h8, _ = run_path(
         torch, "prefill_lm_head_int8",
         lambda: eng_h8.generate_benchmark(prompt[:256], 256), launches)
@@ -1322,12 +1356,15 @@ def prefill_phase(torch, params, launches):
     ppl_k = run_path(torch, "perplexity",
                      lambda: token_perplexity(eng, seq), launches)
     dt_k = time.perf_counter() - t0
+    # the plain versions run eagerly: a graph replays what it captured
+    eng_plain = engine(capture=False)
     kernel_forward = engine_mod.forward
     engine_mod.forward = functools.partial(kernel_forward, plain=True)
     try:
-        ppl_p = token_perplexity(eng, seq)
+        ppl_p = token_perplexity(eng_plain, seq)
     finally:
         engine_mod.forward = kernel_forward
+    del eng_plain
     d = abs(math.log(ppl_k) - math.log(ppl_p))
     print(json.dumps({"e2e": "perplexity", "tokens": len(seq),
                       "ppl_kernel": ppl_k, "ppl_plain": ppl_p,
@@ -1440,7 +1477,7 @@ def slice3_phase(torch, params, launches):
     # --- int4 KV: 15 prefill blocks through plain split-plane attention,
     # then decode at the 2048 bucket through attention_step_kv4 ---
     eng4 = engine(kv_quant=4, max_seq=2048)
-    eng4.generate_benchmark(prompt[:256], 256)  # warm-up: 2 blocks, 1 step
+    eng4.generate_benchmark(prompt, len(prompt))  # warm-up: the graphs
 
     def kv4_run():
         toks, ttft, _ = eng4.generate_benchmark(prompt, len(prompt))
@@ -2325,6 +2362,168 @@ def chain_phase(torch, timer, rows, params, launches):
     del cache
 
 
+def graph_table(eng):
+    """Per graph of an engine: its kind, block width, window, attention
+    path, capture seconds and the bytes the shared pool grew by."""
+    return [{"kind": repr(k[0]), "T": k[1], "window": k[2],
+             "attn_impl": k[3].attn_impl, "capture_s": g.capture_seconds,
+             "pool_bytes": g.pool_bytes}
+            for k, g in eng._graphs.graphs.items()]
+
+
+def caches_equal(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(
+        a.cache.k + a.cache.v + a.cache.k_scale + a.cache.v_scale,
+        b.cache.k + b.cache.v + b.cache.k_scale + b.cache.v_scale))
+
+
+def graph_turns(torch, name, engs, run, launches):
+    """run(engine) once each way untimed (the graph engine captures
+    there), then in turns eager, graph, graph, eager; the launches of the
+    first timed turn each way go under `name` and `name`_eager and must
+    be equal. Returns {way: [results]}."""
+    for way in ("graph", "eager"):
+        run(engs[way])
+    out = {"graph": [], "eager": []}
+    for i, way in enumerate(("eager", "graph", "graph", "eager")):
+        tag = name if way == "graph" else name + "_eager"
+        out[way].append(run_path(torch, tag, lambda: run(engs[way]),
+                                 launches) if i < 2 else run(engs[way]))
+    if launches[name] != launches[name + "_eager"]:
+        raise AssertionError(f"{name}: graph and eager launch counts "
+                             f"differ")
+    return out
+
+
+def chunk_against_steps(torch, eng, prompt, reps=5):
+    """The design choice of the decode graph: one chunk of 16 steps as 16
+    replays of the one-step graph (what the engine runs) against one
+    replay of a graph of all 16 steps, from the same state at the 512
+    bucket, in turns; host clock around each chunk and a sync."""
+    k, attn_len = eng.chunk_size, 512
+    eng.generate_benchmark(prompt, 300)  # the step graph at 512 exists
+    body = functools.partial(eng._decode_body, attn_len)
+    step_key = eng._graph_key("decode", 1, attn_len)
+    chunk_key = ("decode_chunk",) + step_key[1:]
+
+    def chunk_body():
+        for _ in range(k):
+            body()
+
+    start = eng.pos
+    eng._start()
+    eng._graphs.run(chunk_key, chunk_body)  # eager once, then captured
+    times = {"step_graph_x16": [], "chunk_graph_x1": []}
+    outs = {}
+    for way in ("step_graph_x16", "chunk_graph_x1", "chunk_graph_x1",
+                "step_graph_x16") * reps:
+        eng.pos = start
+        eng._start()
+        eng._tok.fill_(prompt[-1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if way == "step_graph_x16":
+            eng._graphs.run(step_key, body, k)
+        else:
+            eng._graphs.run(chunk_key, chunk_body)
+        torch.cuda.synchronize()
+        times[way].append(time.perf_counter() - t0)
+        outs[way] = eng._out.tolist()
+    chunk_graph = eng._graphs.graphs[chunk_key]
+    print(json.dumps({
+        "graph_design": "decode_chunk_16_at_512", "position": start,
+        **{f"{w}_ms_per_token": statistics.median(t) / k * 1e3
+           for w, t in times.items()},
+        "chunk_graph_capture_s": chunk_graph.capture_seconds,
+        "chunk_graph_pool_bytes": chunk_graph.pool_bytes,
+        "tokens_equal": outs["step_graph_x16"] == outs["chunk_graph_x1"]}),
+        flush=True)
+    if outs["step_graph_x16"] != outs["chunk_graph_x1"]:
+        raise AssertionError("the chunk graph and the step graph differ")
+    del eng._graphs.graphs[chunk_key]
+
+
+def graph_phase(torch, params, launches):
+    """The engine's CUDA graphs against eager launches at 7B (see the
+    module docstring, phase 9)."""
+    from llama_cu_awq_torch.config import LLAMA2_7B
+    from llama_cu_awq_torch.engine import InferenceEngine
+
+    cfg = LLAMA2_7B
+
+    def engines(**kw):
+        return {way: InferenceEngine(params, cfg, None, seed=1234,
+                                     capture=way == "graph",
+                                     **{"temperature": 0.0, **kw})
+                for way in ("graph", "eager")}
+
+    def report(name, engs, res, metric, **extra):
+        first = res["eager"][0][0]
+        equal = all(r[0] == first for r in res["graph"] + res["eager"])
+        same_cache = caches_equal(torch, engs["graph"], engs["eager"])
+        print(json.dumps({
+            "e2e": name, "model": "llama2-7b",
+            f"{metric}_graph": [r[1] for r in res["graph"]],
+            f"{metric}_eager": [r[1] for r in res["eager"]],
+            "tokens_equal": equal, "caches_bit_equal": same_cache,
+            "first_tokens": first[:8], **extra,
+            "graphs": graph_table(engs["graph"])}), flush=True)
+        if not (equal and same_cache):
+            raise AssertionError(f"{name}: the graphs and eager launches "
+                                 f"differ")
+
+    # --- the main path: 256 greedy steps, windows 128-512 ---
+    prompt = list(range(5, 13))
+    engs = engines(max_seq=512)
+    res = graph_turns(torch, "graph_main", engs,
+                      lambda e: e.generate_benchmark(prompt, 256)[::2],
+                      launches)
+    report("graph_main", engs, res, "tok_per_s", steps=256, max_seq=512)
+    profile_decode(torch, engs["eager"], prompt, label="decode_chunk_eager")
+    profile_decode(torch, engs["graph"], prompt, label="decode_chunk_graph")
+    chunk_against_steps(torch, engs["graph"], prompt)
+    del engs
+    # sampled at the CLI's defaults
+    engs = engines(max_seq=512, temperature=0.5, topp=0.6)
+    res = {way: [engs[way].generate_benchmark(prompt, 256)[::2]]
+           for way in ("graph", "eager")}
+    report("graph_main_sampled", engs, res, "tok_per_s", steps=256,
+           temperature=0.5, topp=0.6)
+    del engs
+
+    # --- fused_step at the 2048 bucket after a 1024-token prompt ---
+    long = [1] + [3 + (7919 * i) % 31990 for i in range(1919)]
+    for name, kv_quant in (("graph_fused_step_bf16", False),
+                           ("graph_fused_step_int8kv", True)):
+        engs = engines(attn_impl="fused_step", kv_quant=kv_quant,
+                       max_seq=2048)
+        res = graph_turns(torch, name, engs, lambda e: decode_run(
+            torch, e, long[:1024], 64), launches)
+        report(name, engs, res, "decode_tok_per_s", decode_steps=64)
+        del engs
+
+    # --- the 1920-token prompt: time to first token ---
+    engs = engines(max_seq=2048)
+    res = graph_turns(torch, "graph_prefill", engs, lambda e: (
+        e.generate_benchmark(long, len(long))[:2]), launches)
+    report("graph_prefill", engs, res, "time_to_first_token_s",
+           prompt_tokens=len(long))
+
+    def prepare_block(e):
+        def prepare():
+            e.reset()
+            e._prefill(long[:1024])
+            torch.cuda.synchronize()
+            return (long[1024:1152],)
+        return prepare
+
+    for way in ("eager", "graph"):
+        profile_run(torch, f"prefill_block_pos1024_{way}",
+                    prepare_block(engs[way]), engs[way]._prefill, 1,
+                    "block")
+    del engs
+
+
 def main() -> int:
     import torch
 
@@ -2345,6 +2544,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
+                      **toolkit_versions(),
                       "device": torch.cuda.get_device_name(0),
                       "device_count": torch.cuda.device_count()}),
           flush=True)
@@ -2362,6 +2562,7 @@ def main() -> int:
     launches: dict[str, dict] = {}
     params = e2e_phase(torch, launches)
     prefill_phase(torch, params, launches)
+    graph_phase(torch, params, launches)
     slice3_phase(torch, params, launches)
     slice4_phase(torch, timer, rows, params, launches)
     chain_phase(torch, timer, rows, params, launches)

@@ -16,12 +16,14 @@ supports: positional checkpoint plus
   --device {cuda,cpu}  default cuda; cpu runs the kernels' plain versions
 
 and the JAX CLI's options --max-seq, --kv-quant, --kv-bits, --attn-impl,
---spec, --spec-k and --lm-head-bits; --tp is not ported yet.
+--spec, --spec-k, --lm-head-bits and --profile DIR (a torch.profiler
+Chrome trace of the run, utils/profiling.py); --tp is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -69,6 +71,9 @@ def build_argparser() -> argparse.ArgumentParser:
                          "the same tokens as plain decode")
     ap.add_argument("--spec-k", type=int, default=7, metavar="K",
                     help="proposed tokens per verify (default 7)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "to DIR/trace.json")
     ap.add_argument("--tp", type=int, default=1, metavar="N")
     ap.add_argument("--lm-head-8bit", dest="lm_head_bits",
                     action="store_const", const=8,
@@ -108,7 +113,6 @@ def main(argv=None) -> int:
 
     from llama_cu_awq_torch.device import resolve_device
     from llama_cu_awq_torch.engine import InferenceEngine
-    from llama_cu_awq_torch.engine.perplexity import dataset_perplexity
     from llama_cu_awq_torch.io.checkpoint import load_checkpoint
     from llama_cu_awq_torch.models import (params_from_checkpoint,
                                            quantize_lm_head)
@@ -129,6 +133,20 @@ def main(argv=None) -> int:
         temperature=args.temperature, topp=args.topp, seed=args.seed,
         spec=args.spec, spec_k=args.spec_k,
         max_seq=args.max_seq or ckpt.config.seq_len, device=device)
+
+    if args.profile:
+        from llama_cu_awq_torch.utils.profiling import profile_trace
+
+        profile_cm = profile_trace(args.profile)
+    else:
+        profile_cm = contextlib.nullcontext()
+    with profile_cm:
+        rc = _run_mode(args, engine, prompt, perplexity)
+    return rc
+
+
+def _run_mode(args, engine, prompt, perplexity: bool) -> int:
+    from llama_cu_awq_torch.engine.perplexity import dataset_perplexity
 
     if perplexity:
         if not args.dataset:

@@ -1,16 +1,30 @@
 """Single-sequence inference engine: generate and chat.
 
-The counterpart of llama_cu_awq_tpu/engine/engine.py. Each decode chunk is
-a Python loop of forward + sample steps in which the sampled token stays on
-the device and feeds the next step's embedding lookup; the chunk's coins
-are one device tensor, and the host syncs once per chunk, when it reads the
-chunk's tokens (the role the JAX package's lax.scan chunk plays). Prompts
-of PREFILL_BLOCK // 2 tokens and more go through blocks of PREFILL_BLOCK
-tokens, one forward each (the JAX package's per-block loop; its scanned
-multi-block prefill has no counterpart yet); shorter ones through the T=1
-path, teacher-forced and without the lm_head (the reference's
-token-by-token prefill). The xorshift coin stream and the reference's
-one-step print lag follow the JAX engine exactly.
+The counterpart of llama_cu_awq_tpu/engine/engine.py, with the
+counterparts of its three device-resident loops. The step state lives on
+the device in buffers of fixed address: the next position (_pos_buf),
+the step's index (_idx) into the chunk's coins and tokens or into the
+staged prompt, and the next input token (_tok). A step body computes
+everything from them and advances them on the device:
+- a decode step (_decode_body, the body of _decode_chunk_fn's scan)
+  forwards _tok at _pos_buf, samples with coin _coin_buf[_idx], clamps
+  the token and writes it to _out[_idx] and to _tok;
+- a prompt step (_prompt_body) forwards _prompt_buf[_idx:_idx + T] at
+  _pos_buf: T = 1 without the lm_head is the body of _forced_chunk_fn's
+  scan (prompts of fewer than PREFILL_BLOCK // 2 tokens), T =
+  PREFILL_BLOCK the body of _prefill_scan_fn's (blocks of a longer
+  prompt, the last padded with token 0); with the head, the logits go to
+  _logits.
+On the card each body is a CUDA graph (engine/graphs.py), captured once
+per kind, block width, attention window and forward's plan
+(models/llama.plan), and replayed once a step or block: a chunk of k
+steps is k replays of one graph, so a short last chunk, an EOS rewind and
+the max_seq clamp take the graphs every full chunk takes. Each block
+replays at its own window, as the JAX package's per-block loop does (its
+scan widens the window to the chunk's end). On the CPU the same bodies
+run eagerly, and `capture=False` runs them so on the card. The host syncs
+once per chunk, where it reads the chunk's tokens. The xorshift coin
+stream and the reference's one-step print lag follow the JAX engine.
 
 Speculative decoding (spec="ngram", the JAX engine's prompt lookup):
 propose_ngram takes the spec_k tokens that followed the latest earlier
@@ -24,6 +38,7 @@ decode would draw there (peeked, then consumed only for emitted tokens).
 
 from __future__ import annotations
 
+import functools
 import sys
 import time
 
@@ -32,8 +47,10 @@ import torch
 
 from llama_cu_awq_torch.config import ModelConfig
 from llama_cu_awq_torch.device import resolve_device
+from llama_cu_awq_torch.engine.graphs import GraphSet
 from llama_cu_awq_torch.models.llama import (LlamaParams, forward,
-                                             init_kv_cache)
+                                             init_kv_cache, plan)
+from llama_cu_awq_torch.ops.cuda.attention_step import reserve_split_scratch
 from llama_cu_awq_torch.sampling import XorshiftRNG, sample_token
 from llama_cu_awq_torch.tokenizer import EOS_TOKEN, Tokenizer
 
@@ -74,13 +91,44 @@ def attn_buckets(seq_len: int, first: int = 128, n_bins: int = 8):
     return bins
 
 
+class _Stage:
+    """Host values on their way to a device buffer: on the card through
+    pinned memory and a copy that does not block the host. A slot is
+    written again only after the copy that read it has run (an event), so
+    chunks chained without a host sync never see their coins change."""
+
+    def __init__(self, n: int, dtype, device: torch.device, slots: int):
+        pin = device.type == "cuda"
+        self.host = [torch.zeros(n, dtype=dtype, pin_memory=pin)
+                     for _ in range(slots)]
+        self.done = [torch.cuda.Event() if pin else None
+                     for _ in range(slots)]
+        self.slot = 0
+
+    def put(self, values, dst: torch.Tensor) -> None:
+        """dst[:len(values)] = values, in stream order."""
+        s = self.slot
+        self.slot = (s + 1) % len(self.host)
+        if self.done[s] is not None:
+            self.done[s].synchronize()
+        src = self.host[s][:len(values)]
+        src.copy_(torch.tensor(values, dtype=src.dtype))
+        dst[:len(values)].copy_(src, non_blocking=True)
+        if self.done[s] is not None:
+            self.done[s].record()
+
+
 class InferenceEngine:
     def __init__(self, params: LlamaParams, cfg: ModelConfig,
                  tokenizer: Tokenizer | None = None, *,
                  attn_impl: str | None = None, kv_quant: bool | int = False,
                  max_seq: int | None = None, temperature: float = 0.5,
                  topp: float = 0.6, seed: int = 0, chunk_size: int = 16,
-                 spec: str | None = None, spec_k: int = 7, device="cuda"):
+                 spec: str | None = None, spec_k: int = 7, device="cuda",
+                 capture: bool = True):
+        """capture=False runs the step bodies eagerly on the card too (how
+        chip_smoke.py and the card tests hold the graphs to eager
+        launches); on the CPU they always run eagerly."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
@@ -107,6 +155,36 @@ class InferenceEngine:
         self._buckets = attn_buckets(self.max_seq)
         self.cache = self._init_cache()
         self.pos = 0  # persists across chat turns (llama2_q4.cu:526-527)
+        self._init_step_state(capture)
+
+    def _init_step_state(self, capture: bool):
+        """The step bodies' device buffers (see the module docstring). The
+        host's self.pos is the count; _pos_buf follows it, set from it at
+        the start of every chunk, prompt and block run."""
+        dev, cfg = self.device, self.cfg
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(*shape, dtype=dtype, device=dev)
+
+        self._pos_buf = zeros(1)
+        self._idx = zeros(1, dtype=torch.int64)
+        self._tok = zeros(1, 1)
+        self._coin_buf = zeros(self.chunk_size, dtype=torch.float32)
+        self._out = zeros(self.chunk_size)
+        self._prompt_buf = zeros(self.max_seq + PREFILL_BLOCK)
+        self._block_rows = torch.arange(PREFILL_BLOCK, device=dev)
+        self._logits = zeros(PREFILL_BLOCK, cfg.vocab_size,
+                             dtype=torch.float32)
+        # coins double-buffered: generate_benchmark queues chunk i + 1
+        # while chunk i's copy may not have run
+        self._coin_stage = _Stage(self.chunk_size, torch.float32, dev, 2)
+        self._prompt_stage = _Stage(self.max_seq + PREFILL_BLOCK,
+                                    torch.int32, dev, 1)
+        self._graphs = None
+        if capture and dev.type == "cuda":
+            self._graphs = GraphSet(dev, lambda: reserve_split_scratch(
+                dev, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                cfg.head_dim, self.max_seq))
 
     def _init_cache(self):
         return init_kv_cache(self.cfg, 1, self.max_seq,
@@ -123,29 +201,85 @@ class InferenceEngine:
         return torch.arange(self.pos, self.pos + n, dtype=torch.int32,
                             device=self.device)
 
-    def _decode_chunk(self, token: torch.Tensor, coins: torch.Tensor,
-                      attn_len: int) -> torch.Tensor:
-        """len(coins) sampled steps from self.pos; token (1,) on the device.
-        Returns the (k, 1) sampled tokens, still on the device."""
-        positions = self._positions(coins.shape[0])
-        toks = []
-        for i in range(coins.shape[0]):
-            logits, _ = forward(self.params, self.cfg, token[:, None],
-                                positions[i:i + 1], self.cache,
-                                attn_len=attn_len, attn_impl=self.attn_impl)
-            nxt = sample_token(logits, coins[i], self.temperature, self.topp)
-            # garbage-token clamp (llama2_q4.cu:474)
-            token = torch.where(nxt >= self.cfg.vocab_size,
-                                torch.zeros_like(nxt), nxt)
-            toks.append(token)
-        return torch.stack(toks)
+    # ------------------------------------------------------------------
+    # step bodies on the device state, and their graphs
+
+    def _advance(self, n: int):
+        self._pos_buf.add_(n)
+        self._idx.add_(n)
+
+    def _decode_body(self, attn_len: int):
+        """One sampled step: _tok at _pos_buf, coin _coin_buf[_idx]; the
+        token to _out[_idx] and _tok."""
+        logits, _ = forward(self.params, self.cfg, self._tok, self._pos_buf,
+                            self.cache, attn_len=attn_len,
+                            attn_impl=self.attn_impl)
+        coin = self._coin_buf.index_select(0, self._idx)
+        nxt = sample_token(logits, coin, self.temperature, self.topp)
+        # garbage-token clamp (llama2_q4.cu:474)
+        nxt = torch.where(nxt >= self.cfg.vocab_size, torch.zeros_like(nxt),
+                          nxt)
+        self._out.index_copy_(0, self._idx, nxt)
+        self._tok.copy_(nxt.view(1, 1))
+        self._advance(1)
+
+    def _prompt_body(self, attn_len: int, T: int, head: bool):
+        """T teacher-forced tokens _prompt_buf[_idx:_idx + T] at _pos_buf;
+        with head, their f32 logits to _logits[:T]."""
+        rows = self._idx + self._block_rows[:T]
+        toks = self._prompt_buf.index_select(0, rows)[None]
+        logits, _ = forward(self.params, self.cfg, toks, self._pos_buf,
+                            self.cache, attn_len=attn_len,
+                            attn_impl=self.attn_impl, logits_all=head,
+                            no_logits=not head)
+        if head:
+            self._logits[:T].copy_(logits[0])
+        self._advance(T)
+
+    def _graph_key(self, kind, T: int, attn_len: int) -> tuple:
+        """What a graph of a body holds fixed: its kind, block width and
+        window, and forward's plan there (models/llama.plan: attn_impl
+        after "auto", the cache format, the lm_head's type, the
+        LLAMA_TPU_DOWN_QKV switch). No chunk length."""
+        return (kind, T, attn_len, plan(self.params, self.cfg, self.cache,
+                                        1, T, attn_len, self.attn_impl))
+
+    def _run(self, kind, T: int, attn_len: int, body, n: int = 1):
+        """body() n times: eagerly without graphs, else through the graph
+        of its key."""
+        if self._graphs is None:
+            for _ in range(n):
+                body()
+        else:
+            self._graphs.run(self._graph_key(kind, T, attn_len), body, n)
+
+    def _start(self):
+        """The device state from the host's: position self.pos, index 0."""
+        self._pos_buf.fill_(self.pos)
+        self._idx.zero_()
+
+    def _decode_chunk(self, k: int) -> torch.Tensor:
+        """k sampled steps from self.pos, the first fed from _tok, at the
+        window of pos + k; draws k xorshift coins. Returns the (k,) tokens
+        on the device, a view of _out valid until the next chunk."""
+        self._coin_stage.put([self.rng.random_f32() for _ in range(k)],
+                             self._coin_buf)
+        self._start()
+        attn_len = self._bucket_for(self.pos + k)
+        self._run("decode", 1, attn_len,
+                  functools.partial(self._decode_body, attn_len), k)
+        return self._out[:k]
 
     def _coins(self, k: int) -> torch.Tensor:
         return torch.tensor([[self.rng.random_f32()] for _ in range(k)],
                             dtype=torch.float32, device=self.device)
 
     def reset(self):
-        self.cache = self._init_cache()
+        # in place, where the JAX engine builds a new cache: the graphs
+        # hold the cache's addresses
+        c = self.cache
+        for t in c.k + c.v + c.k_scale + c.v_scale:
+            t.zero_()
         self.pos = 0
         self._hist = []
 
@@ -166,40 +300,39 @@ class InferenceEngine:
         rows on the host, moved one block at a time.
         """
         assert tokens
+        if self.pos + len(tokens) > self.max_seq:
+            raise ValueError(f"{len(tokens)} tokens at position {self.pos} "
+                             f"pass max_seq {self.max_seq}")
         self._hist.extend(tokens)
+        # the prompt on the device, padded with 0 to a whole block
+        n_pad = -(-len(tokens) // PREFILL_BLOCK) * PREFILL_BLOCK
+        self._prompt_stage.put(tokens + [0] * (n_pad - len(tokens)),
+                               self._prompt_buf)
+        self._start()
         if not collect_logits and len(tokens) < PREFILL_BLOCK // 2:
             attn_len = self._bucket_for(self.pos + len(tokens))
-            toks = torch.tensor(tokens, dtype=torch.int32,
-                                device=self.device)
-            positions = self._positions(len(tokens))
-            for i in range(len(tokens)):
-                forward(self.params, self.cfg, toks[i:i + 1, None],
-                        positions[i:i + 1], self.cache, attn_len=attn_len,
-                        attn_impl=self.attn_impl, no_logits=True)
+            self._run(("prompt", False), 1, attn_len, functools.partial(
+                self._prompt_body, attn_len, 1, False), len(tokens))
             self.pos += len(tokens)
             return None
         rows, last, i = [], None, 0
         while i < len(tokens):
-            chunk = tokens[i:i + PREFILL_BLOCK]
-            block = 1 if len(chunk) == 1 else PREFILL_BLOCK
+            n = min(PREFILL_BLOCK, len(tokens) - i)
+            block = 1 if n == 1 else PREFILL_BLOCK
             if self.pos + block > self.max_seq:
-                block, chunk = 1, tokens[i:i + 1]
-            padded = torch.tensor([chunk + [0] * (block - len(chunk))],
-                                  dtype=torch.int32, device=self.device)
+                block, n = 1, 1
             # the lm_head runs on the prompt's last block only, or on every
             # block for collect_logits (perplexity)
-            head = collect_logits or i + len(chunk) == len(tokens)
-            logits, _ = forward(self.params, self.cfg, padded,
-                                self._positions(1), self.cache,
-                                attn_len=self._bucket_for(self.pos + block),
-                                attn_impl=self.attn_impl, logits_all=head,
-                                no_logits=not head)
+            head = collect_logits or i + n == len(tokens)
+            attn_len = self._bucket_for(self.pos + block)
+            self._run(("prompt", head), block, attn_len, functools.partial(
+                self._prompt_body, attn_len, block, head))
             if collect_logits:
-                rows.append(logits[0, :len(chunk)].cpu())
+                rows.append(self._logits[:n].to("cpu", copy=True))
             if head:
-                last = logits[0, len(chunk) - 1]
-            self.pos += len(chunk)
-            i += len(chunk)
+                last = self._logits[n - 1].clone()
+            self.pos += n
+            i += n
         return torch.cat(rows) if collect_logits else last
 
     def _consume_coins(self, n: int):
@@ -275,16 +408,14 @@ class InferenceEngine:
         overwritten before any later read."""
         generated: list[int] = []
         done = 0
+        self._tok.copy_(token.view(1, 1))
         while done < max_steps:
             if self.pos >= self.max_seq:
                 break  # cache full
             k = min(self.chunk_size, max_steps - done,
                     self.max_seq - self.pos)
             snapshot = self.rng.state
-            coins = self._coins(k)
-            toks = self._decode_chunk(token, coins,
-                                      self._bucket_for(self.pos + k))
-            host = toks[:, 0].tolist()  # the per-chunk host sync point
+            host = self._decode_chunk(k).tolist()  # the host sync point
             if stop_at_eos and EOS_TOKEN in host:
                 used = host.index(EOS_TOKEN) + 1
                 self.rng.state = snapshot  # one coin per executed step
@@ -300,7 +431,6 @@ class InferenceEngine:
                 on_token(host)
             self.pos += k
             done += k
-            token = toks[-1]
         return generated, False
 
     # ------------------------------------------------------------------
@@ -412,15 +542,13 @@ class InferenceEngine:
             return tokens, dt, (steps - 1) / dt
         outs = []
         remaining = steps - n_pref + 1
+        self._tok.copy_(token.view(1, 1))
         while remaining > 0 and self.pos < self.max_seq:
             k = min(self.chunk_size, remaining, self.max_seq - self.pos)
-            toks = self._decode_chunk(token, self._coins(k),
-                                      self._bucket_for(self.pos + k))
-            outs.append(toks)
-            token = toks[-1]
+            outs.append(self._decode_chunk(k).clone())
             self.pos += k
             remaining -= k
-        tokens = torch.cat(outs)[:, 0].tolist()
+        tokens = torch.cat(outs).tolist()
         dt = time.time() - start
         return tokens, dt, (steps - 1) / dt
 

@@ -351,6 +351,65 @@ def _post_attention_chained(attn, x, layer: LlamaLayer,
                              out_dtype=act_dtype, plain=plain)
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What forward decides on the host for one call, from the shapes,
+    the cache format, the lm_head's type, attn_impl and the environment;
+    nothing in it is read from a device tensor. A CUDA graph of a forward
+    holds only under the plan it was captured with: engine/graphs.py keys
+    its graphs by it."""
+
+    attn_impl: str | None  # after "auto"
+    fstep: bool     # T == 1 through the attention_step kernel
+    bstep: bool     # T == 1 through batched_decode_attention
+    pfk: bool       # T > 1 through the prefill_attention kernel
+    kv4: bool       # the int4 cache
+    quantized: bool  # int8 or int4 cache
+    dq_chain: bool  # the down->next-qkv chain launches
+    head: str       # the lm_head's type
+
+
+def plan(params: LlamaParams, cfg: ModelConfig, cache: KVCache, B: int,
+         T: int, A: int, attn_impl: str | None) -> Plan:
+    """forward's choices for a (B, T) block over an A-row window (see
+    forward); raises ValueError where an explicit attn_impl's kernel
+    cannot take the call."""
+    H, D, KV = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
+    kv4 = cache.quantized and cache.k[0].shape[-1] == D // 2
+    step_ok = kernel_takes(H, KV, D)
+    if attn_impl == "fused_step" and not step_ok:
+        raise ValueError(
+            f"attn_impl='fused_step': the attention_step kernel cannot take "
+            f"n_heads={H}, n_kv_heads={KV}, head_dim={D}")
+    batched = attn_impl in ("batched", "batched_static")
+    if batched and kv4:
+        raise ValueError(
+            f"attn_impl={attn_impl!r}: the batched_decode_attention kernel "
+            f"does not take the int4 KV cache (kv_bits=4)")
+    if batched and not bda.kernel_takes(H, KV, D):
+        raise ValueError(
+            f"attn_impl={attn_impl!r}: the batched_decode_attention kernel "
+            f"cannot take n_heads={H}, n_kv_heads={KV}, head_dim={D}")
+    if attn_impl == "auto":
+        attn_impl = ("fused_step" if step_ok and A >= FSTEP_MIN_WINDOW
+                     else None)
+    fstep = attn_impl == "fused_step" and T == 1
+    # T > 1 blocks (prefill, perplexity): the flash kernel over the
+    # unsliced cache (models/llama.py:637-661 of the JAX package); the
+    # int4 cache takes plain attention there, as in the JAX package
+    pfk = (T >= PFK_MIN_T and not kv4 and attn_impl != "einsum"
+           and pfa.kernel_takes(H, KV, D, T))
+    # down->next-qkv chain (models/llama.py:669-677 of the JAX package):
+    # opt-in, T == 1 fused_step steps only; layer 0's qkv and the last
+    # layer's down stay standalone
+    dq_chain = (fstep and len(params.layers) > 1
+                and os.environ.get("LLAMA_TPU_DOWN_QKV", "0") == "1"
+                and dq.supported(params.layers[0].w_down,
+                                 params.layers[1].wqkv, B * T))
+    return Plan(attn_impl, fstep, batched and T == 1, pfk, kv4,
+                cache.quantized, dq_chain, type(params.lm_head).__name__)
+
+
 def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
             pos: torch.Tensor, cache: KVCache, *,
             attn_len: int | None = None, act_dtype=torch.bfloat16,
@@ -396,45 +455,16 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
     B, T = tokens.shape
     A = attn_len or cache.k[0].shape[1]
     H, D, KV = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
-    kv4 = cache.quantized and cache.k[0].shape[-1] == D // 2
+    p = plan(params, cfg, cache, B, T, A, attn_impl)
+    attn_impl, kv4, fstep, bstep, pfk, dq_chain = (
+        p.attn_impl, p.kv4, p.fstep, p.bstep, p.pfk, p.dq_chain)
+    n_layers = len(params.layers)
 
     x = params.embed[tokens.long()].to(act_dtype)  # (B, T, dim)
     positions = pos[:, None].long() + torch.arange(T, device=pos.device)
     xf = x.float()
     ss = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + RMS_EPS)
 
-    step_ok = kernel_takes(H, KV, D)
-    if attn_impl == "fused_step" and not step_ok:
-        raise ValueError(
-            f"attn_impl='fused_step': the attention_step kernel cannot take "
-            f"n_heads={H}, n_kv_heads={KV}, head_dim={D}")
-    batched = attn_impl in ("batched", "batched_static")
-    if batched and kv4:
-        raise ValueError(
-            f"attn_impl={attn_impl!r}: the batched_decode_attention kernel "
-            f"does not take the int4 KV cache (kv_bits=4)")
-    if batched and not bda.kernel_takes(H, KV, D):
-        raise ValueError(
-            f"attn_impl={attn_impl!r}: the batched_decode_attention kernel "
-            f"cannot take n_heads={H}, n_kv_heads={KV}, head_dim={D}")
-    if attn_impl == "auto":
-        attn_impl = ("fused_step" if step_ok and A >= FSTEP_MIN_WINDOW
-                     else None)
-    fstep = attn_impl == "fused_step" and T == 1
-    bstep = batched and T == 1
-    # T > 1 blocks (prefill, perplexity): the flash kernel over the
-    # unsliced cache (models/llama.py:637-661 of the JAX package); the
-    # int4 cache takes plain attention there, as in the JAX package
-    pfk = (T >= PFK_MIN_T and not kv4 and attn_impl != "einsum"
-           and pfa.kernel_takes(H, KV, D, T))
-    # down->next-qkv chain (models/llama.py:669-677 of the JAX package):
-    # opt-in, T == 1 fused_step steps only; layer 0's qkv and the last
-    # layer's down stay standalone
-    n_layers = len(params.layers)
-    dq_chain = (fstep and n_layers > 1
-                and os.environ.get("LLAMA_TPU_DOWN_QKV", "0") == "1"
-                and dq.supported(params.layers[0].w_down,
-                                 params.layers[1].wqkv, B * T))
     # per-forward constants, shared by every layer
     rows = _cache_rows(positions, cache.k[0].shape[1])
     if fstep:

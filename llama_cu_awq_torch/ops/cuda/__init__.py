@@ -5,8 +5,11 @@ to the kernel (or raises), a CPU tensor to the plain version. `plain=True`
 asks for the plain version on any device; it is how a caller holds a
 kernel against it. LAUNCHES counts, per kernel, the launches its wrapper
 made, and VARIANT_LAUNCHES the same launches per "kernel/variant" (the
-flags and shapes of the call); only count() touches them, and each
-wrapper calls it once where it launches its kernel.
+flags and shapes of the call); only count() and add_launches() touch
+them. Each wrapper calls count() once where it launches its kernel;
+add_launches() adds back the launches a CUDA graph replays
+(engine/graphs.py), which the wrappers counted once, while it was
+captured.
 """
 
 from __future__ import annotations
@@ -26,6 +29,17 @@ def count(kernel: str, variant: str) -> None:
     LAUNCHES[kernel] += 1
     key = f"{kernel}/{variant}"
     VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
+
+
+def add_launches(kernels: dict[str, int], variants: dict[str, int]) -> None:
+    """Add per-kernel and per-variant launch counts (negative ones take
+    them back)."""
+    for k, n in kernels.items():
+        LAUNCHES[k] += n
+    for key, n in variants.items():
+        VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + n
+        if VARIANT_LAUNCHES[key] == 0:
+            del VARIANT_LAUNCHES[key]
 
 
 def reset_launches() -> None:

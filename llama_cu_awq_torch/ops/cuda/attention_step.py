@@ -57,6 +57,10 @@ _NEG = -1e30
 # split kernels
 _SCRATCH: dict[tuple[torch.device, int],
                tuple[torch.Tensor, torch.Tensor]] = {}
+# scratch that a growth replaced, kept alive: a CUDA graph captured before
+# it still points there (PyTorch hands out its streams from a pool, so two
+# engines' graph sets may capture on one stream)
+_RETIRED: list[torch.Tensor] = []
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = [_P] * 16 + [_I] * 6 + [_P]
@@ -70,8 +74,13 @@ def split_scratch(dev, B: int, n_kv: int, kv_mul: int, D: int, win: int):
     (device, stream), so launches that share a scratch run in order, and
     grown on demand. Growing frees the old tensors, so it is refused while
     the stream is being captured into a CUDA graph: a graph must find its
-    scratch sized, for its largest batch and window, before capture."""
+    scratch sized, for its largest batch and window, before capture
+    (reserve_split_scratch). Outside a capture the replaced tensors stay
+    alive (_RETIRED) for the graphs captured on them."""
     n = B * n_kv * n_splits(win) * kv_mul
+    dev = torch.device(dev)
+    if dev.index is None:  # "cuda" and "cuda:0" are one key
+        dev = torch.device(dev.type, torch.cuda.current_device())
     key = (dev, stream_ptr())
     part, counters = _SCRATCH.get(key, (None, None))
     grow_part = part is None or part.numel() < n * (D + 2)
@@ -81,12 +90,25 @@ def split_scratch(dev, B: int, n_kv: int, kv_mul: int, D: int, win: int):
                 "the split kernels' scratch must be sized before a CUDA "
                 "graph capture (a launch larger than any before it)")
     if grow_part:
+        if part is not None:
+            _RETIRED.append(part)
         part = torch.empty(n * (D + 2), dtype=torch.float32, device=dev)
     if grow_counters:
+        if counters is not None:
+            _RETIRED.append(counters)
         counters = torch.zeros(B * n_kv, dtype=torch.int32, device=dev)
     _SCRATCH[key] = (part, counters)
     return (part.data_ptr(), part.data_ptr() + 4 * 2 * n,
             counters.data_ptr())
+
+
+def reserve_split_scratch(dev, B: int, n_kv: int, kv_mul: int, D: int,
+                          win: int) -> None:
+    """Size the split kernels' scratch on the current stream for launches
+    of up to B slots over windows of up to `win` rows: what a CUDA graph's
+    capture stream needs before its first capture, since split_scratch
+    refuses to grow during one."""
+    split_scratch(dev, B, n_kv, kv_mul, D, win)
 
 
 def kernel_takes(n_heads: int, n_kv: int, head_dim: int) -> bool:

@@ -925,3 +925,197 @@ def test_decode_step_on_card_equals_forward(gen, quantized):
         for a, b in zip(c.k + c.v + c.k_scale + c.v_scale,
                         r.k + r.v + r.k_scale + r.v_scale):
             assert torch.equal(a, b), impl
+
+
+# ---------------------------------------------------------------------------
+# the engine's CUDA graphs (engine/graphs.py) against eager launches
+
+_CFG2K = ModelConfig(dim=256, hidden_dim=384, n_layers=2, n_heads=2,
+                     n_kv_heads=1, vocab_size=512, seq_len=2048)
+
+
+def _counted(fn):
+    """fn()'s result and the launches it counted, the device idle after."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES), dict(VARIANT_LAUNCHES)
+
+
+def _caches_equal(a, b):
+    for x, y in zip(a.cache.k + a.cache.v + a.cache.k_scale + a.cache.v_scale,
+                    b.cache.k + b.cache.v + b.cache.k_scale + b.cache.v_scale):
+        assert torch.equal(x, y)
+
+
+def _graph_and_eager(fn, params, cfg, **kw):
+    """fn(engine) on an engine that replays graphs and on one that launches
+    eagerly: equal results, caches and launch counts, bit for bit.
+    Returns the graph engine and its launches per kernel."""
+    engines = [InferenceEngine(params, cfg, None, capture=c, **kw)
+               for c in (True, False)]
+    got, want = [_counted(lambda e=e: fn(e)) for e in engines]
+    if torch.is_tensor(want[0]):
+        assert torch.equal(got[0], want[0])
+    else:
+        assert got[0] == want[0]
+    assert got[1:] == want[1:]
+    _caches_equal(*engines)
+    assert engines[0]._graphs.graphs and engines[1]._graphs is None
+    return engines[0], got[1]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.5])
+def test_graph_decode_matches_eager(gen, temperature):
+    """Greedy and sampled (topp 0.6) decode across the 128 and 256 buckets
+    in chunks of 16 with a short last one, then reset() and a second
+    prompt, which replays the same graphs after the other bucket's ran in
+    the pool: one graph per kind and bucket, none per chunk length."""
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+
+    def run(e):
+        a = e.generate_benchmark([1, 5, 9, 13, 7], 203)[0]
+        b = e.generate_benchmark([1, 42, 7], 150)[0]
+        return a + b
+
+    eng, _ = _graph_and_eager(run, params, _CFG, temperature=temperature,
+                              topp=0.6, seed=11)
+    kinds = [(k[0], k[2]) for k in eng._graphs.graphs]
+    assert sorted(map(repr, kinds)) == sorted(map(repr, [
+        ("decode", 128), ("decode", 256), (("prompt", False), 128)]))
+
+
+@pytest.mark.parametrize("kv", [0, 8, 4])
+def test_graph_fused_step_2048_matches_eager(gen, kv):
+    """fused_step over bf16, int8 and int4 caches: a 1100-token prompt in 9
+    blocks (the last padded), then 40 steps at the 2048 bucket."""
+    params = params_from_checkpoint(random_checkpoint(_CFG2K, seed=5))
+    prompt = [1] + [3 + (7 * i) % 500 for i in range(1099)]
+    eng, _ = _graph_and_eager(
+        lambda e: e.generate_benchmark(prompt, 1140)[0], params, _CFG2K,
+        temperature=0.0, attn_impl="fused_step",
+        kv_quant=4 if kv == 4 else bool(kv))
+    assert any(k[0] == "decode" and k[2] == 2048 for k in eng._graphs.graphs)
+
+
+@pytest.mark.parametrize("impl", ["batched", "batched_static"])
+def test_graph_batched_matches_eager(gen, impl):
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    _graph_and_eager(lambda e: e.generate_benchmark([1, 5, 9], 60)[0],
+                     params, _CFG, temperature=0.0, attn_impl=impl,
+                     max_seq=128)
+
+
+def test_graph_down_qkv_matches_eager(gen, monkeypatch):
+    """LLAMA_TPU_DOWN_QKV=1 under fused_step: the cooperative chain launch
+    inside the graphs, a graph of its own beside the standalone pair's."""
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+
+    def run(e):
+        out = []
+        for on in ("1", "0", "1"):
+            monkeypatch.setenv("LLAMA_TPU_DOWN_QKV", on)
+            out += e.generate_benchmark([1, 5, 9, 13], 40)[0]
+        return out
+
+    eng, launches = _graph_and_eager(run, params, _CFG, temperature=0.0,
+                                     attn_impl="fused_step", max_seq=128)
+    assert launches["down_qkv"] > 0
+    decode = [k for k in eng._graphs.graphs if k[0] == "decode"]
+    assert sorted(k[3].dq_chain for k in decode) == [False, True]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_graph_prefill_and_perplexity_match_eager(gen, quantized):
+    """A 3-block prompt (the last block padded, the head on it) and the
+    perplexity of a 300-token sequence (the head on every block): equal
+    logits, perplexities, caches and launches. The GEMM's tensor maps,
+    baked into the block graphs, stay right after the other graphs ran."""
+    from llama_cu_awq_torch.engine.perplexity import token_perplexity
+
+    params = params_from_checkpoint(random_checkpoint(_CFG2K, seed=6))
+    prompt = [1] + [3 + (11 * i) % 500 for i in range(299)]
+
+    def run(e):
+        last = e._prefill(prompt)
+        ppl = token_perplexity(e, prompt[1:])
+        e.reset()
+        return torch.cat([last.cpu(), e._prefill(prompt).cpu(),
+                          torch.tensor([ppl])])
+
+    _graph_and_eager(run, params, _CFG2K, kv_quant=quantized,
+                     temperature=0.0, max_seq=512)
+
+
+def test_capture_needs_the_split_scratch_sized(gen):
+    """A GraphSet whose capture stream has no split scratch refuses to
+    capture a fused_step forward (the scratch may not grow during a
+    capture); sized with reserve_split_scratch, the same body captures
+    and its replays match eager launches."""
+    from llama_cu_awq_torch.engine.graphs import GraphSet
+    from llama_cu_awq_torch.ops.cuda import attention_step as step_mod
+    from llama_cu_awq_torch.ops.cuda.attention_step import (
+        reserve_split_scratch)
+
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    cache = init_kv_cache(_CFG, 1, 256)
+    tok = torch.tensor([[7]], device="cuda")
+    pos = torch.tensor([200], dtype=torch.int32, device="cuda")
+    out = torch.zeros(_CFG.vocab_size, device="cuda")
+
+    def body():
+        logits, _ = forward(params, _CFG, tok, pos, cache, attn_len=256,
+                            attn_impl="fused_step")
+        out.copy_(logits[0])
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    unsized = GraphSet(dev, lambda: None)
+    # PyTorch hands out pooled streams: drop what an earlier set left on
+    # this one
+    step_mod._SCRATCH.pop((dev, unsized.stream.cuda_stream), None)
+    with pytest.raises(ValueError, match="sized before a CUDA graph"):
+        unsized.run(("step",), body, 2)
+    gs = GraphSet(dev, lambda: reserve_split_scratch(dev, 1, 1, 2, 128, 256))
+    gs.run(("step",), body, 1)
+    want = out.clone()
+    gs.run(("step",), body, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def _toy_tokenizer(path, vocab_size):
+    """A tokenizer.bin in the reference's format: the special pieces, the
+    256 single bytes and padding pieces."""
+    import struct
+
+    vocab = [(b"<unk>", 0.0), (b"<s>", 0.0), (b"</s>", 0.0)]
+    vocab += [(bytes([b]), -1000.0) for b in range(256)]
+    vocab += [(b"<pad%d>" % i, -2000.0)
+              for i in range(vocab_size - len(vocab))]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", max(len(p) for p, _ in vocab)))
+        for piece, score in vocab:
+            f.write(struct.pack("<fi", score, len(piece)))
+            f.write(piece)
+    return path
+
+
+def test_graph_generate_and_chat_match_eager(gen, tmp_path):
+    """generate() and two chat_turn()s, sampled: the same text, caches and
+    launches from graphs as from eager launches."""
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+
+    tok = Tokenizer(_toy_tokenizer(str(tmp_path / "tok.bin"),
+                                   _CFG.vocab_size), _CFG.vocab_size)
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+
+    def run(e):
+        e.tokenizer = tok
+        text, _ = e.generate("the cat sat on the mat", steps=120)
+        e.reset()
+        return [text, e.chat_turn("the cat", "be brief", steps=60),
+                e.chat_turn("sat on", None, steps=200)]
+
+    eng, _ = _graph_and_eager(run, params, _CFG, temperature=0.5, topp=0.6,
+                              seed=3)
+    assert any(k[0] == "decode" for k in eng._graphs.graphs)

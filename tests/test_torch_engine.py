@@ -243,14 +243,17 @@ CLI_SEED = 7
     ("generate", ["--spec", "ngram", "--spec-k", "4"]),
     ("chat", ["--spec", "ngram", "--kv-bits", "4"]),
     ("perplexity", ["--kv-bits", "4"]),
+    ("generate", ["--profile", "{tmp}/trace"]),
 ])
 def test_cli_options_match_jax(tmp_path, capsys, monkeypatch, mode, extra):
     """The port's CLI and the JAX CLI (its engine bound to the fused
     forward the port runs) print the same text, spec line and sequence
-    count; perplexities agree to f32 sum order. Greedy, fixed seeds."""
+    count; perplexities agree to f32 sum order. Greedy, fixed seeds.
+    ("{tmp}" in an option stands for the test's directory.)"""
     from llama_cu_awq_tpu.cli import main as j_main
     from llama_cu_awq_tpu.engine import engine as j_engine_mod
 
+    extra = [a.format(tmp=tmp_path) for a in extra]
     path, tok_path = _write_model(tmp_path, CLI_CFG, seed=CLI_SEED)
     args = [path, "-m", mode, "-z", tok_path, "-t", "0", "-s", "3", *extra]
     if mode == "perplexity":
