@@ -53,7 +53,10 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      bytes); 32 steps each of attn_impl="batched" over bf16 and int8 KV
      and 16 of "batched_static" after a 1024-token prompt; 256 greedy
      steps with spec="ngram" on a repetitive prompt beside the plain
-     stream, replayed step by step through plain decode; and one 7B
+     stream, its verifies replayed from graphs against an engine made
+     with capture=False in turns (tok/s, equal streams, spec stats,
+     caches and launches), replayed step by step through plain decode;
+     and one 7B
      forward step at position 1500 through attention_step_kv4 and through
      batched_decode_attention, kernels against plain versions;
   7. continuous batching and serving: the down_qkv chain kernel at m=1 and
@@ -62,19 +65,26 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      (fused_step, bf16 KV) with LLAMA_TPU_DOWN_QKV=1 and without it, in
      turns (equal streams, 31 chain launches a step); BatchEngine with 8
      slots serving 16 greedy requests with prompts of 20 to 1000 tokens,
-     without and with the switch (aggregate tokens/s, latency, launches
-     per kernel variant, equal streams, the m=8 chain launched), a
-     profile of one 8-step chunk of 8 slots at positions around 1000, a
-     check that dispatching a chunk does not synchronize with the one in
-     flight, and profiles of run()'s one-chunk lookahead and of a loop of
-     synchronous steps over the same 4 chunks, in turns (run() also
-     queues a fifth, which it discards: the lookahead's cost at the end
-     of a drain), with run()'s host time split into dispatch and fetch;
+     without and with the switch, on an engine that replays its chunk
+     steps and slot-prefill blocks from CUDA graphs against one made with
+     capture=False, in turns after the graph engine's untimed run
+     (aggregate tokens/s, latency, launches per kernel variant, graph
+     count, capture seconds and pool bytes; streams, caches and launches
+     equal, the m=8 chain launched); profiles of one 8-step chunk of 8
+     slots at positions around 1000, each way, without and with the
+     chain; a check that dispatching a chunk on captured graphs does not
+     synchronize with the one in flight; profiles of run()'s one-chunk
+     lookahead each way and of a loop of synchronous steps from graphs
+     over the same 4 chunks (run() also queues a fifth, which it
+     discards: the lookahead's cost at the end of a drain); run()'s host
+     time from graphs split into dispatch, fetch and the slot
+     scheduler's calls, with the native and with the Python scheduler;
      the HTTP server (spec="ngram", a toy tokenizer) answering 8
-     concurrent completions, 4 of them streamed, two replayed step by step
-     through the single-sequence engine (each token within 0.1 of the
-     replayed argmax); and one 7B step at B=8 with the chain, kernels
-     against plain versions;
+     concurrent completions, 4 of them streamed, on a graph engine and on
+     an eager one (equal streams, caches and launches), two replayed
+     step by step through the single-sequence engine (each token within
+     0.1 of the replayed argmax); and one 7B step at B=8 with the chain,
+     kernels against plain versions;
   8. the retired chain experiment (tools/experiments/int4_chain.py), from
      llama_cu_awq_torch/experiments: ffn_chain (with the next layer's qkv)
      at m=1 and m=8, and mono_layer at m=1 over bf16 and int8 KV at
@@ -1415,6 +1425,11 @@ def decode_run(torch, eng, prompt, steps):
     return toks, steps / (time.perf_counter() - t0)
 
 
+def position(torch, eng):
+    """The engine's next position as a (1,) int32 tensor on the card."""
+    return torch.tensor([eng.pos], dtype=torch.int32, device="cuda")
+
+
 def replay_check(torch, params, cfg, prompt, stream, base, max_seq):
     """tests/test_spec_decode.py's replay_consistent on the card: plain
     T=1 decode is fed the speculative stream token by token, and every
@@ -1432,7 +1447,7 @@ def replay_check(torch, params, cfg, prompt, stream, base, max_seq):
     for t_in, t_out in zip(feed, stream):
         logits, _ = forward(
             params, cfg, torch.tensor([[t_in]], dtype=torch.int32,
-                                      device="cuda"), eng._positions(1),
+                                      device="cuda"), position(torch, eng),
             eng.cache, attn_len=eng._bucket_for(eng.pos + 1),
             attn_impl=eng.attn_impl)
         top2 = logits[0].topk(2).values
@@ -1456,6 +1471,61 @@ def replay_check(torch, params, cfg, prompt, stream, base, max_seq):
     if split is not None and margins[split] >= SPEC_GAP:
         raise AssertionError(f"spec stream parts from plain at {split} "
                              f"where the top-2 margin is {margins[split]}")
+
+
+def spec_runs(torch, params, cfg, launches):
+    """InferenceEngine with spec="ngram" at 7B, graphs against
+    capture=False (see the module docstring, phase 6)."""
+    from llama_cu_awq_torch.engine import InferenceEngine
+
+    def engine(**kw):
+        return InferenceEngine(params, cfg, None, temperature=0.0,
+                               seed=1234, **kw)
+
+    def valid(toks):
+        return toks and all(0 <= t < cfg.vocab_size for t in toks)
+
+    # --- speculative decoding: 256 greedy steps on a repetitive prompt,
+    # beside the plain stream, then replayed through plain decode; the
+    # verifies replay graphs, against an engine made with capture=False,
+    # in turns ---
+    rep_prompt = [1] + [5 + i % 11 for i in range(32)]
+    plain_eng = engine(max_seq=512)
+    base, _, tps_plain = plain_eng.generate_benchmark(rep_prompt, 256)
+    engs = {way: engine(max_seq=512, spec="ngram", capture=way == "graph")
+            for way in ("graph", "eager")}
+
+    def spec_run(e):
+        e.spec_stats = {k: 0 for k in e.spec_stats}
+        toks, dt, tps = e.generate_benchmark(rep_prompt, 256)
+        return toks, tps, dict(e.spec_stats), dt
+
+    res = graph_turns(torch, "spec", engs, spec_run, launches,
+                      warm=("graph",))
+    got, _, st, dt = res["graph"][0]
+    equal = all(r[0] == got and r[2] == st
+                for r in res["graph"] + res["eager"])
+    same_cache = caches_equal(torch, engs["graph"], engs["eager"])
+    print(json.dumps({
+        "e2e": "spec_ngram", "model": "llama2-7b", "steps": 256,
+        "spec_k": engs["graph"].spec_k, "max_seq": 512,
+        "tok_per_s_graph": [r[1] for r in res["graph"]],
+        "tok_per_s_eager": [r[1] for r in res["eager"]],
+        "plain_tok_per_s_same_prompt": tps_plain, "seconds": dt,
+        "spec_stats": st, "acceptance_rate": (
+            st["accepted"] / st["proposed"] if st["proposed"] else 0.0),
+        "tokens_equal_to_plain": got == base,
+        "tokens_and_stats_equal_graph_eager": equal,
+        "caches_bit_equal": same_cache, "first_tokens": got[:8],
+        "graphs": graph_table(engs["graph"])}), flush=True)
+    if len(got) != 256 - len(rep_prompt) + 1 or not valid(got):
+        raise AssertionError(f"spec: bad stream of {len(got)} tokens")
+    if st["verifies"] == 0:
+        raise AssertionError("spec: no proposal was verified")
+    if not (equal and same_cache):
+        raise AssertionError("spec: the graphs and eager launches differ")
+    replay_check(torch, params, cfg, rep_prompt, got, base, 512)
+    del plain_eng, engs
 
 
 def slice3_phase(torch, params, launches):
@@ -1519,32 +1589,7 @@ def slice3_phase(torch, params, launches):
                                  f"batched_decode_attention")
         del eng_b
 
-    # --- speculative decoding: 256 greedy steps on a repetitive prompt,
-    # beside the plain stream, then replayed through plain decode ---
-    rep_prompt = [1] + [5 + i % 11 for i in range(32)]
-    plain_eng = engine(max_seq=512)
-    base, _, tps_plain = plain_eng.generate_benchmark(rep_prompt, 256)
-    spec_eng = engine(max_seq=512, spec="ngram")
-    spec_eng.generate_benchmark(rep_prompt, 48)  # warm-up
-    spec_eng.spec_stats = {k: 0 for k in spec_eng.spec_stats}
-    got, dt, tps_spec = run_path(
-        torch, "spec", lambda: spec_eng.generate_benchmark(rep_prompt, 256),
-        launches)
-    st = spec_eng.spec_stats
-    print(json.dumps({
-        "e2e": "spec_ngram", "model": "llama2-7b", "steps": 256,
-        "spec_k": spec_eng.spec_k, "max_seq": 512, "tok_per_s": tps_spec,
-        "plain_tok_per_s_same_prompt": tps_plain, "seconds": dt,
-        "spec_stats": st, "acceptance_rate": (
-            st["accepted"] / st["proposed"] if st["proposed"] else 0.0),
-        "tokens_equal_to_plain": got == base, "first_tokens": got[:8]}),
-        flush=True)
-    if len(got) != 256 - len(rep_prompt) + 1 or not valid(got):
-        raise AssertionError(f"spec: bad stream of {len(got)} tokens")
-    if st["verifies"] == 0:
-        raise AssertionError("spec: no proposal was verified")
-    replay_check(torch, params, cfg, rep_prompt, got, base, 512)
-    del plain_eng, spec_eng
+    spec_runs(torch, params, cfg, launches)
 
     # one 7B step at position 1500, kernels against plain versions
     g = torch.Generator(device="cuda")
@@ -1702,7 +1747,11 @@ def http_json(url, body=None, stream=False):
 def serve_http_run(torch, params, cfg, launches):
     """make_server on 127.0.0.1 over a BatchEngine with spec="ngram" (the
     server's default): 8 concurrent greedy completions, 4 of them
-    streamed, then /health and /stats; two blocking requests' token_ids
+    streamed, then /health and /stats; first on an engine that replays
+    graphs (once untimed, where it captures, then timed), then on one
+    made with capture=False. The engine thread starts once all 8
+    requests are queued, one after the other, so both runs take the same
+    slots and rounds: equal streams, caches and launch counts. Two blocking requests' token_ids are
     replayed step by step through the single-sequence engine."""
     from llama_cu_awq_torch.engine import BatchEngine, InferenceEngine
     from llama_cu_awq_torch.serve import make_server
@@ -1711,61 +1760,97 @@ def serve_http_run(torch, params, cfg, launches):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     tok = Tokenizer(write_toy_tokenizer(os.path.join(tmp, "tok.bin"),
                                         cfg.vocab_size), cfg.vocab_size)
-    be = BatchEngine(params, cfg, tok, n_slots=8, max_seq=512, chunk_size=8,
-                     spec="ngram")
-    httpd, seng = make_server(be, tok, host="127.0.0.1", port=0)
-    seng.start()
-    server = threading.Thread(target=httpd.serve_forever, daemon=True)
-    server.start()
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
     prompts = [("the cat sat on the mat" * (1 + i % 3)) + " a" * i
                for i in range(8)]
-    results = {}
 
-    def client(i):
-        body = {"prompt": prompts[i], "max_tokens": 32, "temperature": 0.0}
-        results[i] = http_json(base + "/v1/completions", body,
-                               stream=i % 2 == 1)
+    def serve(be, name):
+        be.reset()
+        httpd, seng = make_server(be, tok, host="127.0.0.1", port=0)
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        results = {}
 
-    def run():
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(8)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        return time.perf_counter() - t0
+        def client(i):
+            body = {"prompt": prompts[i], "max_tokens": 32,
+                    "temperature": 0.0}
+            results[i] = http_json(base + "/v1/completions", body,
+                                   stream=i % 2 == 1)
 
-    try:
-        wall = run_path(torch, "serve_http", run, launches)
-        health = http_json(base + "/health")
-        stats = http_json(base + "/stats")[1]
-    finally:
-        httpd.shutdown()
-        seng.stop()
-        httpd.server_close()
-        server.join(timeout=30)
-    n_tokens = sum(len(r[1]["choices"][0]["token_ids"])
-                   for i, r in results.items() if i % 2 == 0)
-    done = [i for i, r in results.items() if r[0] == 200 and (
-        r[2] == "stop" if i % 2 else
-        r[1]["choices"][0]["finish_reason"] == "stop")]
+        def run():
+            # one request queued at a time, so request i takes slot i in
+            # every run
+            threads = []
+            deadline = time.perf_counter() + 60
+            for i in range(8):
+                threads.append(threading.Thread(target=client, args=(i,)))
+                threads[-1].start()
+                while True:
+                    with seng.replicas[0].lock:
+                        if be.scheduler.num_queued == i + 1:
+                            break
+                    if time.perf_counter() > deadline:
+                        raise AssertionError("serve_http: requests not "
+                                             "queued")
+                    time.sleep(0.002)
+            t0 = time.perf_counter()
+            seng.start()
+            for t in threads:
+                t.join(timeout=600)
+            return time.perf_counter() - t0
+
+        try:
+            wall = (run_path(torch, name, run, launches) if name
+                    else run())
+            health = http_json(base + "/health")
+            stats = http_json(base + "/stats")[1]
+        finally:
+            httpd.shutdown()
+            seng.stop()
+            httpd.server_close()
+            server.join(timeout=30)
+        done = [i for i, r in results.items() if r[0] == 200 and (
+            r[2] == "stop" if i % 2 else
+            r[1]["choices"][0]["finish_reason"] == "stop")]
+        if sorted(done) != list(range(8)) or \
+                health != (200, {"status": "ok"}):
+            raise AssertionError(f"serve_http: finished {done}, "
+                                 f"health {health}")
+        if stats["requests"] != 8 or stats["active_slots"] != 0:
+            raise AssertionError(f"serve_http: stats {stats}")
+        streams = [r[1]["choices"][0]["token_ids"] if i % 2 == 0 else r[1]
+                   for i, r in sorted(results.items())]
+        return wall, streams, stats, dict(be.spec_stats)
+
+    engs = {way: BatchEngine(params, cfg, tok, n_slots=8, max_seq=512,
+                             chunk_size=8, spec="ngram",
+                             capture=way == "graph")
+            for way in ("graph", "eager")}
+    serve(engs["graph"], None)  # the captures
+    res = {way: serve(engs[way], name) for way, name in (
+        ("graph", "serve_http"), ("eager", "serve_http_eager"))}
+    g, e = res["graph"], res["eager"]
+    equal = g[1] == e[1] and g[3] == e[3]
+    same_cache = caches_equal(torch, *engs.values())
+    same_launches = launches["serve_http"] == launches["serve_http_eager"]
     print(json.dumps({
         "e2e": "serve_http", "model": "llama2-7b", "slots": 8,
         "max_seq": 512, "spec": "ngram", "requests": 8, "streamed": 4,
-        "finished": len(done), "wall_s": wall,
-        "blocking_tokens": n_tokens, "health": health,
-        "server_stats": stats, "spec_stats": be.spec_stats,
-        "scheduler": type(be.scheduler).__name__}), flush=True)
-    if sorted(done) != list(range(8)) or health != (200, {"status": "ok"}):
-        raise AssertionError(f"serve_http: finished {done}, health {health}")
-    if stats["requests"] != 8 or stats["active_slots"] != 0:
-        raise AssertionError(f"serve_http: stats {stats}")
-    del be
+        "finished": 8, "wall_s_graph": g[0], "wall_s_eager": e[0],
+        "blocking_tokens": sum(len(t) for t in g[1][::2]),
+        "streams_equal": equal,
+        "caches_bit_equal": same_cache,
+        "launches_equal": same_launches, "server_stats": g[2],
+        "spec_stats": g[3], "scheduler": type(
+            engs["graph"].scheduler).__name__,
+        **graph_summary(engs["graph"])}), flush=True)
+    if not (equal and same_cache and same_launches):
+        raise AssertionError("serve_http: the graphs and eager launches "
+                             "differ")
+    del engs
     for i in (0, 2):
         ids = tok.encode(prompts[i], bos=True, eos=False)
-        stream = results[i][1]["choices"][0]["token_ids"]
+        stream = g[1][i]
         if not stream:
             raise AssertionError(f"serve_http: request {i} got no tokens")
         plain = InferenceEngine(params, cfg, None, temperature=0.0,
@@ -1776,56 +1861,104 @@ def serve_http_run(torch, params, cfg, launches):
         replay_check(torch, params, cfg, ids, stream, base_stream, 512)
 
 
-def profile_batch_chunk(torch, be):
+def profile_batch_chunk(torch, engs):
     """Where the time of one serving chunk goes: 8 slots decoding at
     positions around 1000 (the 1024 bucket: fused_step attention), one
-    chunk of chunk_size steps at B=8, without and with the chain."""
+    chunk of chunk_size steps at B=8, launched eagerly (capture=False)
+    and replayed from the graphs, without and with the chain."""
     deep = [[1] + [3 + (7919 * (i + 977 * j)) % 31990 for i in range(999)]
             for j in range(8)]
+    for on, way in ((False, "eager"), (False, "graph"), (True, "eager"),
+                    (True, "graph")):
+        be = engs[way]
 
-    def prepare():
-        be.reset()
-        for p in deep:
-            be.submit(p, max_new=64)
-        be.step()  # admission, the prompts' block prefill, a first chunk
-        torch.cuda.synchronize()
-        return ()
+        def prepare():
+            be.reset()
+            for p in deep:
+                be.submit(p, max_new=64)
+            be.step()  # admission, the prompts' block prefill, a chunk
+            torch.cuda.synchronize()
+            return ()
 
-    for on in (False, True):
+        label = "batch_chunk_b8_pos1000" + ("_chain" if on else "") + (
+            "_graph" if way == "graph" else "")
         with down_qkv_switch(on):
-            profile_run(torch, "batch_chunk_b8_pos1000" + (
-                "_chain" if on else ""), prepare, be.step,
-                be.chunk_size, "step")
+            profile_run(torch, label, prepare, be.step, be.chunk_size,
+                        "step")
 
 
-def profile_batch_run(torch, be):
-    """BatchEngine.run()'s lookahead against a loop of synchronous steps,
-    on the same work: 8 slots near position 1000 after their prompts'
-    block prefill and a first chunk, then 4 chunks of 8 steps each (run()
-    also queues a fifth, which it discards). First the check that a
-    dispatch queues its chunk without waiting for the chunk in flight:
-    under sync debug mode "error" a stream or device synchronization
-    raises. The profiles run in turns (run, steps, steps, run), since the
-    host clock drifts between runs; then one run() split into the host's
-    time in dispatch and in fetching and routing tokens: a fetch that
-    waits about nothing means the host, not the card, bounds the loop."""
+class TimedScheduler:
+    """A scheduler whose every call (and property read) is timed on the
+    host clock: how much of a chunk's host time the slot scheduler
+    takes."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.seconds = 0.0
+        self.calls = 0
+
+    def __getattr__(self, name):
+        t0 = time.perf_counter()
+        attr = getattr(self._inner, name)  # a property computes here
+        self.seconds += time.perf_counter() - t0
+        if not callable(attr):
+            self.calls += 1
+            return attr
+
+        def timed(*args):
+            t1 = time.perf_counter()
+            try:
+                return attr(*args)
+            finally:
+                self.seconds += time.perf_counter() - t1
+                self.calls += 1
+        return timed
+
+
+def profile_batch_run(torch, engs):
+    """BatchEngine.run()'s lookahead on 8 slots near position 1000, after
+    their prompts' block prefill and a first chunk: 4 chunks of 8 steps
+    each (run() also queues a fifth, which it discards). First the check
+    that a dispatch queues its chunk without waiting for the chunk in
+    flight, on graphs already captured (a capture synchronizes): under
+    sync debug mode "error" a stream or device synchronization raises.
+    Then run() profiled eagerly and from graphs, and from graphs a loop
+    of synchronous steps over the same work; then run() from graphs
+    split into the host's time in dispatch, in fetching and routing
+    tokens, and in the slot scheduler's calls, once with the native
+    scheduler and once with the Python one: a fetch that waits about
+    nothing means the host, not the card, bounds the loop."""
+    from llama_cu_awq_torch.engine.scheduler import make_scheduler
+
     deep = [[1] + [3 + (7919 * (i + 977 * j)) % 31990 for i in range(999)]
             for j in range(8)]
-    n_steps = 4 * be.chunk_size
+    n_steps = 4 * engs["graph"].chunk_size
 
-    def prepare():
-        be.reset()
-        for p in deep:
-            be.submit(p, max_new=40)
-        be.step()
-        torch.cuda.synchronize()
-        return ()
-
-    def steps():
-        while be.pending:
+    def preparer(be, native=None):
+        """reset, then (native True or False) a TimedScheduler over the
+        native or the Python scheduler, the prompts and a first step."""
+        def prepare():
+            be.reset()
+            if native is not None:
+                be.scheduler = TimedScheduler(make_scheduler(
+                    be.n_slots, be.max_seq, prefer_native=native))
+            for p in deep:
+                be.submit(p, max_new=40)
             be.step()
+            torch.cuda.synchronize()
+            if native is not None:
+                be.scheduler.seconds, be.scheduler.calls = 0.0, 0
+            return ()
+        return prepare
 
-    prepare()
+    def steps(be):
+        def run():
+            while be.pending:
+                be.step()
+        return run
+
+    be = engs["graph"]
+    preparer(be)()
     first = be._dispatch_chunk()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1835,50 +1968,133 @@ def profile_batch_run(torch, be):
     be._process_chunk(first)
     be._process_chunk(second)
     print(json.dumps({"check": "batch_dispatch_queues_without_sync",
-                      "ok": True}), flush=True)
-    for label, fn in (("batch_run_b8_pos1000", be.run),
-                      ("batch_steps_b8_pos1000", steps),
-                      ("batch_steps_b8_pos1000_again", steps),
-                      ("batch_run_b8_pos1000_again", be.run)):
-        profile_run(torch, label, prepare, fn, n_steps, "step")
+                      "graphs": True, "ok": True}), flush=True)
+    for label, way, fn in (
+            ("batch_run_b8_pos1000", "eager", "run"),
+            ("batch_run_b8_pos1000_graph", "graph", "run"),
+            ("batch_steps_b8_pos1000_graph", "graph", "steps")):
+        be = engs[way]
+        profile_run(torch, label, preparer(be), be.run if fn == "run"
+                    else steps(be), n_steps, "step")
 
-    spent = {"_dispatch_chunk": 0.0, "_process_chunk": 0.0}
+    be = engs["graph"]
+    for native in (True, False):
+        preparer(be, native)()
+        sched = be.scheduler
+        spent = {"_dispatch_chunk": 0.0, "_process_chunk": 0.0}
+        n_chunks = [0]
 
-    def timed(name):
-        fn = getattr(be, name)
+        def timed(name):
+            fn = getattr(be, name)
 
-        def wrapped(*args):
+            def wrapped(*args):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    spent[name] += time.perf_counter() - t0
+                    n_chunks[0] += name == "_process_chunk"
+            return wrapped
+
+        for name in spent:  # instance attributes shadow the methods
+            setattr(be, name, timed(name))
+        try:
             t0 = time.perf_counter()
-            try:
-                return fn(*args)
-            finally:
-                spent[name] += time.perf_counter() - t0
-        return wrapped
+            be.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for name in spent:
+                delattr(be, name)
+        print(json.dumps({
+            "host_split": "batch_run_b8_pos1000_graph",
+            "scheduler": type(sched._inner).__name__, "steps": n_steps,
+            "chunks": n_chunks[0],
+            "wall_ms_per_step": wall / n_steps * 1e3,
+            "dispatch_ms_per_step": spent["_dispatch_chunk"] / n_steps * 1e3,
+            "fetch_and_route_ms_per_step":
+                spent["_process_chunk"] / n_steps * 1e3,
+            "scheduler_ms_per_chunk": sched.seconds / n_chunks[0] * 1e3,
+            "scheduler_calls_per_chunk": sched.calls / n_chunks[0]}),
+            flush=True)
 
-    prepare()
-    for name in spent:  # instance attributes shadow the methods
-        setattr(be, name, timed(name))
-    try:
-        t0 = time.perf_counter()
-        be.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for name in spent:
-            delattr(be, name)
-    print(json.dumps({
-        "host_split": "batch_run_b8_pos1000", "steps": n_steps,
-        "wall_ms_per_step": wall / n_steps * 1e3,
-        "dispatch_ms_per_step": spent["_dispatch_chunk"] / n_steps * 1e3,
-        "fetch_and_route_ms_per_step":
-            spent["_process_chunk"] / n_steps * 1e3}), flush=True)
+
+def batch_engine_runs(torch, params, cfg, launches, chain_variant):
+    """BatchEngine at 7B, graphs against capture=False (see the module
+    docstring, phase 7): 16 greedy requests, then the profiles."""
+    from llama_cu_awq_torch.engine import BatchEngine
+
+    # --- BatchEngine: 16 greedy requests over 8 slots, prompts of 20 to
+    # 1000 tokens (forced stream and interleaved block prefill), windows
+    # into the 1024 and 2048 buckets, where fused_step and the chain apply;
+    # an engine that replays graphs against one made with capture=False,
+    # in turns after the graph engine's untimed run (its captures)
+    lengths = [20, 36, 48] + [60 + (1000 - 60) * i // 12 for i in range(13)]
+    prompts = [[1] + [3 + (104729 * (i + 131 * j)) % 31990
+                      for i in range(n - 1)]
+               for j, n in enumerate(lengths)]
+    engs = {way: BatchEngine(params, cfg, None, n_slots=8, max_seq=2048,
+                             chunk_size=8, spec=None,
+                             capture=way == "graph")
+            for way in ("graph", "eager")}
+
+    def serve_all(be):
+        be.reset()
+        rids = [be.submit(p, max_new=64) for p in prompts]
+        out = be.run()
+        return [out[r] for r in rids], be.stats()
+
+    outs = {}
+    for on, name, turns in (
+            (False, "batch_engine", ("eager", "graph", "graph", "eager")),
+            (True, "batch_engine_dq", ("eager", "graph"))):
+        with down_qkv_switch(on):
+            res = graph_turns(torch, name, engs, serve_all, launches,
+                              warm=("graph",), turns=turns)
+        first = res["eager"][0][0]
+        equal = all(r[0] == first for r in res["graph"] + res["eager"])
+        same_cache = caches_equal(torch, engs["graph"], engs["eager"])
+        st = res["graph"][0][1]
+        print(json.dumps({
+            "e2e": name, "model": "llama2-7b", "slots": 8, "max_seq": 2048,
+            "chunk_size": 8, "requests": len(prompts),
+            "prompt_tokens": sum(lengths), "max_new": 64,
+            "down_qkv_switch": on,
+            **{f"{k}_{way}": [r[1][k] for r in res[way]]
+               for way in ("graph", "eager")
+               for k in ("tok_per_s", "mean_latency_s", "max_latency_s")},
+            "finished": st["finished"], "total_tokens": st["total_tokens"],
+            "tokens_equal": equal, "caches_bit_equal": same_cache,
+            "launches_equal": launches[name] == launches[name + "_eager"],
+            "scheduler": type(engs["graph"].scheduler).__name__,
+            "chain_m8_launches": launches[name]["variants"].get(
+                chain_variant, 0), **graph_summary(engs["graph"])}),
+            flush=True)
+        if st["finished"] != len(prompts) or not all(first):
+            raise AssertionError(f"{name}: {st}")
+        if not (equal and same_cache):
+            raise AssertionError(f"{name}: the graphs and eager launches "
+                                 f"differ")
+        outs[on] = first
+    profile_batch_chunk(torch, engs)
+    profile_batch_run(torch, engs)
+    del engs
+    print(json.dumps({"e2e": "batch_engine_streams",
+                      "equal_with_and_without_chain":
+                          outs[True] == outs[False]}), flush=True)
+    if outs[True] != outs[False]:
+        raise AssertionError("batch_engine: the chain changed a stream")
+    if not launches["batch_engine_dq"]["variants"].get(chain_variant) or \
+            launches["batch_engine"]["kernels"]["down_qkv"]:
+        raise AssertionError("batch_engine: the m=8 chain never launched "
+                             "with the switch, or launched without it")
 
 
 def slice4_phase(torch, timer, rows, params, launches):
     """Continuous batching, serving and the down_qkv chain at 7B (see the
     module docstring, phase 7)."""
     from llama_cu_awq_torch.config import LLAMA2_7B
-    from llama_cu_awq_torch.engine import BatchEngine, InferenceEngine
+    from llama_cu_awq_torch.engine import InferenceEngine
 
     cfg = LLAMA2_7B
     g = torch.Generator(device="cuda")
@@ -1916,53 +2132,7 @@ def slice4_phase(torch, timer, rows, params, launches):
         raise AssertionError(f"down_qkv_b1: {n_chain} chain launches")
     del eng
 
-    # --- BatchEngine: 16 greedy requests over 8 slots, prompts of 20 to
-    # 1000 tokens (forced stream and interleaved block prefill), windows
-    # into the 1024 and 2048 buckets, where fused_step and the chain apply
-    lengths = [20, 36, 48] + [60 + (1000 - 60) * i // 12 for i in range(13)]
-    prompts = [[1] + [3 + (104729 * (i + 131 * j)) % 31990
-                      for i in range(n - 1)]
-               for j, n in enumerate(lengths)]
-    be = BatchEngine(params, cfg, None, n_slots=8, max_seq=2048,
-                     chunk_size=8, spec=None)
-    for p in prompts[:2]:  # warm-up
-        be.submit(p, max_new=8)
-    be.run()
-    outs = {}
-    for on, name in ((False, "batch_engine"), (True, "batch_engine_dq")):
-        be.reset()
-
-        def serve_all():
-            rids = [be.submit(p, max_new=64) for p in prompts]
-            out = be.run()
-            return [out[r] for r in rids]
-
-        with down_qkv_switch(on):
-            outs[on] = run_path(torch, name, serve_all, launches)
-        st = be.stats()
-        print(json.dumps({
-            "e2e": name, "model": "llama2-7b", "slots": 8, "max_seq": 2048,
-            "chunk_size": 8, "requests": len(prompts),
-            "prompt_tokens": sum(lengths), "max_new": 64,
-            "down_qkv_switch": on, **st,
-            "scheduler": type(be.scheduler).__name__,
-            "chain_m8_launches": launches[name]["variants"].get(
-                chain_variant, 0)}), flush=True)
-        if st["finished"] != len(prompts) or not all(outs[on]):
-            raise AssertionError(f"{name}: {st}")
-    profile_batch_chunk(torch, be)
-    profile_batch_run(torch, be)
-    del be
-    print(json.dumps({"e2e": "batch_engine_streams",
-                      "equal_with_and_without_chain":
-                          outs[True] == outs[False]}), flush=True)
-    if outs[True] != outs[False]:
-        raise AssertionError("batch_engine: the chain changed a stream")
-    if not launches["batch_engine_dq"]["variants"].get(chain_variant) or \
-            launches["batch_engine"]["kernels"]["down_qkv"]:
-        raise AssertionError("batch_engine: the m=8 chain never launched "
-                             "with the switch, or launched without it")
-
+    batch_engine_runs(torch, params, cfg, launches, chain_variant)
     serve_http_run(torch, params, cfg, launches)
 
     # one 7B step at B=8, positions around 1500, with the chain
@@ -2225,7 +2395,7 @@ def chain_step(torch, eng, token, impl):
     from llama_cu_awq_torch.experiments.int4_chain import decode_step
     from llama_cu_awq_torch.models import forward
 
-    pos = eng._positions(1)
+    pos = position(torch, eng)
     attn_len = eng._bucket_for(eng.pos + 1)
     if impl == "forward":
         logits, _ = forward(eng.params, eng.cfg, token, pos, eng.cache,
@@ -2371,21 +2541,36 @@ def graph_table(eng):
             for k, g in eng._graphs.graphs.items()]
 
 
+def graph_summary(eng):
+    """An engine's graphs: how many of each kind, and the capture seconds
+    and the bytes its pool grew by, summed."""
+    graphs = eng._graphs.graphs
+    by_kind: dict[str, int] = {}
+    for k in graphs:
+        kind = k[0][0] if isinstance(k[0], tuple) else k[0]
+        by_kind[kind] = by_kind.get(kind, 0) + 1
+    return {"graphs": len(graphs), "by_kind": by_kind,
+            "capture_s": sum(g.capture_seconds for g in graphs.values()),
+            "pool_bytes": sum(g.pool_bytes for g in graphs.values())}
+
+
 def caches_equal(torch, a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(
         a.cache.k + a.cache.v + a.cache.k_scale + a.cache.v_scale,
         b.cache.k + b.cache.v + b.cache.k_scale + b.cache.v_scale))
 
 
-def graph_turns(torch, name, engs, run, launches):
-    """run(engine) once each way untimed (the graph engine captures
-    there), then in turns eager, graph, graph, eager; the launches of the
-    first timed turn each way go under `name` and `name`_eager and must
-    be equal. Returns {way: [results]}."""
-    for way in ("graph", "eager"):
+def graph_turns(torch, name, engs, run, launches,
+                warm=("graph", "eager"),
+                turns=("eager", "graph", "graph", "eager")):
+    """run(engine) once untimed for each way in `warm` (the graph engine
+    captures there), then in `turns`; the launches of the first timed
+    turn each way go under `name` and `name`_eager and must be equal.
+    Returns {way: [results]}."""
+    for way in warm:
         run(engs[way])
     out = {"graph": [], "eager": []}
-    for i, way in enumerate(("eager", "graph", "graph", "eager")):
+    for i, way in enumerate(turns):
         tag = name if way == "graph" else name + "_eager"
         out[way].append(run_path(torch, tag, lambda: run(engs[way]),
                                  launches) if i < 2 else run(engs[way]))

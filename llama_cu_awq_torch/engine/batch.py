@@ -10,37 +10,57 @@ The counterpart of llama_cu_awq_tpu/engine/batch.py. Design:
   weight-bandwidth-bound, so the S-fold batch rides along nearly free.
   Inactive slots compute garbage that the host discards; their cache
   writes land at rows that are rewritten before the slot reads them.
-- A chunk is a Python loop of K forwards in which every slot consumes
-  one token a step: a teacher-forced prompt token where the force mask is
-  set, else the slot's sampled token, which stays on the device. The host
-  syncs once per chunk, when it reads the chunk's tokens; `run` queues
-  chunk N+1 on the stream before it reads chunk N's tokens (one chunk of
-  lookahead), so the card need not wait for the host's routing. Neither
-  end waits for more: inputs reach the card from pinned memory without a
-  stream sync (_snapshot), and a chunk's tokens are copied to the host
-  right behind it, so reading them waits for that chunk only (_Fetch).
+- A chunk is K steps in which every slot consumes one token: a
+  teacher-forced prompt token where the force mask is set, else the
+  slot's sampled token, which stays on the device (the carry, _tok). The
+  host syncs once per chunk, when it reads the chunk's tokens; `run`
+  queues chunk N+1 on the stream before it reads chunk N's tokens (one
+  chunk of lookahead), so the card need not wait for the host's routing.
+  Neither end waits for more: inputs reach the card from pinned memory
+  without a stream sync (_Inputs), and a chunk's tokens are copied to the
+  host right behind it, so reading them waits for that chunk only
+  (_Fetch).
 - Prompts of up to FORCED_PROMPT_MAX tokens feed through the forced
   stream; longer ones prefill block by block on their slot's cache rows
   between decode rounds (interleaved prefill), then join the forced
   stream with their last token.
-- spec="ngram": speculative (S, T) blocks with prompt-lookup proposals
-  (_spec_block), with the JAX engine's throttle.
+- spec="ngram": speculative (S, T) blocks with prompt-lookup proposals,
+  with the JAX engine's throttle.
 - prefix_cache_size > 0: an LRU of prompt-prefix KV rows (clones of the
-  slot cache's rows, never views of it).
+  slot cache's rows, never views of it). Its copies run eagerly, once an
+  admission.
 
-Per-slot positions (`pos: (S,)`) keep every slot causally independent
-inside the shared step. Every tensor handed to a dispatch is built from a
-copy of the host array (_snapshot): the host mutates its arrays while a
-dispatched step may still read them (llama_cu_awq_tpu/engine/batch.py:
-59-71 documents the race aliasing caused there). Coins are consumed as the
-JAX engine consumes them: k x S per chunk, S x T per sampled spec block,
-none for an all-greedy block, so seeded sampled streams match it.
+The counterparts of the JAX engine's jitted _decode_chunk_fn (a scan),
+_prefill_slot_fn and _spec_block_fn are step bodies on device buffers of
+fixed address, as in engine/engine.py: _chunk_body (one step of a chunk:
+the input token, forward at B=S, the sampler, the garbage clamp, the
+token to _out[_idx] and the carry, positions and _idx advanced on the
+device), _prefill_body (a B=1 block on one slot's rows) and _spec_body
+(an (S, T) forward with every position's token into _spec_out). A
+dispatch writes its host inputs into one staged buffer (_Inputs: per-slot
+positions, coins, forced tokens and mask, temperatures, top-p values,
+spec inputs, a prefill block), so no body reads a tensor made for one
+call, and the host may go on mutating its arrays while a dispatched step
+still runs (llama_cu_awq_tpu/engine/batch.py:59-71 documents the race
+aliasing caused there). On the card each body is a CUDA graph
+(engine/graphs.py) keyed by (kind, T, window, models/llama.plan), the
+kind holding the host's other choices: ("chunk", sampled), ("spec",
+sampled) or ("prefill", slot), since a slot's rows lie at their own
+addresses. A chunk of k <= chunk_size steps replays its step graph k
+times. On the CPU the same bodies run eagerly, and capture=False runs them
+so on the card. Per-slot positions keep every slot causally independent
+inside the shared step. Coins are consumed as the JAX engine consumes
+them: k x S per chunk, S x T per sampled spec block, none for an
+all-greedy block, so seeded sampled streams match it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import time
+import types
 from collections import OrderedDict
 
 import numpy as np
@@ -48,11 +68,13 @@ import torch
 
 from llama_cu_awq_torch.config import ModelConfig
 from llama_cu_awq_torch.device import resolve_device
-from llama_cu_awq_torch.engine.engine import (PREFILL_BLOCK, attn_buckets,
-                                              propose_ngram)
+from llama_cu_awq_torch.engine.engine import (PREFILL_BLOCK, _Stage,
+                                              attn_buckets, propose_ngram)
+from llama_cu_awq_torch.engine.graphs import GraphSet
 from llama_cu_awq_torch.engine.scheduler import make_scheduler
 from llama_cu_awq_torch.models.llama import (KVCache, LlamaParams, forward,
-                                             init_kv_cache)
+                                             init_kv_cache, plan)
+from llama_cu_awq_torch.ops.cuda.attention_step import reserve_split_scratch
 from llama_cu_awq_torch.sampling import (XorshiftRNG, sample_token,
                                          sample_token_vec)
 from llama_cu_awq_torch.tokenizer import BOS_TOKEN, EOS_TOKEN
@@ -78,6 +100,36 @@ def _host(a) -> np.ndarray:
         a.done.synchronize()
         return a.host.numpy()
     return a.cpu().numpy()
+
+
+class _Inputs:
+    """A dispatch's host inputs as named regions of one int32 buffer: a
+    numpy mirror the host fills (`host.<name>`), device views of fixed
+    address that the step bodies read (`dev.<name>`), and push(), one
+    copy of the whole buffer through a pinned staging slot, queued in
+    stream order without a host sync (engine._Stage). float32 regions
+    hold their bits. `slots` staging slots: a slot is rewritten only once
+    the copy that read it has run."""
+
+    def __init__(self, device: torch.device, slots: int, **fields):
+        sizes = {k: math.prod(shape) for k, (shape, _) in fields.items()}
+        n = sum(sizes.values())
+        self._host = np.zeros(n, np.int32)
+        self._dev = torch.zeros(n, dtype=torch.int32, device=device)
+        self._stage = _Stage(n, torch.int32, device, slots)
+        host, dev, off = {}, {}, 0
+        for name, (shape, dtype) in fields.items():
+            h = self._host[off:off + sizes[name]]
+            d = self._dev[off:off + sizes[name]]
+            if dtype == torch.float32:
+                h, d = h.view(np.float32), d.view(torch.float32)
+            host[name], dev[name] = h.reshape(shape), d.view(shape)
+            off += sizes[name]
+        self.host = types.SimpleNamespace(**host)
+        self.dev = types.SimpleNamespace(**dev)
+
+    def push(self) -> None:
+        self._stage.put(self._host, self._dev)
 
 
 class _PrefixCache:
@@ -149,7 +201,11 @@ class BatchEngine:
                  kv_quant: bool | int = False, temperature: float = 0.0,
                  topp: float = 0.6, seed: int = 1234, chunk_size: int = 8,
                  spec: str | None = None, spec_k: int = 7,
-                 prefix_cache_size: int = 0, device="cuda"):
+                 prefix_cache_size: int = 0, device="cuda",
+                 capture: bool = True):
+        """capture=False runs the step bodies eagerly on the card too (how
+        chip_smoke.py and the card tests hold the graphs to eager
+        launches); on the CPU they always run eagerly."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
@@ -190,6 +246,8 @@ class BatchEngine:
         self.prefix_cache = (_PrefixCache(prefix_cache_size)
                              if prefix_cache_size > 0 else None)
         self._next_id = 0
+        self.cache = self._init_cache()
+        self._init_step_state(capture)
         self.reset()
 
     # ------------------------------------------------------------------
@@ -199,38 +257,50 @@ class BatchEngine:
                              quantized=self.kv_quant, kv_bits=self.kv_bits,
                              device=self.device)
 
-    def _snapshot(self, a: np.ndarray) -> torch.Tensor:
-        """A device copy of a host array that the host will mutate (see
-        the module docstring): from_numpy alone would alias it.
-
-        On a card the array is first copied into pinned memory, then to
-        the card with non_blocking=True, so the dispatch does not wait for
-        the stream: a copy from pageable memory would (PyTorch syncs the
-        stream after it), and the chunk queued next would only start once
-        the one in flight had finished. The pinned block comes from
-        PyTorch's caching host allocator, which reuses it only after the
-        copy that read it has run, so each chunk in flight keeps its own."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
+    def _init_step_state(self, capture: bool):
+        """The step bodies' device buffers (see the module docstring): the
+        staged inputs, the chunk's step index, the token carry and the
+        outputs; and the GraphSet, its split scratch reserved for B = S
+        at max_seq."""
+        dev, cfg = self.device, self.cfg
+        S, C, T = self.n_slots, self.chunk_size, self.spec_k + 1
+        f32, i32 = torch.float32, torch.int32
+        # a round pushes once a prefill block (one a slot) and once its
+        # chunk or block, the spec fallback's carry once more: with two
+        # rounds in flight (run()'s lookahead) a push does not wait for
+        # a copy still queued, unless a drain prefills more blocks
+        self._in = _Inputs(
+            dev, 2 * (S + 2) + 1, pos=((S,), i32), temps=((S,), f32),
+            topps=((S,), f32), carry=((S,), i32), coins=((C, S), f32),
+            forced=((C, S), i32), mask=((C, S), i32),
+            spec_tok=((S, T), i32), spec_coins=((S, T), f32),
+            block=((1, PREFILL_BLOCK), i32), block_pos=((1,), i32))
+        self._idx = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._tok = torch.zeros(S, dtype=i32, device=dev)  # the carry
+        self._out = torch.zeros(C, S, dtype=i32, device=dev)
+        self._spec_out = torch.zeros(S, T, dtype=i32, device=dev)
+        self._graphs = None
+        if capture and dev.type == "cuda":
+            self._graphs = GraphSet(dev, lambda: reserve_split_scratch(
+                dev, S, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                cfg.head_dim, self.max_seq))
 
     def _fetch(self, t: torch.Tensor):
-        """Start copying a dispatched result to the host (see _Fetch); on
-        the CPU the tensor itself."""
+        """Start copying a dispatched result, a view of a static output
+        buffer, to the host (see _Fetch); on the CPU a clone, since the
+        next dispatch rewrites the buffer."""
         if self.device.type != "cuda":
-            return t
+            return t.clone()
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         return _Fetch(host, done)
 
-    def _coins(self, rows: int, cols: int) -> torch.Tensor:
-        """(rows, cols) coins, drawn row by row, on the device."""
-        return self._snapshot(np.array(
-            [[self.rng.random_f32() for _ in range(cols)]
-             for _ in range(rows)], np.float32))
+    def _coins(self, rows: int, cols: int) -> np.ndarray:
+        """(rows, cols) coins, drawn row by row."""
+        return np.array([[self.rng.random_f32() for _ in range(cols)]
+                         for _ in range(rows)], np.float32)
 
     def _bucket_for(self, seq: int) -> int:
         for b in self._buckets:
@@ -245,36 +315,93 @@ class BatchEngine:
         return KVCache(*[[a[slot:slot + 1] for a in field]
                          for field in (c.k, c.v, c.k_scale, c.v_scale)])
 
+    # ------------------------------------------------------------------
+    # step bodies on the device state, and their graphs
+
+    def _chunk_body(self, attn_len: int, sampled: bool):
+        """One step of a chunk: each slot's input is forced[_idx] where
+        mask[_idx] is set, else the carry _tok; forward at B=S and the
+        slots' positions; the sampled token (per-slot temperature and
+        top-p, coin coins[_idx]) or the argmax, clamped, to _out[_idx]
+        and _tok; positions and _idx advance by one."""
+        d, i = self._in.dev, self._idx
+        forced = d.mask.index_select(0, i)[0] != 0
+        in_tok = torch.where(forced, d.forced.index_select(0, i)[0],
+                             self._tok)
+        logits, _ = forward(self.params, self.cfg, in_tok[:, None], d.pos,
+                            self.cache, attn_len=attn_len,
+                            attn_impl=self.attn_impl)
+        coin = d.coins.index_select(0, i)[0]
+        if sampled:  # per-slot temperature and top-p
+            nxt = sample_token_vec(logits, coin, d.temps, d.topps)
+        else:        # all-greedy: no softmax, no sort
+            nxt = sample_token(logits, coin, 0.0, 0.0)
+        # garbage-token clamp (llama2_q4.cu:474)
+        nxt = torch.where(nxt >= self.cfg.vocab_size, torch.zeros_like(nxt),
+                          nxt)
+        self._out.index_copy_(0, i, nxt[None])
+        self._tok.copy_(nxt)
+        d.pos.add_(1)
+        i.add_(1)
+
+    def _prefill_body(self, slot: int, attn_len: int, T: int):
+        """B=1 teacher-forced block block[:, :T] at block_pos over one
+        slot's cache rows, without the lm_head."""
+        d = self._in.dev
+        forward(self.params, self.cfg, d.block[:, :T], d.block_pos,
+                self._slot_cache(slot), attn_len=attn_len, no_logits=True)
+
+    def _spec_body(self, attn_len: int, sampled: bool):
+        """One teacher-forced forward over the (S, T) blocks spec_tok with
+        per-slot positions, the model's token choice at every position to
+        _spec_out: greedy argmax, or with sampled=True per-position
+        sampling on spec_coins with the slot's own temperature and top-p
+        (point-mass-draft rejection sampling reduces to acceptance by
+        equality on these tokens, see the JAX engine's _spec_block_fn)."""
+        d = self._in.dev
+        logits, _ = forward(self.params, self.cfg, d.spec_tok, d.pos,
+                            self.cache, attn_len=attn_len,
+                            attn_impl=self.attn_impl, logits_all=True)
+        if not sampled:
+            self._spec_out.copy_(torch.argmax(logits, dim=-1))
+            return
+        S, T, V = logits.shape
+        toks = sample_token_vec(logits.reshape(S * T, V),
+                                d.spec_coins.reshape(S * T),
+                                d.temps[:, None].expand(S, T).reshape(-1),
+                                d.topps[:, None].expand(S, T).reshape(-1))
+        self._spec_out.copy_(toks.reshape(S, T))
+
+    def _graph_key(self, kind: tuple, T: int, attn_len: int) -> tuple:
+        """What a graph of a body holds fixed: its kind, ("chunk",
+        sampled), ("spec", sampled) or ("prefill", slot), its block width
+        and window, and forward's plan there (models/llama.plan: B = S, or
+        B = 1 without an attn_impl for prefill, as _prefill_body calls
+        forward). No chunk length."""
+        B, impl = ((1, None) if kind[0] == "prefill"
+                   else (self.n_slots, self.attn_impl))
+        return (kind, T, attn_len, plan(self.params, self.cfg, self.cache,
+                                        B, T, attn_len, impl))
+
+    def _run(self, kind: tuple, T: int, attn_len: int, body, n: int = 1):
+        """body() n times: eagerly without graphs, else through the graph
+        of its key."""
+        if self._graphs is None:
+            for _ in range(n):
+                body()
+        else:
+            self._graphs.run(self._graph_key(kind, T, attn_len), body, n)
+
     def _prefill_slot(self, tokens: list[int], pos: int, slot: int,
                       attn_len: int) -> None:
         """B=1 teacher-forced block over one slot's cache rows."""
-        toks = self._snapshot(np.array([tokens], np.int32))
-        p = self._snapshot(np.array([pos], np.int32))
-        forward(self.params, self.cfg, toks, p, self._slot_cache(slot),
-                attn_len=attn_len, no_logits=True)
-
-    def _decode_chunk(self, tokens, pos, coins, forced, force_mask, temps,
-                      topps, attn_len: int, sampled: bool) -> torch.Tensor:
-        """K batched mixed prefill/decode steps (K = len(coins)): each
-        step every slot consumes a forced prompt token where force_mask is
-        set, else its sampled carry. tokens, pos, temps, topps: (S,);
-        coins, forced, force_mask: (K, S). Returns the (K, S) sampled
-        tokens, on the device."""
-        toks = []
-        for i in range(coins.shape[0]):
-            in_tok = torch.where(force_mask[i], forced[i], tokens)
-            logits, _ = forward(self.params, self.cfg, in_tok[:, None],
-                                pos + i, self.cache, attn_len=attn_len,
-                                attn_impl=self.attn_impl)
-            if sampled:  # per-slot temperature and top-p
-                nxt = sample_token_vec(logits, coins[i], temps, topps)
-            else:        # all-greedy: no softmax, no sort
-                nxt = sample_token(logits, coins[i], 0.0, 0.0)
-            # garbage-token clamp (llama2_q4.cu:474)
-            tokens = torch.where(nxt >= self.cfg.vocab_size,
-                                 torch.zeros_like(nxt), nxt)
-            toks.append(tokens)
-        return torch.stack(toks)
+        T = len(tokens)
+        h = self._in.host
+        h.block[0, :T] = tokens
+        h.block_pos[0] = pos
+        self._in.push()
+        self._run(("prefill", slot), T, attn_len, functools.partial(
+            self._prefill_body, slot, attn_len, T))
 
     def _prefix_put(self, rows, slot: int) -> None:
         """Copy cached prefix rows into rows [0, m) of one slot."""
@@ -289,26 +416,6 @@ class BatchEngine:
         sub = self._slot_cache(slot)
         return tuple([a[:, :m].clone() for a in field]
                      for field in (sub.k, sub.v, sub.k_scale, sub.v_scale))
-
-    def _spec_block(self, tokens, pos, coins, temps, topps, attn_len: int,
-                    sampled: bool) -> torch.Tensor:
-        """One teacher-forced forward over (S, T) input blocks with per-
-        slot positions, returning the model's token choice at every
-        position: greedy argmax, or with sampled=True per-position
-        sampling with the slot's own temperature and top-p (point-mass-
-        draft rejection sampling reduces to acceptance by equality on
-        these tokens, see the JAX engine's _spec_block_fn)."""
-        logits, _ = forward(self.params, self.cfg, tokens, pos, self.cache,
-                            attn_len=attn_len, attn_impl=self.attn_impl,
-                            logits_all=True)
-        if not sampled:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        S, T, V = logits.shape
-        toks = sample_token_vec(logits.reshape(S * T, V),
-                                coins.reshape(S * T),
-                                temps.repeat_interleave(T),
-                                topps.repeat_interleave(T))
-        return toks.reshape(S, T)
 
     def _dispatch_spec_block(self, active, props=None):
         """Build and launch one (S, T) speculative block: pending prompt
@@ -356,19 +463,21 @@ class BatchEngine:
         # one coin per position for sampled blocks; greedy blocks take the
         # argmax and draw none
         sampled = bool((self.slot_temp[list(active)] > 0.0).any())
+        h = self._in.host
         if sampled:
-            coins = self._coins(S, T)
-        else:
-            coins = torch.zeros(S, T, dtype=torch.float32,
-                                device=self.device)
-        out = self._spec_block(
-            self._snapshot(inputs), self._snapshot(self.pos), coins,
-            self._snapshot(self.slot_temp), self._snapshot(self.slot_topp),
-            attn_len, sampled)
+            h.spec_coins[:] = self._coins(S, T)
+        h.spec_tok[:] = inputs
+        h.pos[:] = self.pos
+        h.temps[:] = self.slot_temp
+        h.topps[:] = self.slot_topp
+        self._in.push()
+        self._run(("spec", sampled), T, attn_len, functools.partial(
+            self._spec_body, attn_len, sampled))
         owners = {s: self._slot_req[s] for s in active}
         start_pos = {s: int(self.pos[s]) for s in active}
         self.spec_stats["blocks"] += 1
-        return {"out": self._fetch(out), "inputs": inputs, "owners": owners,
+        return {"out": self._fetch(self._spec_out), "inputs": inputs,
+                "owners": owners,
                 "n_forced": n_forced, "emitting": emitting,
                 "proposing": proposing, "start_pos": start_pos, "T": T}
 
@@ -488,7 +597,9 @@ class BatchEngine:
         if not want_block:
             # nothing to verify and no prompt to feed: a plain chunk, its
             # device carry seeded from the host's next unconsumed tokens
-            self.last_token = self._snapshot(self._carry)
+            self._in.host.carry[:] = self._carry
+            self._in.push()
+            self._tok.copy_(self._in.dev.carry)
             chunk = self._dispatch_chunk()
             return ("chunk", chunk) if chunk else None
         return ("block", self._dispatch_spec_block(active, props))
@@ -507,14 +618,16 @@ class BatchEngine:
     # public API
 
     def reset(self):
-        """Clear all requests and per-slot state."""
+        """Clear all requests and per-slot state. The cache and the token
+        carry are zeroed in place, where the JAX engine builds new ones:
+        the graphs hold their addresses."""
         S = self.n_slots
         self.scheduler = make_scheduler(S, self.max_seq)
-        self.cache = self._init_cache()
+        c = self.cache
+        for t in c.k + c.v + c.k_scale + c.v_scale:
+            t.zero_()
+        self._tok.zero_()
         self.pos = np.zeros(S, np.int32)  # next write position
-        # the device token carry between chunks
-        self.last_token = torch.zeros(S, dtype=torch.int32,
-                                      device=self.device)
         # per-slot sampling parameters (a request may override the
         # engine's defaults at submit())
         self.slot_temp = np.zeros(S, np.float32)
@@ -676,8 +789,8 @@ class BatchEngine:
         """Admit and queue one mixed prefill/decode chunk on the device
         without waiting for its tokens. Returns a chunk record for
         _process_chunk, or None when no slot is active. The token carry
-        chains chunk to chunk on the device (self.last_token), so a
-        lookahead chunk needs no host round trip to start."""
+        chains chunk to chunk on the device (_tok), so a lookahead chunk
+        needs no host round trip to start."""
         self._admit()
         self._advance_prefill()
         # a slot already at the cache boundary (possible under lookahead:
@@ -701,36 +814,38 @@ class BatchEngine:
             self.pos[s] = (self.max_seq - k
                            if s in self._prefill_jobs else 0)
 
-        forced = np.zeros((k, self.n_slots), np.int32)
-        mask = np.zeros((k, self.n_slots), bool)
+        h = self._in.host
+        h.forced[:] = 0
+        h.mask[:] = 0
         emit_from = {}  # slot -> first step whose sampled output counts
         for s in active:
             pend = self._pending[s]
             n = min(len(pend), k)
-            forced[:n, s] = pend[:n]
-            mask[:n, s] = True
+            h.forced[:n, s] = pend[:n]
+            h.mask[:n, s] = 1
             del pend[:n]
             # the step consuming the last prompt token emits generation
             # token 1; earlier forced outputs are teacher-forced noise
             emit_from[s] = k if pend else max(n - 1, 0)
 
-        coins = self._coins(k, self.n_slots)
+        h.coins[:k] = self._coins(k, self.n_slots)
+        h.pos[:] = self.pos
+        h.temps[:] = self.slot_temp
+        h.topps[:] = self.slot_topp
+        self._in.push()
+        self._idx.zero_()
         attn_len = self._bucket_for(int(self.pos[active].max()) + k)
         # all-greedy chunks skip the per-row sampler (it sorts (S, vocab)
         # every step)
         sampled = bool((self.slot_temp[active] > 0.0).any())
-        toks = self._decode_chunk(
-            self.last_token, self._snapshot(self.pos), coins,
-            self._snapshot(forced), self._snapshot(mask),
-            self._snapshot(self.slot_temp), self._snapshot(self.slot_topp),
-            attn_len, sampled)
+        self._run(("chunk", sampled), 1, attn_len, functools.partial(
+            self._chunk_body, attn_len, sampled), k)
         # owners at dispatch: a slot freed while this chunk is in flight
         # has its tokens discarded at process time
         owners = {s: self._slot_req[s] for s in active}
         self.pos += k
-        self.last_token = toks[-1]  # on the device; no host sync
-        return {"toks": self._fetch(toks), "k": k, "owners": owners,
-                "emit_from": emit_from}
+        return {"toks": self._fetch(self._out[:k]), "k": k,
+                "owners": owners, "emit_from": emit_from}
 
     def _process_chunk(self, chunk) -> list[tuple[int, list[int], bool]]:
         """Fetch a dispatched chunk's tokens (the host sync) and route

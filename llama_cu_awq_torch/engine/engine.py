@@ -1,7 +1,7 @@
 """Single-sequence inference engine: generate and chat.
 
 The counterpart of llama_cu_awq_tpu/engine/engine.py, with the
-counterparts of its three device-resident loops. The step state lives on
+counterparts of its device-resident loops and its speculative verify. The step state lives on
 the device in buffers of fixed address: the next position (_pos_buf),
 the step's index (_idx) into the chunk's coins and tokens or into the
 staged prompt, and the next input token (_tok). A step body computes
@@ -14,12 +14,15 @@ everything from them and advances them on the device:
   scan (prompts of fewer than PREFILL_BLOCK // 2 tokens), T =
   PREFILL_BLOCK the body of _prefill_scan_fn's (blocks of a longer
   prompt, the last padded with token 0); with the head, the logits go to
-  _logits.
+  _logits;
+- a verify (_verify_body, the body of _spec_verify_fn) is a prompt step
+  with the head over [last token, proposal], then the argmax or the
+  sampler on the peeked coins of _coin_buf, into _out[:T].
 On the card each body is a CUDA graph (engine/graphs.py), captured once
 per kind, block width, attention window and forward's plan
-(models/llama.plan), and replayed once a step or block: a chunk of k
-steps is k replays of one graph, so a short last chunk, an EOS rewind and
-the max_seq clamp take the graphs every full chunk takes. Each block
+(models/llama.plan), and replayed once a step, block or verify: a chunk
+of k steps is k replays of one graph, so a short last chunk, an EOS
+rewind and the max_seq clamp take the graphs every full chunk takes. Each block
 replays at its own window, as the JAX package's per-block loop does (its
 scan widens the window to the chunk's end). On the CPU the same bodies
 run eagerly, and `capture=False` runs them so on the card. The host syncs
@@ -95,7 +98,7 @@ class _Stage:
     """Host values on their way to a device buffer: on the card through
     pinned memory and a copy that does not block the host. A slot is
     written again only after the copy that read it has run (an event), so
-    chunks chained without a host sync never see their coins change."""
+    chunks chained without a host sync never see their inputs change."""
 
     def __init__(self, n: int, dtype, device: torch.device, slots: int):
         pin = device.type == "cuda"
@@ -106,13 +109,14 @@ class _Stage:
         self.slot = 0
 
     def put(self, values, dst: torch.Tensor) -> None:
-        """dst[:len(values)] = values, in stream order."""
+        """dst[:len(values)] = values (a list or a numpy array), in stream
+        order."""
         s = self.slot
         self.slot = (s + 1) % len(self.host)
         if self.done[s] is not None:
             self.done[s].synchronize()
         src = self.host[s][:len(values)]
-        src.copy_(torch.tensor(values, dtype=src.dtype))
+        src.copy_(torch.as_tensor(values, dtype=src.dtype))
         dst[:len(values)].copy_(src, non_blocking=True)
         if self.done[s] is not None:
             self.done[s].record()
@@ -166,18 +170,20 @@ class InferenceEngine:
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(*shape, dtype=dtype, device=dev)
 
+        # a chunk's steps or a verify's positions
+        n = max(self.chunk_size, self.spec_k + 1)
         self._pos_buf = zeros(1)
         self._idx = zeros(1, dtype=torch.int64)
         self._tok = zeros(1, 1)
-        self._coin_buf = zeros(self.chunk_size, dtype=torch.float32)
-        self._out = zeros(self.chunk_size)
+        self._coin_buf = zeros(n, dtype=torch.float32)
+        self._out = zeros(n)
         self._prompt_buf = zeros(self.max_seq + PREFILL_BLOCK)
         self._block_rows = torch.arange(PREFILL_BLOCK, device=dev)
         self._logits = zeros(PREFILL_BLOCK, cfg.vocab_size,
                              dtype=torch.float32)
         # coins double-buffered: generate_benchmark queues chunk i + 1
         # while chunk i's copy may not have run
-        self._coin_stage = _Stage(self.chunk_size, torch.float32, dev, 2)
+        self._coin_stage = _Stage(n, torch.float32, dev, 2)
         self._prompt_stage = _Stage(self.max_seq + PREFILL_BLOCK,
                                     torch.int32, dev, 1)
         self._graphs = None
@@ -196,10 +202,6 @@ class InferenceEngine:
             if seq <= b:
                 return b
         return self._buckets[-1]
-
-    def _positions(self, n: int) -> torch.Tensor:
-        return torch.arange(self.pos, self.pos + n, dtype=torch.int32,
-                            device=self.device)
 
     # ------------------------------------------------------------------
     # step bodies on the device state, and their graphs
@@ -236,6 +238,19 @@ class InferenceEngine:
             self._logits[:T].copy_(logits[0])
         self._advance(T)
 
+    def _verify_body(self, attn_len: int, T: int):
+        """A prompt step with the head over the T tokens at _idx, then
+        the model's token at each position into _out[:T]: the argmax at
+        temperature 0, else the sampler on the coins _coin_buf[:T]."""
+        self._prompt_body(attn_len, T, head=True)
+        logits = self._logits[:T]
+        if self.temperature == 0.0:
+            out = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            out = sample_token(logits, self._coin_buf[:T], self.temperature,
+                               self.topp)
+        self._out[:T].copy_(out)
+
     def _graph_key(self, kind, T: int, attn_len: int) -> tuple:
         """What a graph of a body holds fixed: its kind, block width and
         window, and forward's plan there (models/llama.plan: attn_impl
@@ -269,10 +284,6 @@ class InferenceEngine:
         self._run("decode", 1, attn_len,
                   functools.partial(self._decode_body, attn_len), k)
         return self._out[:k]
-
-    def _coins(self, k: int) -> torch.Tensor:
-        return torch.tensor([[self.rng.random_f32()] for _ in range(k)],
-                            dtype=torch.float32, device=self.device)
 
     def reset(self):
         # in place, where the JAX engine builds a new cache: the graphs
@@ -447,22 +458,21 @@ class InferenceEngine:
         return self._decode_tokens(token, max_steps, stop_at_eos=stop_at_eos,
                                    on_token=on_token)
 
-    def _spec_verify(self, tokens: list[int], coins: torch.Tensor,
+    def _spec_verify(self, tokens: list[int], coins: list[float] | None,
                      attn_len: int) -> list[int]:
         """One teacher-forced forward over [last, p_1..p_k] at self.pos:
         out[t] is the model's token after consuming p_1..p_t (argmax at
         temperature 0, else the sampler on coins[t]). Cache rows written
         past what is later accepted lie beyond the rolled-back position
         and are overwritten before any step reads them."""
-        toks = torch.tensor([tokens], dtype=torch.int32, device=self.device)
-        logits, _ = forward(self.params, self.cfg, toks, self._positions(1),
-                            self.cache, attn_len=attn_len,
-                            attn_impl=self.attn_impl, logits_all=True)
-        if self.temperature == 0.0:
-            out = torch.argmax(logits, dim=-1)
-        else:
-            out = sample_token(logits, coins, self.temperature, self.topp)
-        return out[0].tolist()  # the host sync of a verify
+        T = len(tokens)
+        self._prompt_stage.put(tokens, self._prompt_buf)
+        if coins is not None:
+            self._coin_stage.put(coins, self._coin_buf)
+        self._start()
+        self._run("verify", T, attn_len,
+                  functools.partial(self._verify_body, attn_len, T))
+        return self._out[:T].tolist()  # the host sync of a verify
 
     def _decode_tokens_spec(self, token: torch.Tensor, max_steps: int,
                             stop_at_eos: bool = True, on_token=None):
@@ -489,14 +499,13 @@ class InferenceEngine:
                     return generated, hit
                 last = new[-1]
                 continue
+            coins = None
             if self.temperature > 0.0:
                 # peek the next k+1 coins without consuming them: coin t
                 # is the one plain decode draws at emitted step t
                 saved = self.rng.state
-                coins = self._coins(k + 1).T
+                coins = [self.rng.random_f32() for _ in range(k + 1)]
                 self.rng.state = saved
-            else:
-                coins = torch.zeros(1, k + 1, device=self.device)
             out = self._spec_verify([last] + prop, coins,
                                     self._bucket_for(self.pos + k + 1))
             m = 0

@@ -4,8 +4,10 @@ The counterpart of the JAX engine's engine_jit cache of compiled
 executables (llama_cu_awq_tpu/engine/engine.py:89-153): where jit compiles
 one executable per function and static arguments and the host dispatches
 a whole lax.scan with one call, a GraphSet captures one CUDA graph per key
-and the host replays a step, a forced prompt token or a prefill block with
-one graph launch, no Python launch per kernel.
+and the host replays a step, a forced prompt token, a prefill block, a
+speculative verify or, in BatchEngine, a chunk step, a slot's prefill
+block or a spec block with one graph launch, no Python launch per
+kernel.
 
 A body reads and writes only tensors of fixed address: the engine's step
 state and output buffers, the cache and the weights. A graph replays the

@@ -3,11 +3,13 @@ llama_cu_awq_tpu/engine/perplexity.py, itself the reference's
 perplexity.h protocol).
 
 The dataset is split on "<|endoftext|>"; each sequence is encoded without
-BOS/EOS, truncated to seq_len - 1 tokens, prefixed with BOS and
-teacher-forced through the network in prefill blocks; row i of the logits
-predicts token i. A sequence scores exp(-mean(log p(token_i | prefix)))
-with an f32 softmax per row and f64 log accumulation; the dataset score
-is the geometric mean over sequences.
+BOS/EOS, truncated to min(seq_len, the engine's max_seq) - 1 tokens (what
+the engine's cache holds: the JAX engine truncates to seq_len - 1 alone,
+and its cache writes clamp silently past a smaller max_seq), prefixed
+with BOS and teacher-forced through the network in prefill blocks; row i
+of the logits predicts token i. A sequence scores exp(-mean(log p(token_i
+| prefix))) with an f32 softmax per row and f64 log accumulation; the
+dataset score is the geometric mean over sequences.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ def token_perplexity(engine, data_tokens: list[int],
     """Perplexity of one encoded sequence (perplexity.h:57-96); NaN for
     an empty one. Needs no tokenizer."""
     n = len(data_tokens)
-    if n >= engine.cfg.seq_len:
-        n = engine.cfg.seq_len - 1
+    limit = min(engine.cfg.seq_len, engine.max_seq)
+    if n >= limit:
+        n = limit - 1
         if verbose:
             print(f"\nTruncated to {n} tokens", flush=True)
     if n == 0:

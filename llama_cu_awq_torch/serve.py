@@ -8,7 +8,9 @@ The counterpart of llama_cu_awq_tpu/serve.py, stdlib only
   BatchEngine.run()'s one-chunk lookahead. HTTP handler threads only
   enqueue requests and block on per-request token queues: they never
   touch a tensor, and each engine thread runs its CUDA work under its own
-  device (torch.cuda.device).
+  device (torch.cuda.device). Each replica's engine owns its CUDA graphs
+  (engine/graphs.py); they are captured and replayed on its engine
+  thread.
 - Endpoints (OpenAI-compatible shapes):
     POST /v1/completions   {"prompt", "max_tokens", "stream": bool,
                             "stop": str | [str, ...] (<= 4),

@@ -22,11 +22,13 @@ import torch
 from llama_cu_awq_torch.engine import BatchEngine as TBatchEngine
 from llama_cu_awq_torch.engine import batch as t_batch
 from llama_cu_awq_torch.models import llama as tl
+from llama_cu_awq_torch.ops.cuda import LAUNCHES, count, reset_launches
 from llama_cu_awq_tpu.config import ModelConfig
 from llama_cu_awq_tpu.engine import engine as j_engine_mod
 from llama_cu_awq_tpu.engine.batch import BatchEngine as JBatchEngine
 from llama_cu_awq_tpu.io.checkpoint import random_checkpoint
 from llama_cu_awq_tpu.models import llama as jl
+from tests.test_torch_graphs import _StaleSet
 
 # one intra-op thread per process: the suite runs in several worker
 # processes, and torch's default pool in each oversubscribes the cores
@@ -48,7 +50,9 @@ LOOPY = [[1, 5, 9, 13, 5, 9, 13, 5, 9], [1, 42, 43, 42, 43, 42],
 @pytest.fixture(scope="module")
 def engines():
     """make(name, **kw) -> (JAX engine, port engine), built once per name
-    and reset before each use (compiled JAX steps are kept)."""
+    and reset before each use (compiled JAX steps are kept). A name
+    ending in "_stale" gives the port engine a _StaleSet: its bodies
+    replay the first body of their key, as CUDA graphs would."""
     ckpt = random_checkpoint(CFG, seed=7)
     jp = jl.params_from_checkpoint(ckpt, param_dtype=jnp.bfloat16)
     tp = tl.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), CFG,
@@ -61,6 +65,8 @@ def engines():
             kw.setdefault("chunk_size", 4)
             built[name] = (JBatchEngine(jp, CFG, **kw),
                            TBatchEngine(tp, CFG, device="cpu", **kw))
+            if name.endswith("_stale"):
+                built[name][1]._graphs = _StaleSet()
         for be in built[name]:
             be.reset()
         return built[name]
@@ -209,13 +215,182 @@ def test_prefix_cache_hits(engines):
         pair[1].cache.k[0].untyped_storage().data_ptr()
 
 
-def test_snapshot_copies_host_arrays():
-    """A dispatched tensor never aliases the host array the engine goes on
-    mutating (from_numpy alone would)."""
-    class _Eng:
-        device = torch.device("cpu")
+# ---------------------------------------------------------------------------
+# the step bodies as graphs replay them (engine/graphs.py), on the CPU
 
+def _cancel_in_flight(be):
+    """A request cancelled while a chunk that decodes it is in flight:
+    the chunk's tokens for it are discarded, its slot goes to the queued
+    request."""
+    rids = [be.submit(p, max_new=10) for p in PROMPTS[:4]]
+    be.step()
+    in_flight = be._dispatch_chunk()
+    n_before = len(be._requests[rids[1]].out)
+    assert be.cancel(rids[1])
+    be._process_chunk(in_flight)
+    out = be.run()
+    assert len(out[rids[1]]) == n_before
+    return [out[r] for r in rids]
+
+
+def _short_chunk_at_boundary(be):
+    """A 12-token prompt in an 18-row cache: chunks of 4 from position 0,
+    the last one of 2 steps."""
+    rid = be.submit([1] + list(range(5, 16)), max_new=0)
+    ks = []
+    while be.pending:
+        chunk = be._dispatch_chunk()
+        ks.append(chunk["k"])
+        be._process_chunk(chunk)
+    assert ks[-1] == 2 < be.chunk_size
+    return be._requests[rid].out, ks
+
+
+def _prefix_hit(be):
+    r0 = be.submit(PREFIX, max_new=6)
+    out0 = be.run()[r0]
+    r1 = be.submit(PREFIX + [11, 12], max_new=6, temperature=0.8)
+    out1 = be.run()[r1]
+    return out0, out1
+
+
+def _run_after_reset(be):
+    """A mixed greedy and sampled run, reset(), and the same run again."""
+    outs = []
+    for _ in range(2):
+        be.reset()
+        rids = [be.submit(p, max_new=8, temperature=0.9 * (i % 2))
+                for i, p in enumerate(PROMPTS)]
+        out = be.run()
+        outs.append([out[r] for r in rids])
+    return outs
+
+
+def _sampled(be):
+    rids = [be.submit([1, 5, 9], max_new=8),
+            be.submit([1, 7], max_new=8, temperature=0.9, topp=0.9),
+            be.submit([1, 3, 4], max_new=8, temperature=1.0, topp=1.0)]
+    out = be.run()
+    return [out[r] for r in rids], be.rng.state
+
+
+# scenario -> (engine name and options, scenario)
+STALE = {
+    "more_requests_than_slots": (("a", {"n_slots": 3}), _serve(PROMPTS, 12)),
+    "interleaved_prefill_two_slots": (("a", {"n_slots": 3}), _serve(
+        [[1, 42], LONG, LONG[:1] + LONG[5:]], 6)),
+    "seeded_sampling": (("a", {"n_slots": 3}), _sampled),
+    "spec_greedy": (("spec", dict(n_slots=3, spec="ngram", spec_k=4)),
+                    _serve(LOOPY + [LONG], 12, temperature=0.0)),
+    "spec_sampled": (("spec", dict(n_slots=3, spec="ngram", spec_k=4)),
+                     _serve(LOOPY + [LONG], 12, temperature=0.8)),
+    "prefix_cache_hit": (("prefix", dict(n_slots=2, prefix_cache_size=2)),
+                         _prefix_hit),
+    "cancel_in_flight": (("a", {"n_slots": 3}), _cancel_in_flight),
+    "short_chunk_at_boundary": (("c18", dict(n_slots=2, max_seq=18)),
+                                _short_chunk_at_boundary),
+    "run_after_reset": (("a", {"n_slots": 3}), _run_after_reset),
+}
+
+
+@pytest.mark.parametrize("scenario", list(STALE))
+def test_graph_bodies_replayed_stale_match_jax(engines, scenario):
+    """Every step body replays the first body captured for its key
+    (_StaleSet: what a CUDA graph does with its baked-in arguments), and
+    the streams and stats() counters still equal the JAX engine's: no
+    body reads a tensor made for one call."""
+    (name, kw), run = STALE[scenario]
+    _both(engines(name + "_stale", **kw), run)
+
+
+def test_batch_graph_keys_hold_the_host_choices(engines):
+    """One key per kind and choice, block width, window and plan: the
+    chunk's and the spec block's keys hold sampled, the prefill's its
+    slot; no chunk length is in a key (a short chunk replays the full
+    chunks' graph)."""
+    _, be = engines("c18_stale", n_slots=2, max_seq=18)
+    be._graphs.graphs.clear()
+    _both(engines("c18_stale", n_slots=2, max_seq=18),
+          _short_chunk_at_boundary)
+    assert list(be._graphs.graphs) == [be._graph_key(("chunk", False), 1,
+                                                     18)]
+    _, be = engines("a_stale", n_slots=3)
+    be._graphs.graphs.clear()
+    be.submit(LONG, max_new=4)
+    be.submit([1] + LONG[5:], max_new=4, temperature=0.5)
+    be.run()
+    keys = list(be._graphs.graphs)
+    assert {k[0] for k in keys} == {("prefill", 0), ("prefill", 1),
+                                    ("chunk", True)}
+    assert all(k[1] == (128 if k[0][0] == "prefill" else 1) for k in keys)
+    k128 = be._graph_key(("chunk", True), 1, 128)
+    assert k128 != be._graph_key(("chunk", False), 1, 128)
+    assert k128 != be._graph_key(("chunk", True), 1, 256)
+    assert k128[3].attn_impl is None
+    p0, p1 = (be._graph_key(("prefill", s), 128, 128) for s in (0, 1))
+    assert p0 != p1 and p0[1:] == p1[1:]
+    _, spec = engines("spec_stale", n_slots=3, spec="ngram", spec_k=4)
+    assert spec._graph_key(("spec", False), 5, 128)[1:] == \
+        spec._graph_key(("spec", True), 5, 128)[1:]
+
+
+def test_reset_keeps_the_buffers_in_place(engines):
+    """reset() zeroes the cache and the token carry in place: the graphs
+    hold their addresses."""
+    _, be = engines("a", n_slots=3)
+    bufs = be.cache.k + be.cache.v + [be._tok, be._out, be._in.dev.pos]
+    ptrs = [t.data_ptr() for t in bufs]
+    _serve(PROMPTS, 6)(be)
+    assert any(t.any() for t in be.cache.k)
+    be.reset()
+    assert [t.data_ptr() for t in bufs] == ptrs
+    assert not any(t.any() for t in be.cache.k + be.cache.v + [be._tok])
+
+
+def test_replays_add_the_launches_of_eager_steps(engines, monkeypatch):
+    """With every forward counted as a launch, an engine whose bodies
+    replay (each replay adds its capture's launches through
+    add_launches, what it counts itself taken back) counts what an eager
+    engine counts, chunk steps, prefill blocks and spec blocks alike."""
+    real = t_batch.forward
+
+    def counted(*a, **kw):
+        count("int4_matmul_fused", f"T{a[2].shape[1]}")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(t_batch, "forward", counted)
+    got = {}
+    for name, kw in (("spec", dict(n_slots=3, spec="ngram", spec_k=4)),
+                     ("a", {"n_slots": 3})):
+        for stale in ("", "_stale"):
+            _, be = engines(name + stale, **kw)
+            if stale:  # captures made before forward counted count none
+                be._graphs.graphs.clear()
+            reset_launches()
+            _serve(LOOPY + [LONG], 10)(be)
+            got[name + stale] = dict(LAUNCHES)
+        assert got[name] == got[name + "_stale"]
+        assert got[name]["int4_matmul_fused"] > 0
+    reset_launches()
+
+
+def test_snapshot_copies_host_arrays():
+    """A dispatch's inputs never alias the host arrays the engine goes on
+    mutating: _Inputs.push copies its host mirror into the device buffer
+    the bodies read (from_numpy alone would alias it), float32 regions by
+    their bits, and each region is a view of fixed address."""
+    inp = t_batch._Inputs(torch.device("cpu"), 2, pos=((4,), torch.int32),
+                          coins=((2, 4), torch.float32))
+    ptrs = (inp.dev.pos.data_ptr(), inp.dev.coins.data_ptr())
     a = np.arange(4, dtype=np.int32)
-    t = t_batch.BatchEngine._snapshot(_Eng(), a)
+    inp.host.pos[:] = a
+    inp.host.coins[:] = 0.25
+    inp.push()
     a += 10
-    assert t.tolist() == [0, 1, 2, 3]
+    inp.host.pos[:] = a
+    assert inp.dev.pos.tolist() == [0, 1, 2, 3]
+    assert inp.dev.coins.dtype == torch.float32
+    assert inp.dev.coins.tolist() == [[0.25] * 4] * 2
+    inp.push()
+    assert inp.dev.pos.tolist() == [10, 11, 12, 13]
+    assert (inp.dev.pos.data_ptr(), inp.dev.coins.data_ptr()) == ptrs

@@ -1119,3 +1119,155 @@ def test_graph_generate_and_chat_match_eager(gen, tmp_path):
     eng, _ = _graph_and_eager(run, params, _CFG, temperature=0.5, topp=0.6,
                               seed=3)
     assert any(k[0] == "decode" for k in eng._graphs.graphs)
+
+
+# ---------------------------------------------------------------------------
+# BatchEngine's graphs and the speculative verify's, against eager launches
+
+_LOOPY = [[1, 5, 9, 13, 5, 9, 13, 5, 9], [1, 42, 43, 42, 43, 42],
+          [1, 7, 8, 9, 7, 8]]
+# a prompt of more than one 128-token block: slot prefill, a prefix entry
+_LONG = [1] + [(7 + 3 * i) % 200 for i in range(168)]
+
+
+def _batch_graph_and_eager(fn, params, cfg, **kw):
+    """fn(engine) on a BatchEngine that replays graphs and on one that
+    launches eagerly: equal results, caches and launch counts, bit for
+    bit. Returns the graph engine."""
+    from llama_cu_awq_torch.engine import BatchEngine
+
+    engines = [BatchEngine(params, cfg, None, capture=c, **kw)
+               for c in (True, False)]
+    got, want = [_counted(lambda e=e: fn(e)) for e in engines]
+    assert got[0] == want[0]
+    assert got[1:] == want[1:]
+    _caches_equal(*engines)
+    assert engines[0]._graphs.graphs and engines[1]._graphs is None
+    return engines[0]
+
+
+def _serve_all(prompts, max_new, temps=(0.0,)):
+    def run(be):
+        rids = [be.submit(p, max_new=max_new,
+                          temperature=temps[i % len(temps)], topp=0.9)
+                for i, p in enumerate(prompts)]
+        out = be.run()
+        return [out[r] for r in rids], be.rng.state
+    return run
+
+
+@pytest.mark.parametrize("attn_impl", [None, "fused_step"])
+def test_batch_graph_mixed_sampling_matches_eager(gen, attn_impl):
+    """Greedy and sampled requests (per-request temperature) over 3
+    slots, decoding across the 128 and 256 buckets; the long prompt's
+    slot prefill blocks too. One chunk graph per window and sampled, one
+    prefill graph per slot, block width and window."""
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    prompts = [[1, 5, 9, 100], [1, 42], _LONG, [1, 7, 8, 9, 10, 11, 12]]
+
+    def run(be):  # mixed chunks, then all-greedy ones
+        return (_serve_all(prompts, 100, temps=(0.0, 0.8))(be),
+                _serve_all([[1, 42]], 8)(be))
+
+    eng = _batch_graph_and_eager(run, params, _CFG, n_slots=3, max_seq=256,
+                                 chunk_size=4, attn_impl=attn_impl)
+    kinds = {k[0] for k in eng._graphs.graphs}
+    assert {("chunk", True), ("chunk", False)} <= kinds
+    assert any(k[0] == "prefill" for k in kinds)
+    windows = {k[2] for k in eng._graphs.graphs if k[0][0] == "chunk"}
+    assert windows == {128, 256}
+
+
+def test_batch_graph_prefix_cache_and_reset_match_eager(gen):
+    """A prefix-cache hit (the row copies stay eager), then reset() and
+    the same requests again, replaying the graphs of the first run."""
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+
+    def run(be):
+        outs = []
+        for _ in range(2):
+            be.reset()
+            for p, t in ((_LONG, 0.0), (_LONG + [11, 12], 0.7),
+                         ([1, 42], 0.7)):
+                outs += _serve_all([p], 12, temps=(t,))(be)[0]
+        return outs, be.stats()["prefix_cache"]
+
+    eng = _batch_graph_and_eager(run, params, _CFG, n_slots=2, max_seq=256,
+                                 chunk_size=4, prefix_cache_size=2)
+    assert eng.stats()["prefix_cache"]["hits"] == 3
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_batch_graph_spec_matches_eager(gen, temperature):
+    """spec="ngram" serving: (S, T) spec blocks, plain-chunk fallbacks
+    with the carry seeded from the host, the long prompt's prefill."""
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+
+    def run(be):
+        out = _serve_all(_LOOPY + [_LONG], 40, temps=(temperature,))(be)
+        return out, be.spec_stats
+
+    eng = _batch_graph_and_eager(run, params, _CFG, n_slots=3, max_seq=256,
+                                 chunk_size=4, spec="ngram", spec_k=4)
+    assert eng.spec_stats["blocks"] > 0
+    assert any(k[0] == ("spec", temperature > 0) and k[1] == 5
+               for k in eng._graphs.graphs)
+
+
+def test_batch_graph_down_qkv_matches_eager(gen, monkeypatch):
+    """LLAMA_TPU_DOWN_QKV=1 under fused_step: the m=3 chain launch inside
+    the chunk graphs."""
+    monkeypatch.setenv("LLAMA_TPU_DOWN_QKV", "1")
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    _batch_graph_and_eager(_serve_all(_LOOPY + [[1, 250]], 20), params,
+                           _CFG, n_slots=3, max_seq=128, chunk_size=4,
+                           attn_impl="fused_step")
+    reset_launches()
+    from llama_cu_awq_torch.engine import BatchEngine
+    be = BatchEngine(params, _CFG, None, n_slots=3, max_seq=128,
+                     chunk_size=4, attn_impl="fused_step")
+    _serve_all(_LOOPY, 8)(be)
+    assert LAUNCHES["down_qkv"] > 0
+    assert all(k[3].dq_chain for k in be._graphs.graphs
+               if k[0][0] == "chunk")
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.5])
+def test_graph_spec_verify_matches_eager(gen, temperature):
+    """InferenceEngine spec decode, greedy and sampled (peeked coins):
+    the verifies replay one graph per window."""
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    prompt = [1, 5, 9, 13, 7, 5, 9, 13] * 4
+
+    def run(e):
+        toks = e.generate_benchmark(prompt, 200)[0]
+        return toks, e.spec_stats, e.rng.state
+
+    eng, _ = _graph_and_eager(run, params, _CFG, temperature=temperature,
+                              topp=0.9, seed=5, spec="ngram", spec_k=4)
+    assert any(k[0] == "verify" and k[1] == 5 for k in eng._graphs.graphs)
+
+
+def test_batch_capture_needs_the_split_scratch_for_all_slots(gen):
+    """A BatchEngine whose capture stream has the split scratch of one
+    slot only refuses to capture its 3-slot fused_step chunk."""
+    from llama_cu_awq_torch.engine import BatchEngine
+    from llama_cu_awq_torch.engine.graphs import GraphSet
+    from llama_cu_awq_torch.ops.cuda import attention_step as step_mod
+    from llama_cu_awq_torch.ops.cuda.attention_step import (
+        reserve_split_scratch)
+
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    be = BatchEngine(params, _CFG, None, n_slots=3, max_seq=256,
+                     chunk_size=4, attn_impl="fused_step")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gs = GraphSet(dev, lambda: None)
+    # PyTorch hands out pooled streams: drop what an earlier set left on
+    # this one, then size it for one slot
+    step_mod._SCRATCH.pop((dev, gs.stream.cuda_stream), None)
+    with torch.cuda.stream(gs.stream):
+        reserve_split_scratch(dev, 1, 1, 2, 128, 256)
+    be._graphs = gs
+    be.submit([1, 5, 9], max_new=8)
+    with pytest.raises(ValueError, match="sized before a CUDA graph"):
+        be.run()

@@ -211,6 +211,22 @@ def test_cli_perplexity_on_cpu(tmp_path, tiny_config, capsys, monkeypatch):
     assert t_val == pytest.approx(j_val, rel=1e-4)
 
 
+def test_cli_perplexity_past_max_seq(tmp_path, tiny_config, capsys):
+    """-m perplexity --max-seq N on a sequence longer than N scores its
+    first N - 1 tokens and prints the geometric mean line."""
+    path, tok_path = _write_model(tmp_path, tiny_config)
+    data = tmp_path / "data.txt"
+    data.write_text("the cat sat on the mat<|endoftext|>"
+                    + "the cat sat " * 40)
+    assert t_main([path, "-m", "perplexity", "-q", str(data), "-z",
+                   tok_path, "--max-seq", "40", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Truncated to 39 tokens" in out
+    (line,) = [ln for ln in out.splitlines()
+               if ln.startswith("Geomean perplexity on 2 sequences: ")]
+    assert np.isfinite(float(line.rsplit(" ", 1)[1]))
+
+
 def test_cli_perplexity_needs_dataset(tmp_path, tiny_config, capsys):
     path, tok_path = _write_model(tmp_path, tiny_config)
     assert t_main([path, "-m", "perplexity", "-z", tok_path,

@@ -43,8 +43,8 @@ from llama_cu_awq_torch.cli import main as t_main
 from llama_cu_awq_torch.engine import InferenceEngine as TEngine
 from llama_cu_awq_torch.engine.graphs import Graph, GraphSet, record_launches
 from llama_cu_awq_torch.models import llama as tl
-from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES, count,
-                                         reset_launches)
+from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
+                                         add_launches, count, reset_launches)
 from llama_cu_awq_torch.tokenizer import EOS_TOKEN
 from llama_cu_awq_torch.tokenizer import Tokenizer as TTokenizer
 from llama_cu_awq_torch.utils.profiling import TRACE_FILE, profile_trace
@@ -260,6 +260,45 @@ class _CountingSet(GraphSet):
         return Graph(_Replays(), launches, 0.0, 0)
 
 
+class _FirstBody:
+    """A stand-in for torch.cuda.CUDAGraph: every replay runs the body its
+    key was captured from, never the one the caller passes now, as a CUDA
+    graph replays the launches and arguments it recorded. What the body
+    counts is taken back: a replay launches nothing through the wrappers,
+    and Graph.replay adds the capture's launches."""
+
+    def __init__(self, body):
+        self.body = body
+        self.n = 0
+
+    def replay(self):
+        self.n += 1
+        record_launches(self.body)
+
+
+class _StaleSet(GraphSet):
+    """GraphSet.run over _FirstBody graphs, on the CPU: an engine body
+    that reads a tensor made for one call (a host snapshot, a position
+    computed on the host) replays that first call's values, as a graph
+    would, and the engine's streams part from the oracle's. A capture
+    counts the launches of the key's first, eager call."""
+
+    def __init__(self):
+        self.graphs = {}
+        self._first = ({}, {})
+
+    def run(self, key, body, n=1):
+        if key not in self.graphs and n > 0:
+            _, self._first = record_launches(body)
+            add_launches(*self._first)  # it ran eagerly: counted
+            self.graphs[key] = self.capture(body)
+            n -= 1
+        super().run(key, body, n)
+
+    def capture(self, body):
+        return Graph(_FirstBody(body), self._first, 0.0, 0)
+
+
 def test_record_launches_takes_back_what_the_body_counted():
     reset_launches()
     count("dense_gemv", "bf16/m1")
@@ -333,6 +372,32 @@ def test_graph_keys_hold_the_host_choices(monkeypatch):
     monkeypatch.setenv("LLAMA_TPU_DOWN_QKV", "1")
     assert e._graph_key("decode", 1, 1024)[3].dq_chain
     assert e._graph_key("decode", 1, 128) == k128
+
+
+@pytest.mark.parametrize("temperature,jax_forward", [(0.0, "fused"),
+                                                     (0.1, "port")])
+def test_spec_verify_replayed_stale_matches_jax(temperature, jax_forward):
+    """spec="ngram" decode whose verifies (and plain chunks) replay the
+    first body of their key (_StaleSet): the streams, spec_stats,
+    positions and xorshift states equal the JAX engine's, greedy over its
+    fused forward and sampled over the port's (see the module
+    docstring). Verifies cross the 128 and 256 buckets."""
+    prompt = [1, 5, 9, 13, 7, 5, 9, 13] * 14
+    je, te = _engines(CFG, _tree(CFG), jax_forward=jax_forward,
+                      temperature=temperature, topp=0.9, seed=3,
+                      chunk_size=5, spec="ngram", spec_k=4)
+    te._graphs = _StaleSet()
+    with (jax.disable_jit() if jax_forward == "port"
+          else contextlib.nullcontext()):
+        jt, _, _ = je.generate_benchmark(prompt, len(prompt) + 40)
+    tt, _, _ = te.generate_benchmark(prompt, len(prompt) + 40)
+    assert tt == jt and len(tt) == 41
+    assert te.spec_stats == je.spec_stats
+    assert te.spec_stats["verifies"] > 1
+    assert te.pos == je.pos and te.rng.state == je.rng.state
+    verifies = [k for k in te._graphs.graphs if k[0] == "verify"]
+    assert {k[2] for k in verifies} == {128, 256}
+    assert all(k[1] == 5 for k in verifies)
 
 
 # ---------------------------------------------------------------------------

@@ -385,6 +385,20 @@ def test_token_perplexity_needs_no_tokenizer():
     assert np.isnan(t_ppl.token_perplexity(e, []))
 
 
+def test_perplexity_past_max_seq_scores_the_truncation():
+    """A sequence longer than the engine's max_seq (below seq_len) scores
+    as its truncation to max_seq - 1 tokens, where the engine's _prefill
+    would raise on the whole sequence."""
+    _, tp = _params()
+    e = TEngine(tp, CFG, None, max_seq=128, device="cpu")
+    ids = PROMPT[1:200]
+    assert 128 < len(ids) < CFG.seq_len
+    got = t_ppl.token_perplexity(e, ids, verbose=True)
+    want = t_ppl.token_perplexity(e, ids[:127])
+    assert np.isfinite(got) and got == want
+    assert e.pos == 127
+
+
 def test_prefill_runs_the_head_once_a_prompt(monkeypatch):
     """A prompt of 3 full blocks and a 10-token tail computes the lm_head
     once, on its last (padded) block, as the JAX engine's scan skips it on
