@@ -115,6 +115,31 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      position 1024 each way; and the decode graph's design: a chunk of 16
      steps as 16 replays of the step graph against one graph of the
      whole chunk.
+ 10. (run last) --act-dtype float16 and float32: first an fp16 overflow
+     sweep (the 8-token prompt's forward at depths 1-6 and 32 in fp16
+     through the kernels and the plain versions, which must turn
+     non-finite at the same depth, and the residual's largest |x| in
+     f32: the synthetic weights' residual outgrows fp16 from the fourth
+     layer, so the fp16 runs take F16_LAYERS = 2 layers at 7B's widths,
+     the f32 runs all 32); then for each type the fp16 or f32 form of
+     every kernel on its paths at 7B shapes against its plain version
+     (the w4 down projection at m=1, 8 and 128 with an act residual and
+     output, attention_step at position 1500, batched_decode_attention at
+     B=8 over positions 960-1100, prefill_attention at T=128 and position
+     1024, down_qkv at m=1; SDPA in the same type beside the attention
+     rows), and end to end with the JAX CLI's embed and head type: 64
+     greedy steps on the main path and a 1024-token prompt then 32
+     fused_step steps at the 2048 bucket, each beside bf16 at the same
+     depth (tok/s, time to first token, cache bytes), 16 batched steps, 8
+     steps with the down_qkv chain, the perplexity of 1023 ids through the
+     kernels and the plain versions (|delta ln ppl| <= 0.01), BatchEngine
+     with 8 slots serving 8 requests through batched attention from
+     graphs against capture=False (streams and caches equal), and one 7B
+     step at position 1500, kernels against plain versions; last the AWQ
+     ingest: one synthetic layer at 7B's widths through
+     `python -m llama_cu_awq_torch.tools.pack_weights --model-dir`, the
+     port's loader and the card, every projection bit-equal to the source
+     tensors.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm, torch._weight_int8pack_mm; the
@@ -270,13 +295,15 @@ def linear_yardstick(torch, timer, qt, x):
     return timer(lambda: torch.nn.functional.linear(xb, w))
 
 
-def sdpa_library(torch, q, k_rows, v_rows, mask=None):
-    """F.scaled_dot_product_attention of bf16 q (B, H, D) over the given
-    rows (B, rows, Hkv, D), laid out as it wants them outside the timed
-    call (GQA through enable_gqa); no RoPE and no row quantize."""
-    qh = q.bfloat16()[:, :, None, :].contiguous()
-    kh = k_rows.bfloat16().transpose(1, 2).contiguous()
-    vh = v_rows.bfloat16().transpose(1, 2).contiguous()
+def sdpa_library(torch, q, k_rows, v_rows, mask=None, dtype=None):
+    """F.scaled_dot_product_attention of q (B, H, D) over the given rows
+    (B, rows, Hkv, D), in bf16 or dtype, laid out as it wants them outside
+    the timed call (GQA through enable_gqa); no RoPE and no row
+    quantize."""
+    dt = dtype or torch.bfloat16
+    qh = q.to(dt)[:, :, None, :].contiguous()
+    kh = k_rows.to(dt).transpose(1, 2).contiguous()
+    vh = v_rows.to(dt).transpose(1, 2).contiguous()
     gqa = kh.shape[1] != qh.shape[1]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, enable_gqa=gqa)
@@ -1118,14 +1145,14 @@ def profile_decode(torch, eng, prompt, steps=16, label="decode_chunk"):
                 steps, "token")
 
 
-def random_cache(torch, cfg, kv_quant, g, kv_bits=8, batch=1):
-    """A 2048-row KV cache of random rows (bf16; int8 codes and scales;
-    or with kv_bits=4 random packed bytes and scales) for `batch` slots,
-    as a kernels-against-plain check starts from."""
+def random_cache(torch, cfg, kv_quant, g, kv_bits=8, batch=1, dtype=None):
+    """A 2048-row KV cache of random rows (bf16, or dtype; int8 codes and
+    scales; or with kv_bits=4 random packed bytes and scales) for `batch`
+    slots, as a kernels-against-plain check starts from."""
     from llama_cu_awq_torch.models import init_kv_cache
 
-    cache = init_kv_cache(cfg, batch, 2048, quantized=kv_quant,
-                          kv_bits=kv_bits)
+    cache = init_kv_cache(cfg, batch, 2048, dtype=dtype or torch.bfloat16,
+                          quantized=kv_quant, kv_bits=kv_bits)
     lo, smax = (-128, 0.2) if kv_bits == 4 else (-127, 0.02)
     for l in range(cfg.n_layers):
         for buf, sc in ((cache.k[l], cache.k_scale),
@@ -1138,7 +1165,7 @@ def random_cache(torch, cfg, kv_quant, g, kv_bits=8, batch=1):
                                        generator=g) * smax)
             else:
                 buf.copy_(torch.randn(buf.shape, device="cuda",
-                                      generator=g).bfloat16())
+                                      generator=g).to(buf.dtype))
     return cache
 
 
@@ -1151,10 +1178,13 @@ def forward_check(torch, params, cfg, label, tok, pos, kv_quant, g,
     from llama_cu_awq_torch.models import forward, init_kv_cache
 
     B = tok.shape[0]
-    cache = random_cache(torch, cfg, kv_quant, g, kv_bits, batch=B)
+    act = kw.get("act_dtype", torch.bfloat16)
+    cache = random_cache(torch, cfg, kv_quant, g, kv_bits, batch=B,
+                         dtype=act)
     logits = {}
     for plain in (False, True):
-        c = init_kv_cache(cfg, B, 2048, quantized=kv_quant, kv_bits=kv_bits)
+        c = init_kv_cache(cfg, B, 2048, dtype=act, quantized=kv_quant,
+                          kv_bits=kv_bits)
         for dst, src in zip(c.k + c.v + c.k_scale + c.v_scale,
                             cache.k + cache.v + cache.k_scale
                             + cache.v_scale):
@@ -1178,6 +1208,8 @@ def forward_check(torch, params, cfg, label, tok, pos, kv_quant, g,
         "argmax_equal_rows": int(same.sum()),
         "argmax_kernel_first": int(k[0].argmax()),
         "argmax_plain_first": int(p[0].argmax()),
+        "act_dtype": str(act).replace("torch.", ""),
+        "layers": cfg.n_layers,
         "why": "32 layers of bf16 activations: one-ulp roundings in "
                "either path propagate; bound 2% of the largest logit"}),
         flush=True)
@@ -2709,6 +2741,562 @@ def graph_phase(torch, params, launches):
     del engs
 
 
+# --act-dtype float16: fp16's largest finite value, and the depth of the
+# phase's fp16 runs. The synthetic weights' codes average 7.5 against zero
+# points of 8, so every output column carries a bias of the same sign, and
+# the residual stream grows by about 25,000 a layer: past 65,504 from the
+# fourth layer on (act_dtype_phase's overflow sweep prints where, through
+# the kernels and through the plain versions, every run). So the fp16
+# runs are cut to two layers, at 7B's widths; f32 runs all 32.
+F16_MAX = 65504.0
+F16_LAYERS = 2
+ACT_PROMPT = list(range(5, 13))
+
+
+@contextlib.contextmanager
+def residual_probe():
+    """The largest |x| entering the final rmsnorm of each forward while
+    the context is open (a host sync a call: direct forwards only, never
+    inside a graph capture)."""
+    from llama_cu_awq_torch.models import llama as ml
+
+    seen = []
+    orig = ml.final_logits
+
+    def probe(params, x, ss, act_dtype, logits_all, plain):
+        seen.append(float(x.float().abs().max()))
+        return orig(params, x, ss, act_dtype, logits_all, plain)
+
+    ml.final_logits = probe
+    try:
+        yield seen
+    finally:
+        ml.final_logits = orig
+
+
+def act_params(params, act, layers):
+    """The synthetic params cut to `layers`, with embed and lm_head in the
+    JAX CLI's type for act (cli.py:131: float16 keeps an fp16 head,
+    float32 stores an f32 one; here the synthetic bf16 values widened);
+    the layers are shared, not copied."""
+    import dataclasses
+
+    return dataclasses.replace(params, embed=params.embed.to(act),
+                               lm_head=params.lm_head.to(act),
+                               layers=params.layers[:layers])
+
+
+def fp16_overflow_sweep(torch, params, cfg):
+    """The 8-token prompt's forward at depths 1-6 and 32: in fp16 through
+    the kernels and through the plain versions (which must turn
+    non-finite at the same depth), and the largest residual |x| in f32.
+    Returns the first depth whose fp16 logits are not finite."""
+    import dataclasses
+
+    from llama_cu_awq_torch.models import forward, init_kv_cache
+
+    depths = [1, 2, 3, 4, 5, 6, cfg.n_layers]
+    toks = torch.tensor([ACT_PROMPT], device="cuda")
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = {"f16_finite_kernel": [], "f16_finite_plain": [],
+           "f16_residual_absmax": [], "f32_residual_absmax": []}
+    for d in depths:
+        c = dataclasses.replace(cfg, n_layers=d)
+        for act, plain, key in ((torch.float16, False, "kernel"),
+                                (torch.float16, True, "plain"),
+                                (torch.float32, False, None)):
+            cache = init_kv_cache(c, 1, 128, dtype=act)
+            with residual_probe() as seen:
+                lg, _ = forward(act_params(params, act, d), c, toks, pos,
+                                cache, act_dtype=act, plain=plain)
+            if key:
+                out[f"f16_finite_{key}"].append(bool(lg.isfinite().all()))
+                if key == "kernel":
+                    out["f16_residual_absmax"].append(seen[0])
+            else:
+                out["f32_residual_absmax"].append(seen[0])
+    first = next((d for d, ok in zip(depths, out["f16_finite_kernel"])
+                  if not ok), None)
+    print(json.dumps({"fp16_overflow": "synthetic llama2-7b", "depths": depths,
+                      **out, "first_nonfinite_depth": first,
+                      "fp16_max": F16_MAX, "f16_runs_layers": F16_LAYERS}),
+          flush=True)
+    if out["f16_finite_kernel"] != out["f16_finite_plain"]:
+        raise AssertionError("fp16: the kernels and the plain versions "
+                             "overflow at different depths")
+    if first is not None and first <= F16_LAYERS:
+        raise AssertionError(f"fp16 overflows at depth {first}, within the "
+                             f"{F16_LAYERS} layers of the fp16 runs")
+    return first
+
+
+def act_kernel_rows(torch, timer, rows, g, act):
+    """The fp16 or f32 form of each kernel on the act_dtype paths at 7B
+    shapes, against its plain version on the same inputs: the w4 down
+    projection (SwiGLU prologue, act residual and output, rms scale) at
+    m=1, 8 and 128; attention_step MHA at position 1500;
+    batched_decode_attention at B=8 over positions 960-1100;
+    prefill_attention at T=128, position 1024; down_qkv at m=1. Library:
+    SDPA in the same type for the attention rows; no PyTorch call takes
+    w4 codes with fp16 or f32 activations (torch._weight_int4pack_mm
+    takes bf16), so the w4 rows have none."""
+    from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
+                                                            rope_rows)
+    from llama_cu_awq_torch.ops.cuda.batched_attention import (
+        batched_decode_attention)
+    from llama_cu_awq_torch.ops.cuda.down_qkv import down_qkv_fused
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import int4_matmul_fused
+    from llama_cu_awq_torch.ops.cuda.prefill_attention import (
+        prefill_attention)
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    name = "f16" if act == torch.float16 else "f32"
+    dim, hid, S, H, D = 4096, 11008, 2048, 32, 128
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g)
+                * scale).to(act)
+
+    def add(tag, kernel, source, replaces, variant, path, chk, fn, plain_fn,
+            b, src, lib):
+        rows.append(dict(
+            name=f"{kernel}/{tag}_{name}", kernel=kernel, route="cuda",
+            source=f"llama_cu_awq_torch/csrc/{source}",
+            replaces=replaces, variant=variant, path=path, **chk,
+            ms=timer(fn), plain_ms=timer(plain_fn, iters=5), bound_ms=b,
+            bound_by=src, library_ms=None if lib is None else timer(lib)))
+
+    # the w4 down projection, at decode, serving and prefill row counts
+    wd = random_qtensor(torch, QTensor, hid, dim, g)
+    for m, path in ((1, "main"), (8, "batch_engine"), (128, "fused_step")):
+        gate, up = randn(m, 2 * hid).chunk(2, dim=-1)
+        kw = dict(silu_u=up, residual=randn(m, dim, scale=8.0),
+                  emit_ss_eps=1e-5, out_dtype=act)
+        (out, ss), variant = launched_variant(
+            lambda: int4_matmul_fused(gate, wd, **kw))
+        ref, ss_ref = int4_matmul_fused(gate, wd, plain=True, **kw)
+        torch.cuda.synchronize()
+        tag = f"down_silu_residual_ss_m{m}"
+        chk = check_close(f"int4_matmul_fused/{tag}_{name}", out, ref,
+                          **INT4_TOL)
+        check_close(f"int4_matmul_fused/{tag}_{name}/ss", ss, ss_ref,
+                    **INT4_TOL)
+        b, src = bound_ms(nbytes(wd.qw, wd.scales, wd.zeros, gate, up,
+                                 kw["residual"], out, ss),
+                          2 * m * hid * dim)
+        add(tag, "int4_matmul_fused", int4_source(variant).split("/")[-1],
+            "llama_cu_awq_tpu/ops/pallas/int4_matmul.py:543", variant,
+            f"act_{name}_{path}", chk,
+            lambda: int4_matmul_fused(gate, wd, **kw),
+            lambda: int4_matmul_fused(gate, wd, plain=True, **kw), b, src,
+            None)
+
+    # attention_step, MHA, a cache of the activation type, position 1500
+    pos_v = 1500
+    pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+    cos2, sinm = rope_rows(pos, D, 10000.0)
+    qkv, kc, vc = randn(1, 3 * H * D), randn(1, S, H, D), randn(1, S, H, D)
+    args = (qkv, kc, vc, pos, cos2, sinm)
+    outs, variant = launched_variant(lambda: attention_step(*args,
+                                                            n_heads=H))
+    refs = attention_step(*args, n_heads=H, plain=True)
+    torch.cuda.synchronize()
+    chk = check_close(f"attention_step/mha32_{name}", outs[0], refs[0],
+                      **ATTN_TOL)
+    if not (torch.equal(outs[1], refs[1]) and torch.equal(outs[2], refs[2])):
+        raise AssertionError(f"attention_step/mha32_{name}: the new rows "
+                             f"differ from the plain version")
+    b, src = bound_ms(pos_v * H * D * kc.element_size() * 2
+                      + nbytes(qkv, cos2, sinm, *outs),
+                      4 * (pos_v + 1) * H * D)
+    add("mha32", "attention_step", "attention_step.cu",
+        "llama_cu_awq_tpu/ops/pallas/attention_step.py:425", variant,
+        f"act_{name}_fused_step", chk,
+        lambda: attention_step(*args, n_heads=H),
+        lambda: attention_step(*args, n_heads=H, plain=True), b, src,
+        sdpa_library(torch, qkv[:, :H * D].reshape(1, H, D),
+                     kc[:, :pos_v + 1], vc[:, :pos_v + 1], dtype=act))
+
+    # batched_decode_attention, 8 slots at positions 960-1100
+    B = len(B8_POSITIONS)
+    pos8 = torch.tensor(B8_POSITIONS, dtype=torch.int32, device="cuda")
+    q, kc8, vc8 = randn(B, H, D), randn(B, S, H, D), randn(B, S, H, D)
+    args = (q, kc8, vc8, pos8)
+    out, variant = launched_variant(
+        lambda: batched_decode_attention(*args, attn_len=S))
+    ref = batched_decode_attention(*args, attn_len=S, plain=True)
+    torch.cuda.synchronize()
+    chk = check_close(f"batched_decode_attention/b8_{name}", out, ref,
+                      **ATTN_TOL)
+    rows_read = sum(p + 1 for p in B8_POSITIONS)
+    b, src = bound_ms(rows_read * H * D * kc8.element_size() * 2
+                      + nbytes(q, out), 4 * rows_read * H * D)
+    top = max(B8_POSITIONS) + 1
+    mask = (torch.arange(top, device="cuda")[None, :]
+            <= pos8[:, None])[:, None, None, :]
+    add("b8", "batched_decode_attention", "batched_attention.cu",
+        "llama_cu_awq_tpu/ops/pallas/batched_attention.py:179", variant,
+        f"act_{name}_batch_engine", chk,
+        lambda: batched_decode_attention(*args, attn_len=S),
+        lambda: batched_decode_attention(*args, attn_len=S, plain=True), b,
+        src, sdpa_library(torch, q, kc8[:, :top], vc8[:, :top], mask,
+                          dtype=act))
+
+    # prefill_attention, a 128-token block at position 1024
+    T, p0 = 128, 1024
+    qb = randn(1, T, H, D)
+    posb = torch.tensor([p0], dtype=torch.int32, device="cuda")
+    args = (qb, kc, vc, posb)
+    out, variant = launched_variant(
+        lambda: prefill_attention(*args, attn_len=S))
+    ref = prefill_attention(*args, attn_len=S, plain=True)
+    torch.cuda.synchronize()
+    chk = check_close(f"prefill_attention/t128_pos1024_{name}", out, ref,
+                      **ATTN_TOL)
+    horizon = p0 + T
+    b, src = bound_ms(horizon * H * D * kc.element_size() * 2
+                      + nbytes(qb, out),
+                      4 * (T * p0 + T * (T + 1) // 2) * H * D)
+    qh = qb.transpose(1, 2).contiguous()
+    kh = kc[:, :horizon].transpose(1, 2).contiguous()
+    vh = vc[:, :horizon].transpose(1, 2).contiguous()
+    pmask = (torch.arange(horizon, device="cuda")[None, :]
+             <= p0 + torch.arange(T, device="cuda")[:, None])
+    add("t128_pos1024", "prefill_attention", "prefill_attention.cu",
+        "llama_cu_awq_tpu/ops/pallas/prefill_attention.py:189", variant,
+        f"act_{name}_fused_step", chk,
+        lambda: prefill_attention(*args, attn_len=S),
+        lambda: prefill_attention(*args, attn_len=S, plain=True), b, src,
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=pmask))
+
+    # down_qkv at m=1: x2 and qkv in the activation type
+    wq = random_qtensor(torch, QTensor, dim, 3 * dim, g)
+    gate, up = randn(1, 2 * hid).chunk(2, dim=-1)
+    res = randn(1, dim, scale=8.0)
+    nw = torch.rand(dim, device="cuda", generator=g) + 0.5
+    args = (gate, up, res, wd, wq, nw)
+    kw = dict(eps=1e-5, out_dtype=act, x2_dtype=act)
+    (x2, ss2, qkvo), variant = launched_variant(
+        lambda: down_qkv_fused(*args, **kw))
+    rx2, rss2, rqkv = down_qkv_fused(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    chk = check_close(f"down_qkv/m1_{name}", qkvo, rqkv, **INT4_TOL)
+    check_close(f"down_qkv/m1_{name}/x2", x2, rx2, **INT4_TOL)
+    check_close(f"down_qkv/m1_{name}/ss2", ss2, rss2, **INT4_TOL)
+    b, src = bound_ms(nbytes(wd.qw, wd.scales, wd.zeros, wq.qw, wq.scales,
+                             wq.zeros, gate, up, res, nw, x2, ss2, qkvo),
+                      2 * (hid * dim + dim * 3 * dim))
+    add("m1", "down_qkv", "down_qkv.cu",
+        "llama_cu_awq_tpu/ops/pallas/down_qkv.py:147", variant,
+        f"act_{name}_down_qkv", chk, lambda: down_qkv_fused(*args, **kw),
+        lambda: down_qkv_fused(*args, plain=True, **kw), b, src, None)
+    for r in rows[-7:]:
+        print(json.dumps({"kernel_check": r["name"], "kernel_ms": r["ms"],
+                          **{k: r[k] for k in (
+                              "max_abs_err", "rtol", "atol", "plain_ms",
+                              "library_ms", "bound_ms", "bound_by")}}),
+              flush=True)
+
+
+def act_e2e(torch, params, cfg, act, launches):
+    """One activation type end to end at `cfg`'s depth (see the module
+    docstring, phase 10); bf16 beside it at the same depth."""
+    import dataclasses
+
+    from llama_cu_awq_torch.engine import BatchEngine, InferenceEngine
+    from llama_cu_awq_torch.engine import engine as engine_mod
+    from llama_cu_awq_torch.engine.perplexity import token_perplexity
+
+    name = "f16" if act == torch.float16 else "f32"
+    p_act = act_params(params, act, cfg.n_layers)
+    p_bf16 = dataclasses.replace(params, layers=params.layers[:cfg.n_layers])
+    long = [1] + [3 + (7919 * i) % 31990 for i in range(1023)]
+
+    def engine(p, a, **kw):
+        return InferenceEngine(p, cfg, None, temperature=0.0, seed=1234,
+                               act_dtype=a, **kw)
+
+    def valid(toks):
+        return bool(toks) and all(0 <= t < cfg.vocab_size for t in toks)
+
+    def cache_bytes(e):
+        c = e.cache
+        return nbytes(*c.k, *c.v, *c.k_scale, *c.v_scale)
+
+    report = {"e2e": f"act_dtype_{name}", "model": "llama2-7b",
+              "layers": cfg.n_layers}
+    for tag, p, a in ((name, p_act, act), ("bf16", p_bf16, torch.bfloat16)):
+        path = f"act_{name}" + ("" if a == act else "_bf16")
+        # the main path: 64 greedy steps from an 8-token prompt
+        eng = engine(p, a, max_seq=512)
+        eng.generate_benchmark(ACT_PROMPT, 64)  # captures the graphs
+        toks, _, tps = run_path(torch, f"{path}_main",
+                                lambda: eng.generate_benchmark(ACT_PROMPT,
+                                                               64), launches)
+        if not valid(toks):
+            raise AssertionError(f"{path}_main: bad tokens {toks[:8]}")
+        report[f"main_tok_per_s_{tag}"] = tps
+        report[f"main_first_tokens_{tag}"] = toks[:8]
+        del eng
+        # a 1024-token prompt (prefill_attention), then 32 fused_step
+        # steps at the 2048 bucket
+        eng = engine(p, a, attn_impl="fused_step", max_seq=2048)
+
+        def fused_run(e=eng):
+            first, ttft, _ = e.generate_benchmark(long, len(long))
+            return first, ttft, *decode_run(torch, e, long, 32)
+
+        fused_run()
+        first, ttft, dtoks, dtps = run_path(torch, f"{path}_fused_step",
+                                            fused_run, launches)
+        if not (valid(first) and valid(dtoks)):
+            raise AssertionError(f"{path}_fused_step: bad tokens")
+        report[f"time_to_first_token_s_{tag}"] = ttft
+        report[f"fused_step_tok_per_s_{tag}"] = dtps
+        report[f"kv_cache_bytes_{tag}"] = cache_bytes(eng)
+        del eng
+    for kname in ("int4_matmul_fused", "attention_step",
+                  "prefill_attention"):
+        if not launches[f"act_{name}_fused_step"]["kernels"][kname]:
+            raise AssertionError(f"act_{name}_fused_step never launched "
+                                 f"{kname}")
+
+    # 16 batched steps after the 1024-token prompt
+    eng = engine(p_act, act, attn_impl="batched", max_seq=2048)
+    decode_run(torch, eng, long, 16)
+    dtoks, tps = run_path(torch, f"act_{name}_batched",
+                          lambda: decode_run(torch, eng, long, 16), launches)
+    if not valid(dtoks) or not launches[f"act_{name}_batched"]["kernels"][
+            "batched_decode_attention"]:
+        raise AssertionError(f"act_{name}_batched: bad run")
+    report["batched_tok_per_s"] = tps
+    del eng
+
+    # 8 fused_step steps with the down->next-qkv chain
+    with down_qkv_switch(True):
+        eng = engine(p_act, act, attn_impl="fused_step", max_seq=256)
+        eng.generate_benchmark(ACT_PROMPT, 16)
+        toks, _, _ = run_path(torch, f"act_{name}_down_qkv",
+                              lambda: eng.generate_benchmark(ACT_PROMPT, 16),
+                              launches)
+    if not valid(toks) or not launches[f"act_{name}_down_qkv"]["kernels"][
+            "down_qkv"]:
+        raise AssertionError(f"act_{name}_down_qkv: bad run")
+    del eng
+
+    # perplexity of 1023 ids through the kernels and the plain versions
+    eng = engine(p_act, act, max_seq=2048)
+    seq = [3 + (104729 * i) % 31990 for i in range(1023)]
+    ppl_k = run_path(torch, f"act_{name}_perplexity",
+                     lambda: token_perplexity(eng, seq), launches)
+    eng_plain = engine(p_act, act, max_seq=2048, capture=False)
+    kernel_forward = engine_mod.forward
+    engine_mod.forward = functools.partial(kernel_forward, plain=True)
+    try:
+        ppl_p = token_perplexity(eng_plain, seq)
+    finally:
+        engine_mod.forward = kernel_forward
+    del eng, eng_plain
+    d = abs(math.log(ppl_k) - math.log(ppl_p))
+    report.update(ppl_kernel=ppl_k, ppl_plain=ppl_p, abs_delta_ln_ppl=d)
+    if not (math.isfinite(ppl_k) and d <= 0.01):
+        raise AssertionError(f"act_{name} perplexity: kernels {ppl_k}, "
+                             f"plain {ppl_p}")
+
+    # BatchEngine: 8 slots, 8 requests, batched attention, graphs against
+    # capture=False
+    lengths = [20, 36, 60, 100, 150, 200, 260, 300]
+    prompts = [[1] + [3 + (104729 * (i + 131 * j)) % 31990
+                      for i in range(n - 1)]
+               for j, n in enumerate(lengths)]
+    engs = {way: BatchEngine(p_act, cfg, None, n_slots=8, max_seq=1024,
+                             chunk_size=8, attn_impl="batched",
+                             act_dtype=act, capture=way == "graph")
+            for way in ("graph", "eager")}
+
+    def serve_all(be):
+        be.reset()
+        rids = [be.submit(pr, max_new=32) for pr in prompts]
+        out = be.run()
+        return [out[r] for r in rids], be.stats()
+
+    bname = f"act_{name}_batch_engine"
+    res = graph_turns(torch, bname, engs, serve_all, launches,
+                      warm=("graph",), turns=("eager", "graph"))
+    first = res["eager"][0][0]
+    equal = res["graph"][0][0] == first
+    same_cache = caches_equal(torch, engs["graph"], engs["eager"])
+    st = res["graph"][0][1]
+    report.update({
+        "batch_engine_tok_per_s_graph": st["tok_per_s"],
+        "batch_engine_tok_per_s_eager": res["eager"][0][1]["tok_per_s"],
+        "batch_engine_streams_equal": equal,
+        "batch_engine_caches_bit_equal": same_cache,
+        **{f"batch_engine_{k}": v
+           for k, v in graph_summary(engs["graph"]).items()}})
+    del engs
+    if st["finished"] != len(prompts) or not all(map(valid, first)):
+        raise AssertionError(f"{bname}: {st}")
+    if not (equal and same_cache):
+        raise AssertionError(f"{bname}: the graphs and eager launches "
+                             f"differ")
+    print(json.dumps(report), flush=True)
+
+    # one 7B step at position 1500, kernels against plain versions
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    forward_check(torch, p_act, cfg, f"act_{name}_fused_step",
+                  torch.tensor([[7]], dtype=torch.int32, device="cuda"),
+                  torch.tensor([1500], dtype=torch.int32, device="cuda"),
+                  False, g, attn_impl="fused_step", act_dtype=act)
+
+
+def awq_ingest_check(torch):
+    """The AWQ ingest at 7B's widths: one layer of a synthetic HF-AWQ
+    safetensors directory (numpy, seed 0) through `python -m
+    llama_cu_awq_torch.tools.pack_weights --model-dir`, the `.bin` loaded
+    by the port's loader onto the card, and every projection of the layer
+    dequantized there, bit for bit against (q - z) * s taken straight from
+    the source tensors (AWQ's order_map nibble interleave undone here,
+    independently of the port's code)."""
+    import numpy as np
+
+    from llama_cu_awq_torch.config import LLAMA2_7B
+    from llama_cu_awq_torch.io.checkpoint import load_checkpoint
+    from llama_cu_awq_torch.models import params_from_checkpoint
+
+    t0 = time.time()
+    cfg = LLAMA2_7B
+    rng = np.random.default_rng(0)
+    dim, hid, vocab = cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    shapes = {"self_attn.q_proj": (dim, dim), "self_attn.k_proj": (dim, dim),
+              "self_attn.v_proj": (dim, dim), "self_attn.o_proj": (dim, dim),
+              "mlp.gate_proj": (dim, hid), "mlp.up_proj": (dim, hid),
+              "mlp.down_proj": (hid, dim)}
+    tensors = {
+        "model.embed_tokens.weight":
+            (rng.standard_normal((vocab, dim), np.float32) * 0.02).astype(
+                np.float16),
+        "lm_head.weight": (rng.standard_normal((vocab, dim), np.float32)
+                           * 0.02).astype(np.float16),
+        "model.norm.weight": np.ones(dim, np.float16),
+        "model.layers.0.input_layernorm.weight": np.ones(dim, np.float16),
+        "model.layers.0.post_attention_layernorm.weight":
+            np.ones(dim, np.float16)}
+    for name, (n_in, n_out) in shapes.items():
+        groups = n_in // 128
+        base = f"model.layers.0.{name}."
+        tensors[base + "qweight"] = rng.integers(
+            0, 2 ** 32, (n_in, n_out // 8), dtype=np.uint32).view(np.int32)
+        tensors[base + "qzeros"] = rng.integers(
+            0, 2 ** 32, (groups, n_out // 8), dtype=np.uint32).view(np.int32)
+        tensors[base + "scales"] = (rng.random((groups, n_out), np.float32)
+                                    * 0.01 + 1e-4).astype(np.float16)
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = os.path.join(tmp, "hf")
+        os.makedirs(model_dir)
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump({"hidden_size": dim, "intermediate_size": hid,
+                       "num_hidden_layers": 1, "num_attention_heads": 32,
+                       "num_key_value_heads": 32, "vocab_size": vocab,
+                       "max_position_embeddings": 4096,
+                       "rope_theta": 10000.0}, f)
+        header, blobs, off = {}, [], 0
+        st = {np.dtype(np.float16): "F16", np.dtype(np.int32): "I32"}
+        for name, a in tensors.items():
+            raw = a.tobytes()
+            header[name] = {"dtype": st[a.dtype], "shape": list(a.shape),
+                            "data_offsets": [off, off + len(raw)]}
+            off += len(raw)
+            blobs.append(raw)
+        hj = json.dumps(header).encode()
+        with open(os.path.join(model_dir, "model.safetensors"), "wb") as f:
+            f.write(struct.pack("<Q", len(hj)))
+            f.write(hj)
+            for b in blobs:
+                f.write(b)
+        out_bin = os.path.join(tmp, "model.bin")
+        t1 = time.time()
+        subprocess.run([sys.executable, "-m",
+                        "llama_cu_awq_torch.tools.pack_weights",
+                        "--model-dir", model_dir, out_bin], check=True,
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       timeout=600)
+        pack_s = time.time() - t1
+        ckpt = load_checkpoint(out_bin)
+    params = params_from_checkpoint(ckpt, param_dtype=None)
+    layer = params.layers[0]
+    order = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7], device="cuda")
+    shifts = 4 * torch.arange(8, device="cuda", dtype=torch.int64)
+
+    def awq_values(words):
+        """(h, w/8) AWQ words -> (h, w): nibble j of word k is column
+        8 k + order[j]."""
+        w = torch.from_numpy(words.view(np.uint32).astype(np.int64)).to(
+            "cuda")
+        nib = (w[:, :, None] >> shifts) & 0xF
+        out = torch.empty_like(nib)
+        out[:, :, order] = nib
+        return out.reshape(w.shape[0], -1).float()
+
+    checked = []
+    for name, (n_in, n_out) in shapes.items():
+        base = f"model.layers.0.{name}."
+        q = awq_values(tensors[base + "qweight"])
+        z = awq_values(tensors[base + "qzeros"])
+        s = torch.from_numpy(tensors[base + "scales"].astype(
+            np.float32)).to("cuda")
+        gidx = torch.arange(n_in, device="cuda") // 128
+        want = (q - z[gidx]) * s[gidx]  # (n_in, n_out)
+        fused, lo = {"self_attn.q_proj": (layer.wqkv, 0),
+                     "self_attn.k_proj": (layer.wqkv, dim),
+                     "self_attn.v_proj": (layer.wqkv, 2 * dim),
+                     "self_attn.o_proj": (layer.wo, 0),
+                     "mlp.gate_proj": (layer.w_gate_up, 0),
+                     "mlp.up_proj": (layer.w_gate_up, hid),
+                     "mlp.down_proj": (layer.w_down, 0)}[name]
+        got = fused.dequantize_t()[lo:lo + n_out].T
+        if not torch.equal(got, want):
+            raise AssertionError(f"awq ingest: {name} differs from the "
+                                 f"source (max abs err "
+                                 f"{float((got - want).abs().max())})")
+        checked.append(name)
+    embed_ok = torch.equal(params.embed.cpu(), torch.from_numpy(
+        tensors["model.embed_tokens.weight"]))
+    print(json.dumps({"awq_ingest": "llama2-7b widths, 1 layer",
+                      "pack_seconds": pack_s, "seconds": time.time() - t0,
+                      "projections_bit_equal": checked,
+                      "embed_fp16_bit_equal": embed_ok}), flush=True)
+    if not embed_ok:
+        raise AssertionError("awq ingest: the embed lost its fp16 bits")
+
+
+def act_dtype_phase(torch, timer, rows, params, launches):
+    """--act-dtype float16 and float32 at 7B (see the module docstring,
+    phase 10), and the AWQ ingest."""
+    import dataclasses
+
+    from llama_cu_awq_torch.config import LLAMA2_7B
+
+    t0 = time.time()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the fp16 and f32 lm_head's f32 "
+                             "product would round its operands")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(10)
+    fp16_overflow_sweep(torch, params, LLAMA2_7B)
+    for act, layers in ((torch.float16, F16_LAYERS),
+                        (torch.float32, LLAMA2_7B.n_layers)):
+        act_kernel_rows(torch, timer, rows, g, act)
+        act_e2e(torch, params, dataclasses.replace(LLAMA2_7B,
+                                                   n_layers=layers),
+                act, launches)
+    awq_ingest_check(torch)
+    print(json.dumps({"phase": "act_dtype", "seconds": time.time() - t0}),
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2751,6 +3339,7 @@ def main() -> int:
     slice3_phase(torch, params, launches)
     slice4_phase(torch, timer, rows, params, launches)
     chain_phase(torch, timer, rows, params, launches)
+    act_dtype_phase(torch, timer, rows, params, launches)
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

@@ -16,8 +16,11 @@ supports: positional checkpoint plus
   --device {cuda,cpu}  default cuda; cpu runs the kernels' plain versions
 
 and the JAX CLI's options --max-seq, --kv-quant, --kv-bits, --attn-impl,
---spec, --spec-k, --lm-head-bits and --profile DIR (a torch.profiler
-Chrome trace of the run, utils/profiling.py); --tp is not ported yet.
+--spec, --spec-k, --lm-head-bits, --act-dtype bfloat16|float16|float32
+(the activations' and the unquantized KV cache's type; float16 keeps the
+checkpoint's fp16 embed and lm_head, float32 stores them in f32, as the
+JAX CLI does) and --profile DIR (a torch.profiler Chrome trace of the run,
+utils/profiling.py); --tp is not ported yet.
 """
 
 from __future__ import annotations
@@ -90,8 +93,6 @@ def main(argv=None) -> int:
     # the option of the JAX package that the port has not reached yet
     if args.tp > 1:
         raise NotImplementedError("--tp is not ported yet")
-    if args.act_dtype != "bfloat16":
-        raise NotImplementedError("the port runs bf16 activations only")
 
     # parameter validation/overrides (llama2_q4.cu:680-685)
     if args.seed <= 0:
@@ -111,6 +112,8 @@ def main(argv=None) -> int:
         with open(args.prompt_file) as f:
             prompt = f.read()
 
+    import torch
+
     from llama_cu_awq_torch.device import resolve_device
     from llama_cu_awq_torch.engine import InferenceEngine
     from llama_cu_awq_torch.io.checkpoint import load_checkpoint
@@ -120,8 +123,13 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     ckpt = load_checkpoint(args.checkpoint, verbose=True)
+    act_dtype = getattr(torch, args.act_dtype)
+    # the JAX CLI's rule (cli.py:131): float16 keeps the checkpoint's fp16
+    # embed and lm_head (None), the other types store them in act_dtype
+    param_dtype = None if args.act_dtype == "float16" else act_dtype
     print("\nLoading Weights... ", end="", flush=True)
-    params = params_from_checkpoint(ckpt, device=device)
+    params = params_from_checkpoint(ckpt, device=device,
+                                    param_dtype=param_dtype)
     if args.lm_head_bits:
         params = quantize_lm_head(params, bits=args.lm_head_bits)
     print("done!")
@@ -132,7 +140,8 @@ def main(argv=None) -> int:
         kv_quant=4 if args.kv_bits == 4 else args.kv_quant,
         temperature=args.temperature, topp=args.topp, seed=args.seed,
         spec=args.spec, spec_k=args.spec_k,
-        max_seq=args.max_seq or ckpt.config.seq_len, device=device)
+        max_seq=args.max_seq or ckpt.config.seq_len, device=device,
+        act_dtype=act_dtype)
 
     if args.profile:
         from llama_cu_awq_torch.utils.profiling import profile_trace

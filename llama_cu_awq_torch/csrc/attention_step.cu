@@ -2,7 +2,12 @@
 // bf16 rounding of q and k, optional quantization of the new k/v row (int8,
 // or int4 packed two to a byte), then GQA attention over the cache rows
 // below min(pos[b], win) plus the current token, the window split across
-// blocks (flash-decoding, decode_attention.cuh).
+// blocks (flash-decoding, decode_attention.cuh). The qkv row is bf16, fp16
+// or f32 (--act-dtype); the unquantized cache has the qkv row's type, and
+// its fp16 or f32 rows round to bf16 as they load, as the JAX kernel casts
+// its blocks (attention_step.py:211-212): the same arithmetic as the bf16
+// cache on twice the bytes for f32. The new row is the bf16-rounded k and
+// v widened to the cache's type (attention_step.py:190-204).
 //
 // Replaces: llama_cu_awq_tpu/ops/pallas/attention_step.py, attention_step
 //   (kernel _make_kernel), for the bf16 and the int8 cache, and
@@ -58,6 +63,8 @@
 namespace {
 
 using attn_step::KV_BF16;
+using attn_step::KV_F16;
+using attn_step::KV_F32;
 using attn_step::KV_INT4;
 using attn_step::KV_INT8;
 using attn_step::MAX_D;
@@ -65,9 +72,9 @@ using attn_step::MAX_KV_MUL;
 using decode_attn::SPLIT_ROWS;
 
 // block (split, kv head, slot), D threads: one step_split item
-template <int KV>
+template <int KV, typename QT>
 __global__ void __launch_bounds__(MAX_D)
-attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
+attention_step_kernel(const QT* __restrict__ qkv,
                       const void* __restrict__ k_cache,
                       const void* __restrict__ v_cache,
                       const float* __restrict__ k_scale,
@@ -91,7 +98,7 @@ attention_step_kernel(const __nv_bfloat16* __restrict__ qkv,
       scale, blockIdx.x, blockIdx.y, blockIdx.z, gridDim.x);
 }
 
-template <int KV>
+template <int KV, typename QT>
 int launch(const void* qkv, const void* k_cache, const void* v_cache,
            const void* k_scale, const void* v_scale, const void* pos,
            const void* cos2, const void* sinm, void* attn, void* k_new,
@@ -105,11 +112,11 @@ int launch(const void* qkv, const void* k_cache, const void* v_cache,
   const int max_splits = (win + SPLIT_ROWS - 1) / SPLIT_ROWS;
   const size_t smem = sizeof(float) * decode_attn::smem_floats(H / n_kv, D);
   const cudaError_t e =
-      decode_attn::prepare_smem(attention_step_kernel<KV>, smem);
+      decode_attn::prepare_smem(attention_step_kernel<KV, QT>, smem);
   if (e != cudaSuccess) return launch_refused(e);
-  attention_step_kernel<KV><<<dim3(max_splits, n_kv, B), D, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), k_cache, v_cache,
+  attention_step_kernel<KV, QT><<<dim3(max_splits, n_kv, B), D, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(qkv), k_cache, v_cache,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(pos), static_cast<const float*>(cos2),
       static_cast<const float*>(sinm), static_cast<float*>(attn), k_new, v_new,
@@ -119,16 +126,43 @@ int launch(const void* qkv, const void* k_cache, const void* v_cache,
   return static_cast<int>(cudaGetLastError());
 }
 
+// launch<KV, QT> with QT the type of qkv_dt
+template <int KV>
+int launch_qkv(int qkv_dt, const void* qkv, const void* k_cache,
+               const void* v_cache, const void* k_scale, const void* v_scale,
+               const void* pos, const void* cos2, const void* sinm,
+               void* attn, void* k_new, void* v_new, void* ks_new,
+               void* vs_new, void* part_ml, void* part_acc, void* counters,
+               int B, int H, int n_kv, int D, int S, int win, void* stream) {
+  if (qkv_dt == DT_BF16)
+    return launch<KV, __nv_bfloat16>(
+        qkv, k_cache, v_cache, k_scale, v_scale, pos, cos2, sinm, attn, k_new,
+        v_new, ks_new, vs_new, part_ml, part_acc, counters, B, H, n_kv, D, S,
+        win, stream);
+  if (qkv_dt == DT_F16)
+    return launch<KV, __half>(qkv, k_cache, v_cache, k_scale, v_scale, pos,
+                              cos2, sinm, attn, k_new, v_new, ks_new, vs_new,
+                              part_ml, part_acc, counters, B, H, n_kv, D, S,
+                              win, stream);
+  if (qkv_dt == DT_F32)
+    return launch<KV, float>(qkv, k_cache, v_cache, k_scale, v_scale, pos,
+                             cos2, sinm, attn, k_new, v_new, ks_new, vs_new,
+                             part_ml, part_acc, counters, B, H, n_kv, D, S,
+                             win, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// qkv: (B, (H + 2*n_kv)*D) bf16. k_cache/v_cache: (B, S, n_kv, D) bf16,
-// or int8 codes when k_scale/v_scale ((B, S, n_kv) f32) are given; rows
-// below min(pos[b], win) are history. pos: (B,) int32 on the device.
-// cos2/sinm: (B, D) f32. Outputs: attn (B, H, D) f32; k_new/v_new (B,
-// n_kv, D) in the cache's dtype; ks_new/vs_new (B, n_kv) f32 (int8 only).
-// Scratch: part_ml (B*n_kv*splits*2*kv_mul f32) and part_acc
-// (B*n_kv*splits*kv_mul*D f32) with splits = ceil(win / SPLIT_ROWS), and
-// counters (B*n_kv uint32), zero before the launch and zero after it.
+// qkv: (B, (H + 2*n_kv)*D) of type code qkv_dt (DT_F32, DT_BF16 or
+// DT_F16). k_cache/v_cache: (B, S, n_kv, D) of the same type, or int8
+// codes when k_scale/v_scale ((B, S, n_kv) f32) are given; rows below
+// min(pos[b], win) are history. pos: (B,) int32 on the device. cos2/sinm:
+// (B, D) f32. Outputs: attn (B, H, D) f32; k_new/v_new (B, n_kv, D) in the
+// cache's type; ks_new/vs_new (B, n_kv) f32 (int8 only). Scratch: part_ml
+// (B*n_kv*splits*2*kv_mul f32) and part_acc (B*n_kv*splits*kv_mul*D f32)
+// with splits = ceil(win / SPLIT_ROWS), and counters (B*n_kv uint32), zero
+// before the launch and zero after it.
 LLAMA_EXPORT int attention_step(const void* qkv, const void* k_cache,
                                 const void* v_cache, const void* k_scale,
                                 const void* v_scale, const void* pos,
@@ -136,30 +170,45 @@ LLAMA_EXPORT int attention_step(const void* qkv, const void* k_cache,
                                 void* attn, void* k_new, void* v_new,
                                 void* ks_new, void* vs_new, void* part_ml,
                                 void* part_acc, void* counters, int B, int H,
-                                int n_kv, int D, int S, int win,
+                                int n_kv, int D, int S, int win, int qkv_dt,
                                 void* stream) {
   if (k_scale != nullptr)
-    return launch<KV_INT8>(qkv, k_cache, v_cache, k_scale, v_scale, pos, cos2,
-                           sinm, attn, k_new, v_new, ks_new, vs_new, part_ml,
-                           part_acc, counters, B, H, n_kv, D, S, win,
-                           stream);
-  return launch<KV_BF16>(qkv, k_cache, v_cache, nullptr, nullptr, pos, cos2,
-                         sinm, attn, k_new, v_new, nullptr, nullptr, part_ml,
-                         part_acc, counters, B, H, n_kv, D, S, win, stream);
+    return launch_qkv<KV_INT8>(qkv_dt, qkv, k_cache, v_cache, k_scale,
+                               v_scale, pos, cos2, sinm, attn, k_new, v_new,
+                               ks_new, vs_new, part_ml, part_acc, counters, B,
+                               H, n_kv, D, S, win, stream);
+  if (qkv_dt == DT_BF16)
+    return launch<KV_BF16, __nv_bfloat16>(
+        qkv, k_cache, v_cache, nullptr, nullptr, pos, cos2, sinm, attn, k_new,
+        v_new, nullptr, nullptr, part_ml, part_acc, counters, B, H, n_kv, D,
+        S, win, stream);
+  if (qkv_dt == DT_F16)
+    return launch<KV_F16, __half>(qkv, k_cache, v_cache, nullptr, nullptr,
+                                  pos, cos2, sinm, attn, k_new, v_new,
+                                  nullptr, nullptr, part_ml, part_acc,
+                                  counters, B, H, n_kv, D, S, win, stream);
+  if (qkv_dt == DT_F32)
+    return launch<KV_F32, float>(qkv, k_cache, v_cache, nullptr, nullptr,
+                                 pos, cos2, sinm, attn, k_new, v_new, nullptr,
+                                 nullptr, part_ml, part_acc, counters, B, H,
+                                 n_kv, D, S, win, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The int4 cache: k_cache/v_cache (B, S, n_kv, D/2) int8, packed in halves,
 // with k_scale/v_scale (B, S, n_kv) f32 required; k_new/v_new come back
-// packed, (B, n_kv, D/2) int8, with ks_new/vs_new (B, n_kv) f32.
+// packed, (B, n_kv, D/2) int8, with ks_new/vs_new (B, n_kv) f32. qkv as
+// for attention_step.
 LLAMA_EXPORT int attention_step_kv4(
     const void* qkv, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* pos,
     const void* cos2, const void* sinm, void* attn, void* k_new, void* v_new,
     void* ks_new, void* vs_new, void* part_ml, void* part_acc, void* counters,
-    int B, int H, int n_kv, int D, int S, int win, void* stream) {
+    int B, int H, int n_kv, int D, int S, int win, int qkv_dt, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<KV_INT4>(qkv, k_cache, v_cache, k_scale, v_scale, pos, cos2,
-                         sinm, attn, k_new, v_new, ks_new, vs_new, part_ml,
-                         part_acc, counters, B, H, n_kv, D, S, win, stream);
+  return launch_qkv<KV_INT4>(qkv_dt, qkv, k_cache, v_cache, k_scale, v_scale,
+                             pos, cos2, sinm, attn, k_new, v_new, ks_new,
+                             vs_new, part_ml, part_acc, counters, B, H, n_kv,
+                             D, S, win, stream);
 }

@@ -15,10 +15,37 @@ constexpr int MAX_KV_MUL = 8;   // query heads per kv head
 constexpr int MAX_D = 256;      // head_dim (one thread per element)
 constexpr float NEG = -1e30f;
 
-// cache formats
+// cache formats: bf16, int8 codes, int4 codes packed in halves, and the
+// fp16 and f32 caches of --act-dtype float16 / float32, whose rows are
+// rounded to bf16 as they load, as the JAX kernels cast their cache
+// blocks (attention_step.py:211-212, batched_attention.py:100-101), so the
+// dot products stay those of the bf16 cache
 constexpr int KV_BF16 = 0;
 constexpr int KV_INT8 = 1;
 constexpr int KV_INT4 = 2;
+constexpr int KV_F16 = 3;
+constexpr int KV_F32 = 4;
+
+// codes with per-row scales
+__host__ __device__ constexpr bool quantized(int kv) {
+  return kv == KV_INT8 || kv == KV_INT4;
+}
+
+// the element type of an unquantized cache
+template <int KV>
+struct CacheT;
+template <>
+struct CacheT<KV_BF16> {
+  using T = __nv_bfloat16;
+};
+template <>
+struct CacheT<KV_F16> {
+  using T = __half;
+};
+template <>
+struct CacheT<KV_F32> {
+  using T = float;
+};
 
 // The D threads of one work item, numbered t = 0..D-1 (D a multiple of
 // 32, so an item is whole warps). BlockItem: the block is the item, its
@@ -49,36 +76,39 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// element t of head row x, rotated in f32 as x*cos2 + rot_half(x)*sinm
-// and rounded to bf16 (attention_step.py:150-163); partner = t +- D/2
-__device__ __forceinline__ float rope_elem(const __nv_bfloat16* x, int t,
-                                          int partner, float c, float sn) {
-  return round_bf16(__fadd_rn(__fmul_rn(__bfloat162float(x[t]), c),
-                              __fmul_rn(__bfloat162float(x[partner]), sn)));
+// element t of head row x (bf16, fp16 or f32: the qkv row in the
+// activation type), rotated in f32 as x*cos2 + rot_half(x)*sinm and
+// rounded to bf16 (attention_step.py:150-163); partner = t +- D/2
+template <typename QT>
+__device__ __forceinline__ float rope_elem(const QT* x, int t, int partner,
+                                          float c, float sn) {
+  return round_bf16(__fadd_rn(__fmul_rn(to_f32(x[t]), c),
+                              __fmul_rn(to_f32(x[partner]), sn)));
 }
 
 // Phase 1's new cache row for (slot b, kv head kvh), run by the item's D
 // threads: rotate and round k, take v, and for a quantized cache quantize
 // both (int8, or int4 packed in halves); write k_new/v_new (and
-// ks_new/vs_new) at row nrow = b * n_kv + kvh. Returns in every thread
-// its element of the row as the softmax sees it (the bf16 value or the
-// code) and the scales (quantized only). red and code are the item's
-// scratch.
-template <int KV, typename Item>
+// ks_new/vs_new) at row nrow = b * n_kv + kvh, an unquantized row as its
+// bf16 value widened to the cache's type (attention_step.py:190-204).
+// Returns in every thread its element of the row as the softmax sees it
+// (the bf16 value or the code) and the scales (quantized only). red and
+// code are the item's scratch.
+template <int KV, typename Item, typename QT>
 __device__ __forceinline__ void new_row(
     const Item& it, float (&red)[2][MAX_D / 32], int (&code)[2][MAX_D],
-    const __nv_bfloat16* __restrict__ row, float c, float sn, int partner,
+    const QT* __restrict__ row, float c, float sn, int partner,
     void* __restrict__ k_new, void* __restrict__ v_new,
     float* __restrict__ ks_new, float* __restrict__ vs_new, int H, int n_kv,
     int D, int kvh, size_t nrow, float& kcur, float& vcur, float& ksc,
     float& vsc) {
-  constexpr bool QUANT = KV != KV_BF16;
+  constexpr bool QUANT = quantized(KV);
   const int t = it.t();
   const int lane = t & 31;
   const int warp = t >> 5;
   const int half = D / 2;
   const float kb = rope_elem(row + (size_t)(H + kvh) * D, t, partner, c, sn);
-  const float vb = __bfloat162float(row[(size_t)(H + n_kv + kvh) * D + t]);
+  const float vb = round_bf16(to_f32(row[(size_t)(H + n_kv + kvh) * D + t]));
   kcur = kb;
   vcur = vb;
   ksc = vsc = 0.0f;
@@ -125,8 +155,9 @@ __device__ __forceinline__ void new_row(
       vs_new[nrow] = vsc;
     }
   } else {
-    static_cast<__nv_bfloat16*>(k_new)[nrow * D + t] = __float2bfloat16_rn(kb);
-    static_cast<__nv_bfloat16*>(v_new)[nrow * D + t] = __float2bfloat16_rn(vb);
+    using T = typename CacheT<KV>::T;
+    static_cast<T*>(k_new)[nrow * D + t] = from_f32<T>(kb);
+    static_cast<T*>(v_new)[nrow * D + t] = from_f32<T>(vb);
   }
 }
 

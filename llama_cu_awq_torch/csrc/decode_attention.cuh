@@ -11,9 +11,11 @@
 // a grid of (splits, kv heads, slots)) or a group of D threads of a
 // persistent block that walks the items (int4_chain.cu's mono_layer,
 // attn_step::GroupItem). In a split:
-//   1. scores: a k row is read as 16-byte vectors, one row across
-//      row_bytes/16 lanes (16 lanes for bf16 at D=128, 8 for int8, 4 for
-//      packed int4); the next rows load while the current ones reduce;
+//   1. scores: a k row is read as 16-byte vectors (32-byte pairs for an
+//      f32 cache), one row across D/8 lanes for bf16, fp16 and f32 (16 at
+//      D=128), D/16 for int8 and D/32 for packed int4; the next rows load
+//      while the current ones reduce; fp16 and f32 values round to bf16 as
+//      they load, as the JAX kernels cast their blocks;
 //      q comes from shared memory and a row's dot product is reduced
 //      across its lanes only. f32 raw scores times the row's k scale
 //      (quantized), times 1/sqrt(D); masked rows score -1e30.
@@ -51,6 +53,8 @@
 namespace decode_attn {
 
 using attn_step::KV_BF16;
+using attn_step::KV_F16;
+using attn_step::KV_F32;
 using attn_step::KV_INT4;
 using attn_step::KV_INT8;
 using attn_step::MAX_D;
@@ -72,7 +76,65 @@ constexpr unsigned FULL = 0xffffffffu;
 // bytes of one head's row in the cache
 template <int KV>
 __host__ __device__ constexpr int row_bytes(int D) {
-  return KV == KV_BF16 ? 2 * D : KV == KV_INT8 ? D : D / 2;
+  return KV == KV_F32                      ? 4 * D
+         : KV == KV_BF16 || KV == KV_F16 ? 2 * D
+         : KV == KV_INT8                   ? D
+                                           : D / 2;
+}
+
+// 32 bytes: a lane's share of an f32 row, 8 elements
+struct U32B {
+  uint4 a, b;
+};
+
+// read-only loads of a lane's vector
+__device__ __forceinline__ uint4 ldg_vec(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ uint2 ldg_vec(const uint2* p) { return __ldg(p); }
+__device__ __forceinline__ uint32_t ldg_vec(const uint32_t* p) {
+  return __ldg(p);
+}
+__device__ __forceinline__ U32B ldg_vec(const U32B* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  return U32B{__ldg(q), __ldg(q + 1)};
+}
+
+// A lane's k load in the scores phase: 16 bytes (8 bf16 or fp16, 16 int8,
+// 32 packed int4 values), or 32 bytes of 8 f32
+template <int KV>
+struct KVec {
+  using T = uint4;
+};
+template <>
+struct KVec<KV_F32> {
+  using T = U32B;
+};
+
+// the 8 bf16-rounded values of a 16-bit or f32 vector (fp16 and f32
+// round to bf16 here, the JAX kernels' astype(bf16) of a cache block;
+// bf16 is exact)
+__device__ __forceinline__ void vals8_bf16(const uint4& w, float (&v)[8],
+                                           bool half) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float2 f;
+    if (half) {
+      f = __half22float2(*reinterpret_cast<const __half2*>(&u[k]));
+      f.x = round_bf16(f.x);
+      f.y = round_bf16(f.y);
+    } else {
+      f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[k]));
+    }
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void vals8_bf16(const U32B& w, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(&w.a);
+  const float4 b = *reinterpret_cast<const float4*>(&w.b);
+  const float f[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = round_bf16(f[k]);
 }
 
 __host__ __device__ inline int pow2_at_least(int x) {
@@ -195,13 +257,55 @@ __device__ __forceinline__ float dot16(const uint4& w, const float* q,
   return acc;
 }
 
-// A lane's v load: 16 bytes of bf16, 8 of int8, 4 of packed int4, each
-// 8 elements of the row.
+// The same share for an fp16 or f32 cache: the lane's 8 values of the k
+// row rounded to bf16, dotted in order with q's 8 (16-byte aligned)
+template <int KV>
+__device__ __forceinline__ float dot8(const typename KVec<KV>::T& w,
+                                      const float* q, int sub) {
+  float v[8];
+  if constexpr (KV == KV_F32) {
+    vals8_bf16(w, v);
+  } else {
+    vals8_bf16(w, v, true);
+  }
+  const float4* q4 = reinterpret_cast<const float4*>(q + 8 * sub);
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float4 qv = q4[k];
+    acc = fmaf(v[4 * k], qv.x, acc);
+    acc = fmaf(v[4 * k + 1], qv.y, acc);
+    acc = fmaf(v[4 * k + 2], qv.z, acc);
+    acc = fmaf(v[4 * k + 3], qv.w, acc);
+  }
+  return acc;
+}
+
+template <int KV>
+__device__ __forceinline__ float dot_k(const typename KVec<KV>::T& w,
+                                       const float* q, int sub, int D) {
+  if constexpr (KV == KV_F16 || KV == KV_F32) {
+    return dot8<KV>(w, q, sub);
+  } else {
+    return dot16<KV>(w, q, sub, D);
+  }
+}
+
+// A lane's v load: 16 bytes of bf16 or fp16, 32 of f32, 8 of int8, 4 of
+// packed int4, each 8 elements of the row.
 template <int KV>
 struct VVec;
 template <>
 struct VVec<KV_BF16> {
   using T = uint4;
+};
+template <>
+struct VVec<KV_F16> {
+  using T = uint4;
+};
+template <>
+struct VVec<KV_F32> {
+  using T = U32B;
 };
 template <>
 struct VVec<KV_INT8> {
@@ -215,7 +319,11 @@ struct VVec<KV_INT4> {
 template <int KV>
 __device__ __forceinline__ void unpack_v(const typename VVec<KV>::T& w,
                                          float (&v)[8]) {
-  if constexpr (KV == KV_BF16) {
+  if constexpr (KV == KV_F16) {
+    vals8_bf16(w, v, true);
+  } else if constexpr (KV == KV_F32) {
+    vals8_bf16(w, v);
+  } else if constexpr (KV == KV_BF16) {
     const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -258,7 +366,7 @@ __device__ __forceinline__ Partial<KVM> attend_split(
     const void* __restrict__ v_cache, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, size_t row0, int n_kv, int r0, int n,
     int p_last, const float* m_start, int kv_mul, int D, float scale) {
-  constexpr bool QUANT = KV != KV_BF16;
+  constexpr bool QUANT = attn_step::quantized(KV);
   const int t = it.t();
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -274,32 +382,34 @@ __device__ __forceinline__ Partial<KVM> attend_split(
   }
   it.sync();
 
-  // ---- scores: a row across LK lanes (padded to LKP), 16 B each; the
-  // next ROWS_IN_FLIGHT rows load while the current ones reduce ----
+  // ---- scores: a row across LK lanes (padded to LKP), 16 B each (32 for
+  // f32); the next ROWS_IN_FLIGHT rows load while the current ones
+  // reduce ----
   {
-    const int LK = RB / 16;
+    using KT = typename KVec<KV>::T;
+    const int LK = RB / static_cast<int>(sizeof(KT));
     const int LKP = pow2_at_least(LK);
     const int sub = lane & (LKP - 1);
     const int grp = warp * (32 / LKP) + lane / LKP;
     const int G = nwarps * (32 / LKP);
     const char* kb = static_cast<const char*>(k_cache);
-    auto load = [&](uint4 (&w)[ROWS_IN_FLIGHT], int j0) {
+    auto load = [&](KT (&w)[ROWS_IN_FLIGHT], int j0) {
 #pragma unroll
       for (int u = 0; u < ROWS_IN_FLIGHT; ++u) {
         const int j = j0 + u * G + grp;
         if (sub < LK && j < n) {
-          w[u] = __ldg(reinterpret_cast<const uint4*>(
-                           kb + (row0 + (size_t)(r0 + j) * n_kv) * RB) +
-                       sub);
+          w[u] = ldg_vec(reinterpret_cast<const KT*>(
+                             kb + (row0 + (size_t)(r0 + j) * n_kv) * RB) +
+                         sub);
         } else {
-          w[u] = make_uint4(0u, 0u, 0u, 0u);
+          w[u] = KT{};
         }
       }
     };
-    uint4 next[ROWS_IN_FLIGHT];
+    KT next[ROWS_IN_FLIGHT];
     load(next, 0);
     for (int j0 = 0; j0 < n; j0 += G * ROWS_IN_FLIGHT) {
-      uint4 w[ROWS_IN_FLIGHT];
+      KT w[ROWS_IN_FLIGHT];
 #pragma unroll
       for (int u = 0; u < ROWS_IN_FLIGHT; ++u) w[u] = next[u];
       load(next, j0 + G * ROWS_IN_FLIGHT);
@@ -309,7 +419,7 @@ __device__ __forceinline__ Partial<KVM> attend_split(
 #pragma unroll
         for (int h = 0; h < KVM; ++h) {
           if (h < kv_mul) {
-            float part = sub < LK ? dot16<KV>(w[u], sm.q + h * D, sub, D)
+            float part = sub < LK ? dot_k<KV>(w[u], sm.q + h * D, sub, D)
                                   : 0.0f;
             for (int o = LKP >> 1; o > 0; o >>= 1)
               part += __shfl_xor_sync(FULL, part, o);
@@ -338,7 +448,8 @@ __device__ __forceinline__ Partial<KVM> attend_split(
     for (int u = 0; u < ROWS_IN_FLIGHT; ++u) {
       const int j = j0 + u * VG;
       if (vsub < LV && j < n)
-        w[u] = __ldg(vb + (row0 + (size_t)(r0 + j) * n_kv) * row_vecs + vsub);
+        w[u] = ldg_vec(vb + (row0 + (size_t)(r0 + j) * n_kv) * row_vecs +
+                       vsub);
     }
   };
   VT vnext[ROWS_IN_FLIGHT];
@@ -492,7 +603,8 @@ __device__ __forceinline__ void finish_split(
   if (t == 0) counters[item] = 0u;
 }
 
-// One split item of attention_step (the bf16, int8 and int4 caches): split
+// One split item of attention_step (the bf16, fp16, f32, int8 and int4
+// caches; qkv (QT) bf16, fp16 or f32): split
 // `split` of (slot b, kv head kvh) over the history rows below
 // min(pos[b], win); items past the slot's splits return at once. Every
 // split rotates q (kv_mul x D multiplies); split 0 also runs phase 1
@@ -501,10 +613,10 @@ __device__ __forceinline__ void finish_split(
 // kv_mul query heads' rows (OutT f32 or bf16). smem: the item's
 // smem_floats floats (16-byte aligned); red and code: its new_row
 // scratch. max_splits: the scratch's splits per (slot, kv head).
-template <int KV, int KVM, typename Item, typename OutT>
+template <int KV, int KVM, typename Item, typename OutT, typename QT>
 __device__ __forceinline__ void step_split(
     const Item& it, float* smem, float (&red)[2][MAX_D / 32],
-    int (&code)[2][MAX_D], const __nv_bfloat16* __restrict__ qkv,
+    int (&code)[2][MAX_D], const QT* __restrict__ qkv,
     const void* __restrict__ k_cache, const void* __restrict__ v_cache,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ pos, const float* __restrict__ cos2,
@@ -514,7 +626,7 @@ __device__ __forceinline__ void step_split(
     float* __restrict__ part_ml, float* __restrict__ part_acc,
     unsigned* __restrict__ counters, int H, int n_kv, int D, int S, int win,
     float scale, int split, int kvh, int b, int max_splits) {
-  constexpr bool QUANT = KV != KV_BF16;
+  constexpr bool QUANT = attn_step::quantized(KV);
   const int n_hist = min(pos[b], win);
   const int n_splits = max(1, (n_hist + SPLIT_ROWS - 1) / SPLIT_ROWS);
   if (split >= n_splits) return;
@@ -523,7 +635,7 @@ __device__ __forceinline__ void step_split(
   const int kv_mul = H / n_kv;
   const int half = D / 2;
   const Smem sm = carve(smem, kv_mul, D);
-  const __nv_bfloat16* row = qkv + (size_t)b * (H + 2 * n_kv) * D;
+  const QT* row = qkv + (size_t)b * (H + 2 * n_kv) * D;
   const float c = cos2[(size_t)b * D + t];
   const float sn = sinm[(size_t)b * D + t];
   const int partner = t < half ? t + half : t - half;

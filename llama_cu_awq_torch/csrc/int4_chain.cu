@@ -98,6 +98,7 @@ using attn_step::KV_BF16;
 using attn_step::KV_INT8;
 using attn_step::MAX_D;
 using w4gemv::MAX_ROWS;
+using BF16 = __nv_bfloat16;  // the chains' activations (typed epilogues)
 using w4gemv::W4;
 using w4gemv::WARPS;
 
@@ -159,7 +160,8 @@ __device__ __forceinline__ void rms_stage(__nv_bfloat16* xs,
   __nv_bfloat16* raw = xs + w4gemv::raw_offset(mr, n) / 2;
   w4gemv::copy_rows(raw, x, n, r0, mr, n);
   __syncthreads();
-  w4gemv::rms_scale_rows<false>(raw, 1, n, mr, n, eps, part, ss_rows);
+  w4gemv::rms_scale_rows<false, __nv_bfloat16>(raw, DT_BF16, n, mr, n, eps,
+                                               part, ss_rows);
   if (ss_out != nullptr && blockIdx.x == 0 && threadIdx.x < mr)
     ss_out[r0 + threadIdx.x] = ss_rows[threadIdx.x];
   w4gemv::stage_rows<1, false>(xs, raw, n, nullptr, 0, ss_rows, nw, 0, mr,
@@ -187,7 +189,8 @@ __device__ __forceinline__ void chain_stages(const ChainArgs& a,
     w4gemv::stage_rows<0, ATTN_L2>(xs, a.attn, a.wo.n_in, nullptr, 0,
                                    nullptr, nullptr, r0, mr, a.wo.n_in);
     __syncthreads();
-    w4gemv::tile_pass<false>(a.wo, pre, xs, r0, mr, a.res, a.x1, 1, red);
+    w4gemv::tile_pass<false, BF16, BF16>(a.wo, pre, xs, r0, mr, a.res,
+                                         DT_BF16, a.x1, DT_BF16, red);
   }
   grid.sync();
 
@@ -199,8 +202,8 @@ __device__ __forceinline__ void chain_stages(const ChainArgs& a,
     rms_stage(xs, a.x1, dim, a.ffn_norm, r0, mr, a.eps, part, ss_rows,
               nullptr);
     __syncthreads();
-    w4gemv::tile_pass<false>(a.wgu, pre, xs, r0, mr, nullptr, a.gu, 1,
-                             red);
+    w4gemv::tile_pass<false, BF16, BF16>(a.wgu, pre, xs, r0, mr, nullptr,
+                                         DT_BF16, a.gu, DT_BF16, red);
   }
   grid.sync();
 
@@ -217,15 +220,16 @@ __device__ __forceinline__ void chain_stages(const ChainArgs& a,
     w4gemv::stage_rows<0, true>(xs, a.gu, 2 * hid, nullptr, 0, nullptr,
                                 nullptr, r0, mr, hid);
     __syncthreads();
-    w4gemv::tile_pass<true>(a.wd, pre, xs, r0, mr, a.x1, a.out, 1, red);
+    w4gemv::tile_pass<true, BF16, BF16>(a.wd, pre, xs, r0, mr, a.x1,
+                                        DT_BF16, a.out, DT_BF16, red);
   }
   grid.sync();
 
   if (a.qkv == nullptr) {
     // ---- ss of out, one row per block ----
     for (int r = blockIdx.x; r < a.m; r += gridDim.x)
-      w4gemv::rms_scale_rows<true>(a.out + (size_t)r * dim, 1, dim, 1, dim,
-                                   a.eps, part, a.ss + r);
+      w4gemv::rms_scale_rows<true, BF16>(a.out + (size_t)r * dim, DT_BF16,
+                                         dim, 1, dim, a.eps, part, a.ss + r);
     return;
   }
   // ---- stage Q: qkv = bf16(bf16(out * ss * attn_norm') @ W_qkv') ----
@@ -236,8 +240,8 @@ __device__ __forceinline__ void chain_stages(const ChainArgs& a,
     rms_stage(xs, a.out, dim, a.attn_norm, r0, mr, a.eps, part, ss_rows,
               a.ss);
     __syncthreads();
-    w4gemv::tile_pass<false>(a.wq, pre, xs, r0, mr, nullptr, a.qkv, 1,
-                             red);
+    w4gemv::tile_pass<false, BF16, BF16>(a.wq, pre, xs, r0, mr, nullptr,
+                                         DT_BF16, a.qkv, DT_BF16, red);
   }
 }
 

@@ -95,8 +95,10 @@
 //     the tile, never on m or on the other rows (an MMA's column n reads
 //     only x's row n), so a row of a 128-row call equals the same row of
 //     a 65- or 100-row call bit for bit. No atomics.
-//   - Epilogue: the residual added in f32, the cast; the rms scale of the
-//     output is int4_gemv.cu's rms_scale launch.
+//   - Epilogue: the residual added in f32, the cast; the residual and the
+//     output are each bf16, fp16 or f32 (a run-time type code, as in
+//     int4_gemv.cu); the rms scale of the output is int4_gemv.cu's
+//     rms_scale launch.
 
 #include <cuda.h>
 
@@ -297,16 +299,34 @@ stage_x_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
   }
 }
 
-// the epilogue of one output: the residual added in f32, the cast
-__device__ __forceinline__ void store_out(void* out, int out_bf16,
-                                          const __nv_bfloat16* res,
+// the epilogue of one output: the residual (of type RT, or type code
+// res_dt where RT is Dyn) added in f32, the cast to OT (or out_dt)
+template <typename RT, typename OT>
+__device__ __forceinline__ void store_out(void* out, int out_dt,
+                                          const void* res, int res_dt,
                                           size_t o, float val) {
-  if (res != nullptr) val += __bfloat162float(res[o]);
-  if (out_bf16) {
-    reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(val);
-  } else {
-    reinterpret_cast<float*>(out)[o] = val;
-  }
+  if (res != nullptr) val += ld_act<RT, false>(res, o, res_dt);
+  st_act<OT>(out, o, out_dt, val);
+}
+
+// A unit's 64 outputs (accumulator (column, row 8j + 2c + e % 2)) through
+// the epilogue, the types known at compile time
+template <typename RT, typename OT>
+__device__ __forceinline__ void store_unit(const float (&acc)[64], void* out,
+                                           int out_dt, const void* res,
+                                           int res_dt, int m, int n_out,
+                                           int row0, int col_a, int col_b) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = e < 2 ? col_a : col_b;
+      const int n = row0 + 8 * j + (e & 1);
+      if (n >= m || col >= n_out) continue;
+      store_out<RT, OT>(out, out_dt, res, res_dt,
+                        static_cast<size_t>(n) * n_out + col,
+                        acc[4 * j + e]);
+    }
 }
 
 // Launch (2), see the header. Unit u: split u % S, column tile (u / S) %
@@ -317,9 +337,9 @@ int4_gemm_kernel(const __grid_constant__ CUtensorMap tmap_qw,
                  const float* __restrict__ sxg,
                  const __half* __restrict__ scales,
                  const uint8_t* __restrict__ zeros,
-                 const __nv_bfloat16* __restrict__ res,
+                 const void* __restrict__ res, int res_dt,
                  void* __restrict__ out, float* __restrict__ part,
-                 int out_bf16, int m, int n_in, int n_out, int groups,
+                 int out_dt, int m, int n_in, int n_out, int groups,
                  int splits, int tiles, int units) {
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
@@ -451,32 +471,46 @@ int4_gemm_kernel(const __grid_constant__ CUtensorMap tmap_qw,
       z_b = z_b2;
     }
     // the unit's outputs: accumulator (column, row 8j + 2c + e % 2); with
-    // a split K, this split's partial
+    // a split K, this split's partial; else the epilogue, in the output's
+    // type (and a residual of the same type) where it is one of the three,
+    // by type code otherwise (a branch a unit, not one an output)
+    const int row0 = rt * BM + 2 * c4;
+    if (splits > 1) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = e < 2 ? col_a : col_b;
-        const int n = rt * BM + 8 * j + 2 * c4 + (e & 1);
-        if (n >= m || col >= n_out) continue;
-        const size_t o = static_cast<size_t>(n) * n_out + col;
-        if (splits > 1) {
-          part[static_cast<size_t>(sp) * m * n_out + o] = acc[4 * j + e];
-        } else {
-          store_out(out, out_bf16, res, o, acc[4 * j + e]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = e < 2 ? col_a : col_b;
+          const int n = row0 + 8 * j + (e & 1);
+          if (n >= m || col >= n_out) continue;
+          part[static_cast<size_t>(sp) * m * n_out +
+               static_cast<size_t>(n) * n_out + col] = acc[4 * j + e];
         }
-      }
+    } else if (res != nullptr && res_dt != out_dt) {
+      store_unit<Dyn, Dyn>(acc, out, out_dt, res, res_dt, m, n_out, row0,
+                           col_a, col_b);
+    } else if (out_dt == DT_BF16) {
+      store_unit<__nv_bfloat16, __nv_bfloat16>(acc, out, out_dt, res, res_dt,
+                                               m, n_out, row0, col_a, col_b);
+    } else if (out_dt == DT_F16) {
+      store_unit<__half, __half>(acc, out, out_dt, res, res_dt, m, n_out,
+                                 row0, col_a, col_b);
+    } else {
+      store_unit<float, float>(acc, out, out_dt, res, res_dt, m, n_out, row0,
+                               col_a, col_b);
+    }
   }
 }
 
 // Launch (3), with a split K: the splits' partials added in split order,
-// then the epilogue, 4 outputs a thread where m * n_out % 4 == 0 (VEC),
-// else 1. A programmatic dependent of (2): it waits for (2)'s end.
-template <int VEC>
+// then the epilogue (RT, OT: see store_out), 4 outputs a thread where
+// m * n_out % 4 == 0 (VEC), else 1. A programmatic dependent of (2): it
+// waits for (2)'s end.
+template <int VEC, typename RT, typename OT>
 __global__ void __launch_bounds__(256)
 split_sum_kernel(const float* __restrict__ part,
-                 const __nv_bfloat16* __restrict__ res,
-                 void* __restrict__ out, int out_bf16, int splits,
+                 const void* __restrict__ res, int res_dt,
+                 void* __restrict__ out, int out_dt, int splits,
                  size_t total) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   for (size_t o = (blockIdx.x * 256ull + threadIdx.x) * VEC; o < total;
@@ -496,7 +530,7 @@ split_sum_kernel(const float* __restrict__ part,
     }
 #pragma unroll
     for (int e = 0; e < VEC; ++e)
-      store_out(out, out_bf16, res, o + e, val[e]);
+      store_out<RT, OT>(out, out_dt, res, res_dt, o + e, val[e]);
   }
 }
 
@@ -567,16 +601,17 @@ int launch_stage(const void* x, int ldx, const void* u, int ldu,
 // (m, n_in) bf16, row stride ldu, or null; ss: (m,) f32 and nw: (n_in,)
 // f32 for the rmsnorm-apply prologue, or null. qw: (n_out, n_in/8) int32;
 // scales: (n_out, groups) fp16; zeros: (n_out, groups) uint8. res:
-// (m, n_out) bf16 or null. out: (m, n_out), bf16 when out_bf16 else f32.
-// splits: 1 .. groups. xs: ceil(m/128) x groups x 32 KB, sx: ceil(m/128)
+// (m, n_out) of type code res_dt or null. out: (m, n_out) of type code
+// out_dt (DT_F32, DT_BF16 or DT_F16). splits: 1 .. groups. xs: ceil(m/128) x groups x 32 KB, sx: ceil(m/128)
 // x groups x 128 f32, part: splits x m x n_out f32 (null when splits is
 // 1), each 16-byte aligned. Needs n_in % 32 == 0, groups =
 // ceil(n_in / 128), x, u, nw and qw 16-byte aligned, row strides % 8 == 0.
 LLAMA_EXPORT int int4_gemm(const void* x, int ldx, const void* u, int ldu,
                            const void* ss, const void* nw, const void* qw,
                            const void* scales, const void* zeros,
-                           const void* res, void* out, int out_bf16, int m,
-                           int n_in, int n_out, int groups, int splits,
+                           const void* res, int res_dt, void* out,
+                           int out_dt, int m, int n_in, int n_out,
+                           int groups, int splits,
                            void* xs, void* sx, void* part, void* stream) {
   auto al16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -587,7 +622,8 @@ LLAMA_EXPORT int int4_gemm(const void* x, int ldx, const void* u, int ldu,
       (splits == 1 || al16(part));
   if (n_in % 32 != 0 || groups != (n_in + BK - 1) / BK || m < 1 ||
       n_out < 1 || splits < 1 || splits > groups || !aligned ||
-      (splits > 1 && part == nullptr))
+      (splits > 1 && part == nullptr) || res_dt < DT_F32 ||
+      res_dt > DT_F16 || out_dt < DT_F32 || out_dt > DT_F16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = u != nullptr
@@ -613,19 +649,29 @@ LLAMA_EXPORT int int4_gemm(const void* x, int ldx, const void* u, int ldu,
       st, tmap, static_cast<const __nv_bfloat16*>(xs),
       static_cast<const float*>(sx), static_cast<const __half*>(scales),
       static_cast<const uint8_t*>(zeros),
-      static_cast<const __nv_bfloat16*>(res), out, static_cast<float*>(part),
-      out_bf16, m, n_in, n_out, groups, splits, tiles, units);
+      res, res_dt, out, static_cast<float*>(part), out_dt, m, n_in, n_out,
+      groups, splits, tiles, units);
   if (e != cudaSuccess) return launch_refused(e);
   if (splits == 1) return static_cast<int>(cudaGetLastError());
   const size_t total = static_cast<size_t>(m) * n_out;
   const bool vec = total % 4 == 0;
   const size_t want = (total / (vec ? 4 : 1) + 255) / 256;
   const dim3 grid(static_cast<int>(want < 4096 ? want : 4096));
-  auto sum = vec ? split_sum_kernel<4> : split_sum_kernel<1>;
+  // the epilogue's types at compile time where the output is one of the
+  // three and the residual is none or of its type, else by type code
+  auto pick = [&](auto rt_ot) {
+    using T = decltype(rt_ot);
+    return vec ? split_sum_kernel<4, T, T> : split_sum_kernel<1, T, T>;
+  };
+  auto sum = res != nullptr && res_dt != out_dt
+                 ? (vec ? split_sum_kernel<4, Dyn, Dyn>
+                        : split_sum_kernel<1, Dyn, Dyn>)
+             : out_dt == DT_BF16 ? pick(__nv_bfloat16{})
+             : out_dt == DT_F16  ? pick(__half{})
+                                 : pick(float{});
   e = ac::launch_dependent(sum, grid, 256, 0, st,
                        static_cast<const float*>(part),
-                       static_cast<const __nv_bfloat16*>(res), out, out_bf16,
-                       splits, total);
+                       res, res_dt, out, out_dt, splits, total);
   if (e != cudaSuccess) return launch_refused(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,10 +31,15 @@
 //     23.6 MB of weights. Rows beyond MAX_ROWS take further passes over the
 //     weights; that is the large-m case, which the GEMM takes from
 //     GEMM_MIN_M rows on.
-//   - The epilogue adds the residual in f32 and casts. The rms scale of
-//     the output, ss' = rsqrt(mean(out^2) + eps), is a reduction over all
-//     n_out columns, which blocks running in parallel cannot finish, so a
-//     second small launch (rms_scale) computes it over the cast output.
+//   - The epilogue adds the residual in f32 and casts. The residual and
+//     the output are each bf16, fp16 or f32 (--act-dtype), a run-time type
+//     code: the JAX kernel reads its residual as f32 and stores out_dtype
+//     (int4_matmul.py:471-472). The rms scale of the output, ss' =
+//     rsqrt(mean(out^2) + eps), is a reduction over all n_out columns,
+//     which blocks running in parallel cannot finish, so a second small
+//     launch (rms_scale) computes it over the cast output (:475), read in
+//     its own type. The staged x and the MMA stay bf16: the wrapper casts
+//     x and u to bf16 as the JAX wrapper does (int4_matmul.py:656-661).
 
 #include "int4_gemv.cuh"
 
@@ -43,15 +48,16 @@ namespace {
 using w4gemv::MAX_ROWS;
 using w4gemv::WARPS;
 
-// MODE 0: x as given; 1: x*ss*norm_w; 2: silu(x)*u
-template <int MODE>
+// MODE 0: x as given; 1: x*ss*norm_w; 2: silu(x)*u. T: the output's type
+// (and the residual's), or Dyn for the type codes
+template <int MODE, typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
                  const __nv_bfloat16* __restrict__ u, int ldu,
                  const float* __restrict__ ss,
                  const float* __restrict__ nw, w4gemv::W4 w,
-                 const __nv_bfloat16* __restrict__ res,
-                 void* __restrict__ out, int out_bf16, int m,
+                 const void* __restrict__ res, int res_dt,
+                 void* __restrict__ out, int out_dt, int m,
                  int rows_per_pass) {
   extern __shared__ __align__(16) __nv_bfloat16 xs[];
   __shared__ float red[2 * w4gemv::RED_FLOATS];
@@ -63,44 +69,63 @@ int4_gemv_kernel(const __nv_bfloat16* __restrict__ x, int ldx,
                                     ss != nullptr ? ss + r0 : nullptr, nw,
                                     r0, mr, w.n_in);
     __syncthreads();
-    w4gemv::tile_pass<false>(w, pre, xs, r0, mr, res, out, out_bf16, red);
+    w4gemv::tile_pass<false, T, T>(w, pre, xs, r0, mr, res, res_dt, out,
+                                   out_dt, red);
   }
 }
 
 // ss[r] = 1 / sqrt(mean(out[r, :]^2) + eps), over the cast output row
+// of type T
+template <typename T>
 __global__ void __launch_bounds__(w4gemv::RMS_THREADS)
-rms_scale_kernel(const void* __restrict__ out, int out_bf16,
-                 float* __restrict__ ss, int n, float eps) {
+rms_scale_kernel(const T* __restrict__ out, float* __restrict__ ss, int n,
+                 float eps) {
   __shared__ float part[w4gemv::RMS_PART];
   const int r = blockIdx.x;
-  const size_t elem = out_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
-  w4gemv::rms_scale_rows<false>(
-      static_cast<const char*>(out) + (size_t)r * n * elem, out_bf16, n, 1,
-      n, eps, part, ss + r);
+  w4gemv::rms_scale_rows<false, T>(out + (size_t)r * n, 0, n, 1, n, eps,
+                                   part, ss + r);
 }
 
-// kernel slots: the three prologue modes
-w4gemv::Residency<3> residency;
+// kernel slots: the three prologue modes times the epilogue's 4 types
+w4gemv::Residency<12> residency;
 
-template <int MODE>
-int launch_gemv(const void* x, int ldx, const void* u, int ldu,
-                const void* ss, const void* nw, const w4gemv::W4& w,
-                const void* res, void* out, int out_bf16, int m,
-                int rows_per_pass, cudaStream_t stream) {
+template <int MODE, typename T>
+int launch_typed(const void* x, int ldx, const void* u, int ldu,
+                 const void* ss, const void* nw, const w4gemv::W4& w,
+                 const void* res, int res_dt, void* out, int out_dt, int m,
+                 int rows_per_pass, int slot, cudaStream_t stream) {
   const size_t smem = w4gemv::staged_bytes(rows_per_pass, w.n_in);
-  const void* kernel = reinterpret_cast<const void*>(&int4_gemv_kernel<MODE>);
+  const void* kernel =
+      reinterpret_cast<const void*>(&int4_gemv_kernel<MODE, T>);
   int grid = 0;
-  cudaError_t e = residency.blocks(kernel, MODE, smem, false, &grid);
+  cudaError_t e = residency.blocks(kernel, 4 * MODE + slot, smem, false,
+                                   &grid);
   if (e != cudaSuccess) return launch_refused(e);
   const int tiles = (w.n_out + w4gemv::TILE_N - 1) / w4gemv::TILE_N;
   if (grid > tiles) grid = tiles;
-  int4_gemv_kernel<MODE><<<grid, WARPS * 32, smem, stream>>>(
+  int4_gemv_kernel<MODE, T><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), ldx,
       static_cast<const __nv_bfloat16*>(u), ldu,
       static_cast<const float*>(ss), static_cast<const float*>(nw), w,
-      static_cast<const __nv_bfloat16*>(res), out, out_bf16, m,
-      rows_per_pass);
+      res, res_dt, out, out_dt, m, rows_per_pass);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the epilogue's types at compile time where the output is one of the
+// three and the residual is none or of its type, else by type code
+template <int MODE>
+int launch_gemv(const void* x, int ldx, const void* u, int ldu,
+                const void* ss, const void* nw, const w4gemv::W4& w,
+                const void* res, int res_dt, void* out, int out_dt, int m,
+                int rows_per_pass, cudaStream_t stream) {
+#define LAUNCH(T, SLOT)                                                    \
+  launch_typed<MODE, T>(x, ldx, u, ldu, ss, nw, w, res, res_dt, out,      \
+                        out_dt, m, rows_per_pass, SLOT, stream)
+  if (res != nullptr && res_dt != out_dt) return LAUNCH(Dyn, 3);
+  if (out_dt == DT_BF16) return LAUNCH(__nv_bfloat16, DT_BF16);
+  if (out_dt == DT_F16) return LAUNCH(__half, DT_F16);
+  return LAUNCH(float, DT_F32);
+#undef LAUNCH
 }
 
 }  // namespace
@@ -109,13 +134,15 @@ int launch_gemv(const void* x, int ldx, const void* u, int ldu,
 // row stride ldu, or null. ss: (m,) f32 and nw: (n_in,) f32 for the
 // rmsnorm-apply prologue, or null. qw: (n_out, n_in/8) int32; scales:
 // (n_out, groups) fp16; zeros: (n_out, groups) uint8. res: (m, n_out)
-// bf16 or null. out: (m, n_out), bf16 when out_bf16 else f32. Needs
+// of type code res_dt (DT_F32, DT_BF16 or DT_F16) or null. out: (m,
+// n_out) of type code out_dt. Needs
 // n_in % 32 == 0, groups = ceil(n_in / 128), x, u and nw 16-byte aligned,
 // row strides % 8 == 0.
 LLAMA_EXPORT int int4_gemv(const void* x, int ldx, const void* u, int ldu,
                            const void* ss, const void* nw, const void* qw,
                            const void* scales, const void* zeros,
-                           const void* res, void* out, int out_bf16, int m,
+                           const void* res, int res_dt, void* out,
+                           int out_dt, int m,
                            int n_in, int n_out, int groups,
                            int rows_per_pass, void* stream) {
   const bool aligned =
@@ -124,25 +151,38 @@ LLAMA_EXPORT int int4_gemv(const void* x, int ldx, const void* u, int ldu,
        (reinterpret_cast<uintptr_t>(u) % 16 == 0 && ldu % 8 == 0)) &&
       (ss == nullptr || reinterpret_cast<uintptr_t>(nw) % 16 == 0);
   if (n_in % 32 != 0 || groups != w4gemv::n_groups(n_in) || m < 1 ||
+      res_dt < DT_F32 || res_dt > DT_F16 || out_dt < DT_F32 ||
+      out_dt > DT_F16 ||
       rows_per_pass < 1 || rows_per_pass > MAX_ROWS || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
   const w4gemv::W4 w = w4gemv::make_w4(qw, scales, zeros, n_in, n_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (u != nullptr)
-    return launch_gemv<2>(x, ldx, u, ldu, ss, nw, w, res, out, out_bf16, m,
-                          rows_per_pass, st);
+    return launch_gemv<2>(x, ldx, u, ldu, ss, nw, w, res, res_dt, out,
+                          out_dt, m, rows_per_pass, st);
   if (ss != nullptr)
-    return launch_gemv<1>(x, ldx, u, ldu, ss, nw, w, res, out, out_bf16, m,
-                          rows_per_pass, st);
-  return launch_gemv<0>(x, ldx, u, ldu, ss, nw, w, res, out, out_bf16, m,
-                        rows_per_pass, st);
+    return launch_gemv<1>(x, ldx, u, ldu, ss, nw, w, res, res_dt, out,
+                          out_dt, m, rows_per_pass, st);
+  return launch_gemv<0>(x, ldx, u, ldu, ss, nw, w, res, res_dt, out, out_dt,
+                        m, rows_per_pass, st);
 }
 
-// ss: (m,) f32 from out (m, n) bf16 or f32
-LLAMA_EXPORT int rms_scale(const void* out, int out_bf16, void* ss, int m,
+// ss: (m,) f32 from out (m, n) of type code out_dt
+LLAMA_EXPORT int rms_scale(const void* out, int out_dt, void* ss, int m,
                            int n, float eps, void* stream) {
-  rms_scale_kernel<<<m, w4gemv::RMS_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      out, out_bf16, static_cast<float*>(ss), n, eps);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ss_ = static_cast<float*>(ss);
+  if (out_dt == DT_BF16) {
+    rms_scale_kernel<<<m, w4gemv::RMS_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(out), ss_, n, eps);
+  } else if (out_dt == DT_F16) {
+    rms_scale_kernel<<<m, w4gemv::RMS_THREADS, 0, st>>>(
+        static_cast<const __half*>(out), ss_, n, eps);
+  } else if (out_dt == DT_F32) {
+    rms_scale_kernel<<<m, w4gemv::RMS_THREADS, 0, st>>>(
+        static_cast<const float*>(out), ss_, n, eps);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

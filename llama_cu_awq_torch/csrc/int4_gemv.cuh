@@ -103,27 +103,63 @@ __host__ __device__ inline size_t staged_bytes(int rows, int n_in) {
 __host__ __device__ inline size_t raw_offset(int rows, int n_in) {
   return (staged_bytes(rows, n_in) + 15) & ~static_cast<size_t>(15);
 }
-__host__ __device__ inline size_t staged_raw_bytes(int rows, int n_in) {
-  return raw_offset(rows, n_in) + (size_t)rows * n_in * 2;
+// (elem: the bytes of one raw element, 2 for bf16 and fp16 rows, 4 for f32)
+__host__ __device__ inline size_t staged_raw_bytes(int rows, int n_in,
+                                                   int elem = 2) {
+  return raw_offset(rows, n_in) + (size_t)rows * n_in * elem;
 }
 
-// bf16 activation load. FROM_L2 reads through L2 only (ld.global.cg), for
-// data the same kernel wrote before a grid barrier: the non-coherent
-// read-only path must not serve it.
-template <bool FROM_L2>
-__device__ __forceinline__ float load_act(const __nv_bfloat16* p) {
-  if (FROM_L2) return __bfloat162float(__ldcg(p));
-  return __bfloat162float(*p);
+// 8 consecutive activations of type XT as they lie in memory: one 16-byte
+// vector of bf16 or fp16, two of f32
+template <typename XT>
+struct Act8 {
+  uint4 w[sizeof(XT) / 2];
+};
+
+template <typename XT, bool FROM_L2>
+__device__ __forceinline__ Act8<XT> load8(const XT* p) {
+  Act8<XT> a;
+  const uint4* v = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(XT) / 2); ++i)
+    a.w[i] = FROM_L2 ? __ldcg(v + i) : v[i];
+  return a;
 }
 
-// Rows r0..r0+mr-1 of x (n wide, row stride ld, written in this launch:
-// read through L2) into raw (mr x n bf16, shared memory), in 16-byte
-// vectors, 2 in flight a thread. Every thread of the block takes part;
-// the caller syncs the block before reading raw.
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* raw,
-                                          const __nv_bfloat16* x, int ld,
-                                          int r0, int mr, int n) {
-  const int per_row = n >> 3;
+// the 8 values of an Act8, widened to f32 (exact)
+__device__ __forceinline__ void widen8(const Act8<__nv_bfloat16>& a,
+                                       float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(a.w);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void widen8(const Act8<__half>& a, float (&v)[8]) {
+  const __half2* h = reinterpret_cast<const __half2*>(a.w);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __half22float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void widen8(const Act8<float>& a, float (&v)[8]) {
+  const float* f = reinterpret_cast<const float*>(a.w);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = f[j];
+}
+
+// Rows r0..r0+mr-1 of x (n wide, row stride ld, of type T; written in this
+// launch: read through L2) into raw (mr x n of T, shared memory), in
+// 16-byte vectors, 2 in flight a thread. Every thread of the block takes
+// part; the caller syncs the block before reading raw.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* raw, const T* x, int ld, int r0,
+                                          int mr, int n) {
+  const int per_row = n * static_cast<int>(sizeof(T)) / 16;
   const int total = mr * per_row;
   for (int i0 = threadIdx.x; i0 < total; i0 += 2 * blockDim.x) {
     uint4 v[2];
@@ -133,7 +169,8 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* raw,
       const int r = i / per_row;
       if (i < total)
         v[q] = __ldcg(reinterpret_cast<const uint4*>(
-            x + (size_t)(r0 + r) * ld + (i - r * per_row) * 8));
+                          x + (size_t)(r0 + r) * ld) +
+                      (i - r * per_row));
     }
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -187,17 +224,18 @@ __device__ __forceinline__ void swiglu_rows(const __nv_bfloat16* g, int ldg,
 // (the staged layout above), and sx[r * groups + g], the sum of row r's
 // staged values over group g, after them. MODE 0: x as given; 1: x *
 // ss[r] * nw[k], ss indexed by the pass-local row r (rmsnorm apply); 2:
-// silu(x) * u (SwiGLU). A thread takes 8 inputs and sums them in order;
+// silu(x) * u (SwiGLU). x is bf16, fp16 or f32 (XT; the down_qkv chain's
+// x2 in the activation type), u bf16. A thread takes 8 inputs and sums
+// them in order;
 // the 16 threads of a half warp hold one group and finish sx with a fixed
 // shuffle tree. A thread issues the loads of U items before it uses any
 // (the rows come from L2, and one item's latency at a time would bound
 // the pass). Every thread of the block takes part; x, u and nw are
 // 16-byte aligned, row strides % 8 == 0.
-template <int MODE, bool FROM_L2>
+template <int MODE, bool FROM_L2, typename XT>
 __device__ __forceinline__ void stage_rows(
-    __nv_bfloat16* xs, const __nv_bfloat16* x, int ldx,
-    const __nv_bfloat16* u, int ldu, const float* ss, const float* nw,
-    int r0, int mr, int n_in) {
+    __nv_bfloat16* xs, const XT* x, int ldx, const __nv_bfloat16* u,
+    int ldu, const float* ss, const float* nw, int r0, int mr, int n_in) {
   constexpr int U = MODE == 2 ? 2 : 4;
   const int rs = staged_stride(n_in) * 8;
   const int groups = n_groups(n_in);
@@ -205,18 +243,18 @@ __device__ __forceinline__ void stage_rows(
   const int items = mr * groups * 16;
   const int lane = threadIdx.x & 31;
   for (int i0 = threadIdx.x - lane; i0 < items; i0 += U * blockDim.x) {
-    uint4 xv[U], uv[U];
+    Act8<XT> xv[U];
+    uint4 uv[U];
 #pragma unroll
     for (int q = 0; q < U; ++q) {
       const int i = i0 + q * blockDim.x + lane;
       const int rg = i >> 4;  // r * groups + g
       const int r = rg / groups;
       const int k = (rg - r * groups) * 128 + (i & 15) * 8;
-      xv[q] = uv[q] = make_uint4(0u, 0u, 0u, 0u);
+      xv[q] = Act8<XT>{};
+      uv[q] = make_uint4(0u, 0u, 0u, 0u);
       if (i < items && k < n_in) {
-        const __nv_bfloat16* xp = x + (size_t)(r0 + r) * ldx + k;
-        xv[q] = FROM_L2 ? __ldcg(reinterpret_cast<const uint4*>(xp))
-                        : *reinterpret_cast<const uint4*>(xp);
+        xv[q] = load8<XT, FROM_L2>(x + (size_t)(r0 + r) * ldx + k);
         if (MODE == 2) {
           const __nv_bfloat16* up = u + (size_t)(r0 + r) * ldu + k;
           uv[q] = FROM_L2 ? __ldcg(reinterpret_cast<const uint4*>(up))
@@ -238,14 +276,7 @@ __device__ __forceinline__ void stage_rows(
         uint4 packed = make_uint4(0u, 0u, 0u, 0u);  // the ragged tail: 0
         if (k < n_in) {
           float v[8];
-          const __nv_bfloat162* h =
-              reinterpret_cast<const __nv_bfloat162*>(&xv[q]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = __bfloat1622float2(h[j]);
-            v[2 * j] = f.x;
-            v[2 * j + 1] = f.y;
-          }
+          widen8(xv[q], v);
           if (MODE == 1) {  // nw: the same 8 weights for every row
             const float4 n0 = *reinterpret_cast<const float4*>(nw + k);
             const float4 n1 = *reinterpret_cast<const float4*>(nw + k + 4);
@@ -433,16 +464,17 @@ __device__ __forceinline__ TileLoads prefetch(const W4& w) {
 // warp accumulates its groups of a tile with the next group's loads in
 // flight (across tiles too); the block sums the partial tiles in red (2 *
 // RED_FLOATS of shared memory, one half a tile in turn) in warp order,
-// then adds the bf16 residual when res is given (read through L2 with
-// RES_L2, see load_act; loaded when the tile starts) and stores row
-// r0 + r of out (n_out wide) as bf16 or f32. `pre` is prefetch(w). Every
+// then adds the residual when res is given (of type RT, or type code
+// res_dt where RT is Dyn; read through L2 with RES_L2; loaded when the
+// tile starts) in f32 and stores row r0 + r of out (n_out wide) rounded
+// to OT (or type code out_dt). `pre` is prefetch(w). Every
 // thread of the block calls it; the caller syncs the block before it
 // writes xs or calls tile_pass again.
-template <bool RES_L2>
+template <bool RES_L2, typename RT = Dyn, typename OT = Dyn>
 __device__ __forceinline__ void tile_pass(const W4& w, TileLoads pre,
                                           const __nv_bfloat16* xs, int r0,
-                                          int mr, const __nv_bfloat16* res,
-                                          void* out, int out_bf16,
+                                          int mr, const void* res,
+                                          int res_dt, void* out, int out_dt,
                                           float* red) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -479,7 +511,8 @@ __device__ __forceinline__ void tile_pass(const W4& w, TileLoads pre,
     if (f >= total) return;  // block-uniform
     const int col = tile * TILE_N + ec;
     if (slot == 0 && res != nullptr && epi && col < w.n_out)
-      resv = load_act<RES_L2>(res + (size_t)(r0 + er) * w.n_out + col);
+      resv = ld_act<RT, RES_L2>(res, (size_t)(r0 + er) * w.n_out + col,
+                                res_dt);
     if (lo + slot < hi)
       group_tile(acc, L, xb + slot * (GROUP_UNITS * 8), sx0[slot],
                  sx1[slot]);
@@ -504,11 +537,7 @@ __device__ __forceinline__ void tile_pass(const W4& w, TileLoads pre,
       for (int k = 1; k < WARPS; ++k) sum += rb[k * (MAX_ROWS * TILE_N)];
       const size_t o = (size_t)(r0 + er) * w.n_out + col;
       if (res != nullptr) sum += resv;
-      if (out_bf16) {
-        reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(sum);
-      } else {
-        reinterpret_cast<float*>(out)[o] = sum;
-      }
+      st_act<OT>(out, o, out_dt, sum);
     }
     buf ^= 1;
   };
@@ -519,14 +548,15 @@ __device__ __forceinline__ void tile_pass(const W4& w, TileLoads pre,
 }
 
 // 1 / sqrt(mean(row^2) + eps) of rows 0..mr-1 (mr <= MAX_ROWS) of x (n
-// values a row, row stride ld; bf16 or f32) into out[r] (shared memory),
+// values a row, row stride ld; of type T, or of type code dt where T is
+// Dyn) into out[r] (shared memory),
 // each in the order of a 256-thread block: thread t sums elements t,
 // t + 256, ... with fmaf, 8 warp sums, then one warp sums those. The rows
 // are summed side by side, so their loads are in flight together. Every
 // thread of a block of at least MAX_ROWS warps calls it; part: MAX_ROWS *
 // 8 floats of shared memory, free again when it returns.
-template <bool FROM_L2>
-__device__ __forceinline__ void rms_scale_rows(const void* x, int is_bf16,
+template <bool FROM_L2, typename T = Dyn>
+__device__ __forceinline__ void rms_scale_rows(const void* x, int dt,
                                                size_t ld, int mr, int n,
                                                float eps, float* part,
                                                float* out) {
@@ -539,10 +569,7 @@ __device__ __forceinline__ void rms_scale_rows(const void* x, int is_bf16,
       for (int r = 0; r < MAX_ROWS; ++r) {
         if (r < mr) {
           const size_t e = r * ld + i;
-          const float v =
-              is_bf16 ? load_act<FROM_L2>(
-                            reinterpret_cast<const __nv_bfloat16*>(x) + e)
-                      : reinterpret_cast<const float*>(x)[e];
+          const float v = ld_act<T, FROM_L2>(x, e, dt);
           acc[r] = fmaf(v, v, acc[r]);
         }
       }

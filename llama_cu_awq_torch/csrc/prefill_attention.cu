@@ -4,7 +4,9 @@
 //
 // Replaces: llama_cu_awq_tpu/ops/pallas/prefill_attention.py,
 //   _prefill_attention_jit (kernel _make_kernel), for the bf16 and the
-//   int8 cache.
+//   int8 cache, and the fp16 and f32 caches of --act-dtype float16 /
+//   float32, whose blocks the JAX kernel casts to bf16 as it loads them
+//   (prefill_attention.py:93-94).
 //
 // What bounds it on the H100: the cache bytes. At 7B, T = 128 at position
 //   1024, one layer reads 1152 rows x 32 heads x 128 x 2 B for k and for v
@@ -37,6 +39,12 @@
 //     cache copies its raw codes and scales; the block widens a chunk's
 //     codes to bf16 out of shared memory (exact, by a byte permute into an
 //     f32 and one subtraction) after it lands, never on the load path.
+//     The fp16 and f32 caches take the same road: the ring holds the raw
+//     rows (a stage of an f32 chunk is 2 x 64 x 128 x 4 B = 64 KB at
+//     D=128, twice bf16's), and the landed chunk is rounded to bf16 into
+//     the one pair of bf16 tiles the MMAs read. So the stages are sized for
+//     the raw rows (the f32 form's 162 KB fit one block an SM, the fp16
+//     form's 98 KB two) and the MMA operands stay as for bf16.
 //   - A chunk that lies below the window and below the tile's first row's
 //     limit (every chunk of a split but the last at pos 1024) takes a
 //     softmax without the per-key mask.
@@ -78,6 +86,16 @@ constexpr int KC = 64;       // keys per online-softmax step
 constexpr int SPLIT = 256;   // keys per split (SPLIT_ROWS in the wrapper)
 constexpr int THREADS = 2 * QT;
 constexpr float NEG = -1e30f;
+
+// cache formats: bf16, int8 codes with f32 scales, fp16, f32
+constexpr int CF_BF16 = 0;
+constexpr int CF_INT8 = 1;
+constexpr int CF_F16 = 2;
+constexpr int CF_F32 = 3;
+// bytes of one cache element
+__host__ __device__ constexpr int elem_bytes(int cf) {
+  return cf == CF_F32 ? 4 : cf == CF_INT8 ? 1 : 2;
+}
 static_assert(SPLIT % KC == 0, "a chunk never crosses a split boundary");
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -183,21 +201,49 @@ __device__ __forceinline__ void widen8(uint2 c, uint4& o) {
     }
 }
 
+// 8 fp16 or f32 cache values (16 or 32 bytes at p, shared memory) as 8
+// bf16, rounded to nearest even (XLA's astype)
+template <int CF>
+__device__ __forceinline__ void round8(const unsigned char* p, uint4& o) {
+  float v[8];
+  if constexpr (CF == CF_F16) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&w);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __half22float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 16);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  }
+  uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) ow[k] = pack_bf16(v[2 * k], v[2 * k + 1]);
+}
+
 // Shared memory of one block, in bytes. bf16: two stages of k and v in
-// bf16 rows padded to LDK. int8: two stages of raw codes and scales, and
-// one pair of bf16 tiles the landed stage widens into.
-template <int D, bool QUANT>
+// bf16 rows padded to LDK. int8, fp16 and f32: two stages of the raw rows
+// (and the int8 scales), and one pair of bf16 tiles the landed stage
+// widens or rounds into.
+template <int D, int CF>
 struct Layout {
   static constexpr int LDK = D + 8;  // padded rows: conflict-free fragments
   static constexpr int TILE = KC * LDK * 2;           // one bf16 k or v tile
-  static constexpr int RAW = 2 * KC * D + 2 * KC * 4;  // int8 k, v, scales
-  static constexpr int BYTES = QUANT ? 2 * TILE + 2 * RAW : 4 * TILE;
+  // raw k and v rows of a chunk (+ the int8 k and v scales)
+  static constexpr int RAW =
+      2 * KC * D * elem_bytes(CF) + (CF == CF_INT8 ? 2 * KC * 4 : 0);
+  static constexpr int BYTES = CF == CF_BF16 ? 4 * TILE : 2 * TILE + 2 * RAW;
 };
 
 // three blocks an SM (at most 168 registers; the int8 form spills a few
 // bytes): at two, the int8 form's warps wait on their own chains, and it
 // ran slower on the H100
-template <int D, bool QUANT>
+template <int D, int CF>
 __global__ void __launch_bounds__(THREADS, 3)
 prefill_split_kernel(const __nv_bfloat16* __restrict__ q,
                      const void* __restrict__ k_cache,
@@ -209,7 +255,9 @@ prefill_split_kernel(const __nv_bfloat16* __restrict__ q,
                      float* __restrict__ part_acc, int T, int H, int n_kv,
                      int S, int window, int n_qtiles, int n_splits,
                      float scale) {
-  using L = Layout<D, QUANT>;
+  using L = Layout<D, CF>;
+  constexpr bool QUANT = CF == CF_INT8;
+  constexpr int EB = elem_bytes(CF);
   constexpr int LDK = L::LDK;
   constexpr int DK = D / 16;   // 16-deep steps of q . k
   constexpr int DT = D / 8;    // 8-wide column tiles of the output
@@ -243,7 +291,8 @@ prefill_split_kernel(const __nv_bfloat16* __restrict__ q,
     return (static_cast<size_t>(b) * S + s) * n_kv * D +
            static_cast<size_t>(h) * D;
   };
-  // stage st's tiles: bf16 k and v (bf16 cache), or raw codes and scales
+  // stage st's tiles: bf16 k and v (bf16 cache), or raw rows (and
+  // scales)
   auto bf16_tile = [&](int i) {
     return reinterpret_cast<__nv_bfloat16*>(smem + i * L::TILE);
   };
@@ -252,22 +301,24 @@ prefill_split_kernel(const __nv_bfloat16* __restrict__ q,
   auto issue = [&](int c) {
     const int c0 = s0 + c * KC;
     const int st = c & 1;
-    if constexpr (QUANT) {
-      int8_t* kr = reinterpret_cast<int8_t*>(raw(st));
-      int8_t* vr = kr + KC * D;
-      float* ks = reinterpret_cast<float*>(vr + KC * D);
-      for (int i = tid; i < KC * (D / 16); i += THREADS) {
-        const int j = i / (D / 16);
-        const int d16 = i % (D / 16);
+    if constexpr (CF != CF_BF16) {
+      // a row's D * EB bytes in 16-byte copies
+      constexpr int U = D * EB / 16;
+      unsigned char* kr = raw(st);
+      unsigned char* vr = kr + KC * D * EB;
+      float* ks = reinterpret_cast<float*>(vr + KC * D * EB);
+      for (int i = tid; i < KC * U; i += THREADS) {
+        const int j = i / U;
+        const int u = i % U;
         const int s = c0 + j;
         const bool ok = s < window;
-        const size_t off = ok ? kv_off(s) + d16 * 16 : 0;
-        ac::cp16(kr + j * D + d16 * 16,
-                 static_cast<const int8_t*>(k_cache) + off, ok);
-        ac::cp16(vr + j * D + d16 * 16,
-                 static_cast<const int8_t*>(v_cache) + off, ok);
+        const size_t off = ok ? kv_off(s) * EB + u * 16 : 0;
+        ac::cp16(kr + (j * U + u) * 16,
+                 static_cast<const unsigned char*>(k_cache) + off, ok);
+        ac::cp16(vr + (j * U + u) * 16,
+                 static_cast<const unsigned char*>(v_cache) + off, ok);
       }
-      if (tid < 2 * KC) {
+      if (QUANT && tid < 2 * KC) {
         const int j = tid % KC;
         const int s = c0 + j;
         const bool ok = s < window;
@@ -341,22 +392,27 @@ prefill_split_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* vt;
     const float* ksc = nullptr;
     const float* vsc = nullptr;
-    if constexpr (QUANT) {
-      // widen the landed codes to bf16 (exact), out of shared memory
-      const int8_t* kr = reinterpret_cast<const int8_t*>(raw(st));
-      const int8_t* vr = kr + KC * D;
-      ksc = reinterpret_cast<const float*>(vr + KC * D);
+    if constexpr (CF != CF_BF16) {
+      // widen the landed codes to bf16 (exact), or round the landed fp16
+      // or f32 rows to bf16, out of shared memory
+      const unsigned char* kr = raw(st);
+      const unsigned char* vr = kr + KC * D * EB;
+      ksc = reinterpret_cast<const float*>(vr + KC * D * EB);
       vsc = ksc + KC;
       __nv_bfloat16* kw = bf16_tile(0);
       __nv_bfloat16* vw = bf16_tile(1);
       for (int i = tid; i < KC * (D / 8); i += THREADS) {
         const int j = i / (D / 8);
         const int d8 = i % (D / 8);
-        const uint2 kc = *reinterpret_cast<const uint2*>(kr + j * D + d8 * 8);
-        const uint2 vc = *reinterpret_cast<const uint2*>(vr + j * D + d8 * 8);
+        const size_t e = (static_cast<size_t>(j) * D + d8 * 8) * EB;
         uint4 ko, vo;
-        widen8(kc, ko);
-        widen8(vc, vo);
+        if constexpr (QUANT) {
+          widen8(*reinterpret_cast<const uint2*>(kr + e), ko);
+          widen8(*reinterpret_cast<const uint2*>(vr + e), vo);
+        } else {
+          round8<CF>(kr + e, ko);
+          round8<CF>(vr + e, vo);
+        }
         *reinterpret_cast<uint4*>(kw + j * LDK + d8 * 8) = ko;
         *reinterpret_cast<uint4*>(vw + j * LDK + d8 * 8) = vo;
       }
@@ -489,21 +545,21 @@ prefill_merge_kernel(const float2* __restrict__ part_ml,
   for (int i = 0; i < VPL; ++i) o[i] = A[i] / Lsum;
 }
 
-template <int D, bool QUANT>
+template <int D, int CF>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pos, void* out, void* part_ml,
            void* part_acc, int B, int T, int H, int n_kv, int S, int window,
            float scale, cudaStream_t stream) {
-  constexpr int bytes = Layout<D, QUANT>::BYTES;
+  constexpr int bytes = Layout<D, CF>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      prefill_split_kernel<D, QUANT>,
+      prefill_split_kernel<D, CF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return launch_refused(e);
   const int Tm = T * (H / n_kv);
   const int n_qtiles = (Tm + QT - 1) / QT;
   const int n_splits = (window + SPLIT - 1) / SPLIT;
   const dim3 grid(n_qtiles * n_splits, n_kv, B);
-  prefill_split_kernel<D, QUANT><<<grid, THREADS, bytes, stream>>>(
+  prefill_split_kernel<D, CF><<<grid, THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), k, v,
       static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(pos), static_cast<float2*>(part_ml),
@@ -524,20 +580,21 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// q: (B, T, H, D) bf16. k, v: (B, S, n_kv, D) bf16, or int8 codes with
-// ks, vs (B, S, n_kv) f32 (null for bf16); the caches 16-byte aligned.
-// pos: (B,) int32, the position of each slot's first token; the cache
-// already holds the block's own k/v. out: (B, T, H, D) f32. part_ml:
-// B x ceil(window / 256) x H x T float2 and part_acc the same count of D
-// floats, scratch for the splits' partials. Key s is visible to token t
-// of slot b iff s <= pos[b] + t and s < window (window <= S). Needs
-// H % n_kv == 0 and D of 64 or 128.
+// q: (B, T, H, D) bf16. k, v: (B, S, n_kv, D) of type code kv_dt
+// (DT_F32, DT_BF16 or DT_F16; ks, vs null), or int8 codes with ks, vs
+// (B, S, n_kv) f32; the caches 16-byte aligned. pos: (B,) int32, the
+// position of each slot's first token; the cache already holds the
+// block's own k/v. out: (B, T, H, D) f32. part_ml: B x ceil(window / 256)
+// x H x T float2 and part_acc the same count of D floats, scratch for the
+// splits' partials. Key s is visible to token t of slot b iff s <= pos[b]
+// + t and s < window (window <= S). Needs H % n_kv == 0 and D of 64 or
+// 128.
 LLAMA_EXPORT int prefill_attention(const void* q, const void* k,
                                    const void* v, const void* ks,
                                    const void* vs, const void* pos,
                                    void* out, void* part_ml, void* part_acc,
                                    int B, int T, int H, int n_kv, int D,
-                                   int S, int window, float scale,
+                                   int S, int window, float scale, int kv_dt,
                                    void* stream) {
   if (B < 1 || T < 1 || n_kv < 1 || H % n_kv != 0 || window < 1 ||
       window > S || (D != 64 && D != 128) ||
@@ -545,18 +602,25 @@ LLAMA_EXPORT int prefill_attention(const void* q, const void* k,
       reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool quant = ks != nullptr;
-  if (D == 64)
-    return quant ? launch<64, true>(q, k, v, ks, vs, pos, out, part_ml,
-                                    part_acc, B, T, H, n_kv, S, window,
-                                    scale, st)
-                 : launch<64, false>(q, k, v, ks, vs, pos, out, part_ml,
-                                     part_acc, B, T, H, n_kv, S, window,
-                                     scale, st);
-  return quant ? launch<128, true>(q, k, v, ks, vs, pos, out, part_ml,
-                                   part_acc, B, T, H, n_kv, S, window, scale,
-                                   st)
-               : launch<128, false>(q, k, v, ks, vs, pos, out, part_ml,
-                                    part_acc, B, T, H, n_kv, S, window,
-                                    scale, st);
+  const int cf = ks != nullptr       ? CF_INT8
+                 : kv_dt == DT_BF16 ? CF_BF16
+                 : kv_dt == DT_F16  ? CF_F16
+                 : kv_dt == DT_F32  ? CF_F32
+                                    : -1;
+  if (cf < 0) return static_cast<int>(cudaErrorInvalidValue);
+#define LAUNCH(DD, CC)                                                   \
+  launch<DD, CC>(q, k, v, ks, vs, pos, out, part_ml, part_acc, B, T, H, \
+                 n_kv, S, window, scale, st)
+  switch (D == 64 ? cf : 4 + cf) {
+    case CF_BF16: return LAUNCH(64, CF_BF16);
+    case CF_INT8: return LAUNCH(64, CF_INT8);
+    case CF_F16: return LAUNCH(64, CF_F16);
+    case CF_F32: return LAUNCH(64, CF_F32);
+    case 4 + CF_BF16: return LAUNCH(128, CF_BF16);
+    case 4 + CF_INT8: return LAUNCH(128, CF_INT8);
+    case 4 + CF_F16: return LAUNCH(128, CF_F16);
+    case 4 + CF_F32: return LAUNCH(128, CF_F32);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LAUNCH
 }

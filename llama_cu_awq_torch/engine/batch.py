@@ -202,10 +202,12 @@ class BatchEngine:
                  topp: float = 0.6, seed: int = 1234, chunk_size: int = 8,
                  spec: str | None = None, spec_k: int = 7,
                  prefix_cache_size: int = 0, device="cuda",
-                 capture: bool = True):
+                 capture: bool = True, act_dtype=torch.bfloat16):
         """capture=False runs the step bodies eagerly on the card too (how
         chip_smoke.py and the card tests hold the graphs to eager
-        launches); on the CPU they always run eagerly."""
+        launches); on the CPU they always run eagerly. act_dtype (bf16,
+        fp16 or f32) is the activations' and the unquantized cache's type,
+        as the JAX engine's (batch.py:141, 234-242)."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
@@ -221,12 +223,14 @@ class BatchEngine:
         # None -> "auto": plain attention below FSTEP_MIN_WINDOW, the
         # attention_step kernel from it on (models/llama.forward)
         self.attn_impl = attn_impl if attn_impl is not None else "auto"
+        self.act_dtype = act_dtype
         self.temperature = temperature
         self.topp = topp
         self.rng = XorshiftRNG(seed)
         self.chunk_size = chunk_size
         self._buckets = attn_buckets(self.max_seq)
-        # kv_quant: False -> bf16 cache; True or 8 -> int8; 4 -> int4
+        # kv_quant: False -> an act_dtype cache; True or 8 -> int8; 4 ->
+        # int4
         self.kv_quant = bool(kv_quant)
         self.kv_bits = 4 if kv_quant == 4 else 8
         # speculative serving: decode runs as (S, T=spec_k+1) teacher-
@@ -254,8 +258,8 @@ class BatchEngine:
 
     def _init_cache(self) -> KVCache:
         return init_kv_cache(self.cfg, self.n_slots, self.max_seq,
-                             quantized=self.kv_quant, kv_bits=self.kv_bits,
-                             device=self.device)
+                             dtype=self.act_dtype, quantized=self.kv_quant,
+                             kv_bits=self.kv_bits, device=self.device)
 
     def _init_step_state(self, capture: bool):
         """The step bodies' device buffers (see the module docstring): the
@@ -330,7 +334,8 @@ class BatchEngine:
                              self._tok)
         logits, _ = forward(self.params, self.cfg, in_tok[:, None], d.pos,
                             self.cache, attn_len=attn_len,
-                            attn_impl=self.attn_impl)
+                            attn_impl=self.attn_impl,
+                            act_dtype=self.act_dtype)
         coin = d.coins.index_select(0, i)[0]
         if sampled:  # per-slot temperature and top-p
             nxt = sample_token_vec(logits, coin, d.temps, d.topps)
@@ -349,7 +354,8 @@ class BatchEngine:
         slot's cache rows, without the lm_head."""
         d = self._in.dev
         forward(self.params, self.cfg, d.block[:, :T], d.block_pos,
-                self._slot_cache(slot), attn_len=attn_len, no_logits=True)
+                self._slot_cache(slot), attn_len=attn_len, no_logits=True,
+                act_dtype=self.act_dtype)
 
     def _spec_body(self, attn_len: int, sampled: bool):
         """One teacher-forced forward over the (S, T) blocks spec_tok with
@@ -361,7 +367,8 @@ class BatchEngine:
         d = self._in.dev
         logits, _ = forward(self.params, self.cfg, d.spec_tok, d.pos,
                             self.cache, attn_len=attn_len,
-                            attn_impl=self.attn_impl, logits_all=True)
+                            attn_impl=self.attn_impl,
+                            act_dtype=self.act_dtype, logits_all=True)
         if not sampled:
             self._spec_out.copy_(torch.argmax(logits, dim=-1))
             return

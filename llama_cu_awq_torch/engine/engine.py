@@ -129,10 +129,12 @@ class InferenceEngine:
                  max_seq: int | None = None, temperature: float = 0.5,
                  topp: float = 0.6, seed: int = 0, chunk_size: int = 16,
                  spec: str | None = None, spec_k: int = 7, device="cuda",
-                 capture: bool = True):
+                 capture: bool = True, act_dtype=torch.bfloat16):
         """capture=False runs the step bodies eagerly on the card too (how
         chip_smoke.py and the card tests hold the graphs to eager
-        launches); on the CPU they always run eagerly."""
+        launches); on the CPU they always run eagerly. act_dtype (bf16,
+        fp16 or f32; --act-dtype) is the activations' and the unquantized
+        cache's type, as the JAX engine's (engine.py:197, 251-260)."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
@@ -144,7 +146,9 @@ class InferenceEngine:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.attn_impl = attn_impl if attn_impl is not None else "auto"
-        # kv_quant: False -> bf16 cache, True or 8 -> int8, 4 -> int4
+        self.act_dtype = act_dtype
+        # kv_quant: False -> an act_dtype cache, True or 8 -> int8, 4 ->
+        # int4
         self.kv_quant = bool(kv_quant)
         self.kv_bits = 4 if kv_quant == 4 else 8
         self.spec = spec
@@ -193,7 +197,7 @@ class InferenceEngine:
                 cfg.head_dim, self.max_seq))
 
     def _init_cache(self):
-        return init_kv_cache(self.cfg, 1, self.max_seq,
+        return init_kv_cache(self.cfg, 1, self.max_seq, dtype=self.act_dtype,
                              quantized=self.kv_quant, kv_bits=self.kv_bits,
                              device=self.device)
 
@@ -215,7 +219,8 @@ class InferenceEngine:
         token to _out[_idx] and _tok."""
         logits, _ = forward(self.params, self.cfg, self._tok, self._pos_buf,
                             self.cache, attn_len=attn_len,
-                            attn_impl=self.attn_impl)
+                            attn_impl=self.attn_impl,
+                            act_dtype=self.act_dtype)
         coin = self._coin_buf.index_select(0, self._idx)
         nxt = sample_token(logits, coin, self.temperature, self.topp)
         # garbage-token clamp (llama2_q4.cu:474)
@@ -232,7 +237,8 @@ class InferenceEngine:
         toks = self._prompt_buf.index_select(0, rows)[None]
         logits, _ = forward(self.params, self.cfg, toks, self._pos_buf,
                             self.cache, attn_len=attn_len,
-                            attn_impl=self.attn_impl, logits_all=head,
+                            attn_impl=self.attn_impl,
+                            act_dtype=self.act_dtype, logits_all=head,
                             no_logits=not head)
         if head:
             self._logits[:T].copy_(logits[0])

@@ -6,7 +6,10 @@ o-proj + residual, rmsnorm, fused gate/up + SiLU, down-proj + residual]
 -> final rmsnorm -> lm_head. The rmsnorm apply, SwiGLU and residual adds
 run inside the int4 kernels, and the rms scale chains from one kernel's
 epilogue to the next one's prologue (the JAX package's fused=True path).
-Activations are bf16; accumulations and the softmax are f32.
+Activations, the residual stream and the unquantized KV cache are in
+act_dtype (bf16 by default; fp16 or f32 with --act-dtype); accumulations
+and the softmax are f32, and every kernel's MMA operands are bf16, as the
+JAX kernels cast theirs.
 """
 
 from __future__ import annotations
@@ -69,8 +72,8 @@ class LlamaParams:
 
 @dataclasses.dataclass
 class KVCache:
-    """Per-layer lists of (B, max_seq, n_kv_heads, head_dim) buffers: bf16,
-    or int8 codes with (B, max_seq, n_kv_heads) f32 scales (symmetric
+    """Per-layer lists of (B, max_seq, n_kv_heads, head_dim) buffers in the
+    activation type (bf16, fp16 or f32), or int8 codes with (B, max_seq, n_kv_heads) f32 scales (symmetric
     per-vector, quant/kv.py), or int4 codes packed two to a byte,
     (B, max_seq, n_kv_heads, head_dim // 2) int8, with the same scales.
     A last dim of head_dim // 2 is how forward tells the int4 cache."""
@@ -122,10 +125,15 @@ def _fuse_q(row: list[RawQWeight], device) -> QTensor:
 def params_from_checkpoint(ckpt: RawCheckpoint, device="cuda",
                            param_dtype=torch.bfloat16) -> LlamaParams:
     """Device-resident params from a loaded `.bin` checkpoint. embed and
-    lm_head are stored in param_dtype (bf16: the GEMV kernel's type)."""
+    lm_head are stored in param_dtype: bf16 (the dense_gemv kernel's type)
+    or f32, or with None the checkpoint's fp16 bits as they are (the JAX
+    function's None, models/llama.py:211-223; what --act-dtype float16
+    asks for). Norm weights are f32."""
     dev = resolve_device(device)
 
     def dense(a, dtype):
+        if dtype is None:
+            return torch.from_numpy(np.array(a)).to(dev)
         return torch.from_numpy(np.asarray(a, np.float32)).to(
             device=dev, dtype=dtype)
 
@@ -348,7 +356,8 @@ def _post_attention_chained(attn, x, layer: LlamaLayer,
     g, u = gu.chunk(2, dim=-1)
     return dq.down_qkv_fused(g, u, x, layer.w_down, next_layer.wqkv,
                              next_layer.attn_norm, eps=RMS_EPS,
-                             out_dtype=act_dtype, plain=plain)
+                             out_dtype=act_dtype, x2_dtype=act_dtype,
+                             plain=plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,11 +453,14 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
     projection and the next layer's qkv projection as one down_qkv launch
     where down_qkv.supported holds; elsewhere the standalone pair runs.
     plain: the kernels' plain versions on any device.
+    act_dtype: bf16, fp16 or f32, the type of the activations, the
+    residual stream and the unquantized cache (the engines make the cache
+    in it); the kernels take each of them.
     Returns (logits, cache): logits f32 (B, T, vocab) if logits_all else
     (B, vocab), None with no_logits.
     """
-    if act_dtype != torch.bfloat16:
-        raise NotImplementedError("the port runs bf16 activations only")
+    if act_dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"unsupported act_dtype {act_dtype}")
     if attn_impl not in (None, "auto", "einsum", "fused_step", "batched",
                          "batched_static"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
@@ -554,7 +566,10 @@ def final_logits(params: LlamaParams, x: torch.Tensor, ss: torch.Tensor,
                  act_dtype, logits_all: bool, plain: bool) -> torch.Tensor:
     """The final rmsnorm (x (B, T, dim) and its rms scale ss (B, T, 1)) and
     the lm_head: (B, T, vocab) f32 with logits_all, else the last token's
-    (B, vocab)."""
+    (B, vocab). x goes to the head in act_dtype for a w4 head, else in the
+    head's type (ops/linear.py dense_matmul routes a bf16 or int8 head to
+    its kernel and an fp16 or f32 one to the plain product, the JAX
+    rule)."""
     x = (x.float() * ss * params.final_norm.float()).to(act_dtype)
     if not logits_all:
         x = x[:, -1, :]

@@ -80,3 +80,23 @@ def attn_scale(head_dim: int) -> float:
 
 def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# activation types (--act-dtype) as the kernels take them at run time:
+# DT_F32, DT_BF16 and DT_F16 in csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def dtype_code(dtype, name: str) -> int:
+    """The kernels' code of an activation type; raises on any other."""
+    require(dtype in DTYPE_CODES,
+            f"{name} has dtype {dtype}, expected bfloat16, float16 or "
+            f"float32")
+    return DTYPE_CODES[dtype]
+
+
+def dtype_name(dtype) -> str:
+    """Short name of an activation type in variant keys (bf16, f16,
+    f32)."""
+    return _SHORT[dtype]

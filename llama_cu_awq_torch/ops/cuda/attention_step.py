@@ -28,6 +28,13 @@ order of f32 sums. experiments/int4_chain.py's mono_layer runs the same
 split items (`step_split`) inside its cooperative launch, on this
 module's scratch.
 
+Under --act-dtype float16 / float32 the qkv row is fp16 or f32 and the
+unquantized cache has its type: the rotated q and k still round to bf16,
+cached rows round to bf16 as they load, and the new row is the
+bf16-rounded k and v widened to the cache's type, as the JAX kernel does
+(attention_step.py:155-162, 190-212); the int8 and int4 caches take an
+fp16 or f32 qkv row the same way.
+
 `split=False` walks the window in one online softmax, the current token
 first and then chunks of CHUNK rows, p rounded against the running max:
 the tests' unsplit oracle, which no kernel runs. (The JAX kernel walks
@@ -42,8 +49,8 @@ import ctypes
 import torch
 
 from llama_cu_awq_torch.ops.cuda import (_build, attn_scale, check_tensor,
-                                         count, require, stream_ptr,
-                                         use_plain)
+                                         count, dtype_code, dtype_name,
+                                         require, stream_ptr, use_plain)
 from llama_cu_awq_torch.ops.rope import rope_angles
 from llama_cu_awq_torch.quant.kv import kv4_values, quantize_kv, quantize_kv4
 
@@ -63,7 +70,7 @@ _SCRATCH: dict[tuple[torch.device, int],
 _RETIRED: list[torch.Tensor] = []
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 16 + [_I] * 6 + [_P]
+_ARGS = [_P] * 16 + [_I] * 7 + [_P]
 
 
 def split_scratch(dev, B: int, n_kv: int, kv_mul: int, D: int, win: int):
@@ -225,15 +232,21 @@ def attention_step_plain(qkv, k_cache, v_cache, pos, cos2, sinm,
     q_bf = rope(q).to(torch.bfloat16).float()
     k_bf = rope(k).to(torch.bfloat16)
     # a row's values as the softmax sees them: codes for a quantized
-    # cache, the current row through the same unpack as a cached one
-    values = kv4_values if kv4 else torch.Tensor.float
+    # cache, the current row through the same unpack as a cached one; an
+    # unquantized row rounded to bf16 (exact for a bf16 cache)
+    values = (kv4_values if kv4 else torch.Tensor.float if quantized
+              else bf16_values)
     if quantized:
         quantize = quantize_kv4 if kv4 else quantize_kv
         k_new, ks_new = quantize(k_bf)
         v_new, vs_new = quantize(v_bf)
+        kcur, vcur = values(k_new), values(v_new)
     else:
-        k_new, v_new, ks_new, vs_new = k_bf, v_bf, None, None
-    kcur, vcur = values(k_new), values(v_new)
+        # the current row enters as its bf16 value; the cache gets it
+        # widened to the cache's type
+        kcur, vcur = k_bf.float(), v_bf.float()
+        k_new, v_new = k_bf.to(k_cache.dtype), v_bf.to(k_cache.dtype)
+        ks_new = vs_new = None
 
     def rows(b, r0, r1):
         """Rows r0..r1-1 of slot b: k and v as (n_kv, rows, D) f32 values,
@@ -270,12 +283,19 @@ def attention_step_plain(qkv, k_cache, v_cache, pos, cos2, sinm,
     return attn, k_new, v_new, ks_new, vs_new
 
 
+def bf16_values(t: torch.Tensor) -> torch.Tensor:
+    """Cache rows of any float type as the kernels read them: rounded to
+    bf16 (as the JAX kernels cast their blocks), in f32."""
+    return t.to(torch.bfloat16).float()
+
+
 def attention_step(qkv, k_cache, v_cache, pos, cos2, sinm, k_scale=None,
                    v_scale=None, *, n_heads: int, kv_bits: int = 8,
                    attn_len: int | None = None, plain: bool = False):
-    """qkv: (B, (H + 2*Hkv)*D) bf16, laid out [q | k | v] as the fused
-    qkv matmul emits it. k_cache/v_cache: (B, S, Hkv, D) bf16, or int8
-    codes with k_scale/v_scale (B, S, Hkv) f32; with kv_bits=4 the codes
+    """qkv: (B, (H + 2*Hkv)*D) bf16, fp16 or f32, laid out [q | k | v] as
+    the fused qkv matmul emits it. k_cache/v_cache: (B, S, Hkv, D) of
+    qkv's type, or int8 codes with k_scale/v_scale (B, S, Hkv) f32; with
+    kv_bits=4 the codes
     are packed (B, S, Hkv, D//2) int8 (quant/kv.py) and the scales are
     required. The cache is read-only history: rows below min(pos[b],
     attn_len) are read (attn_len, the window, defaults to the cache's
@@ -301,10 +321,11 @@ def attention_step(qkv, k_cache, v_cache, pos, cos2, sinm, k_scale=None,
     H = n_heads
     dev = qkv.device
     quantized = k_scale is not None
-    kv_dtype = torch.int8 if quantized else torch.bfloat16
+    qkv_dt = dtype_code(qkv.dtype, "qkv")
+    kv_dtype = torch.int8 if quantized else qkv.dtype
     require(kernel_takes(H, n_kv, D),
             f"the kernel cannot take n_heads={H}, n_kv={n_kv}, head_dim={D}")
-    check_tensor(qkv, "qkv", torch.bfloat16, (B, (H + 2 * n_kv) * D), dev)
+    check_tensor(qkv, "qkv", qkv.dtype, (B, (H + 2 * n_kv) * D), dev)
     check_tensor(k_cache, "k_cache", kv_dtype, (B, S, n_kv, Dc), dev)
     check_tensor(v_cache, "v_cache", kv_dtype, (B, S, n_kv, Dc), dev)
     if quantized:
@@ -336,8 +357,15 @@ def attention_step(qkv, k_cache, v_cache, pos, cos2, sinm, k_scale=None,
             ptr(k_scale), ptr(v_scale), pos.data_ptr(), cos2.data_ptr(),
             sinm.data_ptr(), attn.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), ptr(ks_new), ptr(vs_new), *scratch, B, H,
-            n_kv, D, S, win, stream_ptr())
+            n_kv, D, S, win, qkv_dt, stream_ptr())
     _build.check(rc, "attention_step", name)
-    fmt = "int4" if kv4 else "int8" if quantized else "bf16"
-    count(name, f"{fmt}/B{B}/H{H}/kv{n_kv}/D{D}")
+    count(name, f"{cache_format(k_cache, kv_bits)}/B{B}/H{H}/kv{n_kv}/D{D}")
     return attn, k_new, v_new, ks_new, vs_new
+
+
+def cache_format(k_cache: torch.Tensor, kv_bits: int = 8) -> str:
+    """The cache format of a variant key: int8 or int4 codes, or the
+    unquantized cache's type (bf16, f16, f32)."""
+    if k_cache.dtype == torch.int8:
+        return "int4" if kv_bits == 4 else "int8"
+    return dtype_name(k_cache.dtype)

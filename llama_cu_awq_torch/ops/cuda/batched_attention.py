@@ -22,6 +22,11 @@ f32 sums. (The JAX kernel walks blocks of 128 to 1024 rows; against it the
 two agree to bf16 rounding of p.) A split whose rows are all masked has
 l = 0 and leaves the combine, and a masked row adds 0 to the sums, so both
 values of early_exit give the same result up to the order of f32 sums.
+
+Under --act-dtype float16 / float32, q and the unquantized cache are fp16
+or f32 (q's type and the cache's are independent); the kernel rounds q
+and every cached row to bf16 as it loads them, as the JAX kernel casts q
+and its blocks (batched_attention.py:83, 100-101).
 """
 
 from __future__ import annotations
@@ -31,16 +36,18 @@ import ctypes
 import torch
 
 from llama_cu_awq_torch.ops.cuda import (_build, attn_scale, check_tensor,
-                                         count, require, stream_ptr,
-                                         use_plain)
+                                         count, dtype_code, require,
+                                         stream_ptr, use_plain)
 from llama_cu_awq_torch.ops.cuda.attention_step import (SPLIT_ROWS,
+                                                        bf16_values,
+                                                        cache_format,
                                                         combine_splits,
                                                         split_partial,
                                                         split_scratch)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+_ARGS = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
 
 
 def kernel_takes(n_heads: int, n_kv: int, head_dim: int) -> bool:
@@ -63,6 +70,8 @@ def batched_decode_attention_plain(q, k, v, pos, k_scale=None, v_scale=None,
     scale = attn_scale(D)
     dev = q.device
     qg = q.to(torch.bfloat16).float().reshape(B, n_kv, kv_mul, D)
+    # cached rows as the kernel reads them: codes, or bf16-rounded values
+    values = torch.Tensor.float if quantized else bf16_values
     out = torch.empty(B, H, D, dtype=torch.float32, device=dev)
     for b in range(B):
         p0 = int(pos[b])
@@ -73,8 +82,8 @@ def batched_decode_attention_plain(q, k, v, pos, k_scale=None, v_scale=None,
             sc = [x[b, r0:r1].T if quantized else None
                   for x in (k_scale, v_scale)]
             parts.append(split_partial(
-                qg[b], k[b, r0:r1].float().transpose(0, 1),
-                v[b, r0:r1].float().transpose(0, 1), *sc, scale,
+                qg[b], values(k[b, r0:r1]).transpose(0, 1),
+                values(v[b, r0:r1]).transpose(0, 1), *sc, scale,
                 torch.arange(r0, r1, device=dev) <= p0))
         out[b] = combine_splits(parts).reshape(H, D)
     return out
@@ -84,8 +93,9 @@ def batched_decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
                              attn_len: int | None = None,
                              early_exit: bool = True,
                              plain: bool = False) -> torch.Tensor:
-    """q: (B, H, D) f32 or bf16; k, v: (B, S, Hkv, D) bf16, or int8 codes
-    with k_scale/v_scale (B, S, Hkv) f32, read in place (not sliced) and
+    """q: (B, H, D) bf16, fp16 or f32; k, v: (B, S, Hkv, D) bf16, fp16 or
+    f32, or int8 codes with k_scale/v_scale (B, S, Hkv) f32, read in place
+    (not sliced) and
     already holding row pos[b]; pos: (B,) int32; attn_len: the window
     (default S), more than max(pos). Returns (B, H, D) f32."""
     if use_plain(q, plain):
@@ -96,11 +106,13 @@ def batched_decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
     _, S, n_kv, _ = k.shape
     dev = q.device
     quantized = k_scale is not None
-    kv_dtype = torch.int8 if quantized else torch.bfloat16
+    q_dt = dtype_code(q.dtype, "q")
+    kv_dtype = torch.int8 if quantized else k.dtype
+    kv_dt = dtype_code(torch.bfloat16 if quantized else k.dtype, "k_cache")
     window = min(attn_len or S, S)
     require(kernel_takes(H, n_kv, D),
             f"the kernel cannot take n_heads={H}, n_kv={n_kv}, head_dim={D}")
-    qb = q.to(torch.bfloat16).contiguous()
+    qc = q.contiguous()
     check_tensor(k, "k_cache", kv_dtype, (B, S, n_kv, D), dev)
     check_tensor(v, "v_cache", kv_dtype, (B, S, n_kv, D), dev)
     if quantized:
@@ -114,13 +126,13 @@ def batched_decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
     scratch = split_scratch(dev, B, n_kv, H // n_kv, D, window)
     fn = _build.function("batched_attention", "batched_decode_attention",
                          _ARGS)
-    rc = fn(qb.data_ptr(), k.data_ptr(), v.data_ptr(),
+    rc = fn(qc.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None, pos.data_ptr(),
             out.data_ptr(), *scratch, B, H, n_kv, D, S, window,
-            int(early_exit), attn_scale(D), stream_ptr())
+            int(early_exit), attn_scale(D), q_dt, kv_dt, stream_ptr())
     _build.check(rc, "batched_attention", "batched_decode_attention")
     count("batched_decode_attention",
-          f"{'int8' if quantized else 'bf16'}/"
+          f"{cache_format(k)}/"
           f"{'early' if early_exit else 'static'}/B{B}/H{H}/kv{n_kv}/D{D}")
     return out

@@ -14,6 +14,11 @@ an epilogue on the output:
   epilogue  out   = (acc + residual).to(out_dtype)
             ss'   = rsqrt(mean(out^2) + eps)   (second launch, over out)
 
+x and u are cast to bf16 before the kernel, as the JAX wrapper does
+(int4_matmul.py:656-661); the residual and the output are each bf16, fp16
+or f32 (--act-dtype), the residual read in f32 and the output stored in
+out_dtype by the kernel itself, as the JAX kernel does (:471-475).
+
 Beside each kernel, its plain PyTorch version (the same staging, with the
 exactly dequantized f32 weight) serves CPU tensors and is what the card
 run holds the kernel to.
@@ -27,7 +32,8 @@ import math
 import torch
 
 from llama_cu_awq_torch.ops.cuda import (_build, check_tensor, count,
-                                         require, stream_ptr, use_plain)
+                                         dtype_code, dtype_name, require,
+                                         stream_ptr, use_plain)
 from llama_cu_awq_torch.quant.qtensor import QTensor
 
 # rows from which a CUDA call takes the GEMM: below it the GEMV's
@@ -41,8 +47,8 @@ _MAX_ROWS = 8  # matches MAX_ROWS in csrc/int4_gemv.cuh
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_GEMV_ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-              _I, _I, _P]
+_GEMV_ARGS = [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+              _I, _I, _I, _P]
 _GEMM_ARGS = _GEMV_ARGS[:-2] + [_I, _P, _P, _P, _P]
 # csrc/int4_gemm.cu's tiles: 128 output columns by 128 rows of x by one
 # 128-input group, and the H100's streaming multiprocessors
@@ -89,16 +95,28 @@ def rows_per_pass(m: int, n_in: int) -> int:
     return max(1, min(m, _MAX_ROWS, _SMEM_BUDGET // staged_row_bytes(n_in)))
 
 
-def raw_row_bytes(n_in: int) -> int:
-    """Shared memory of one staged row plus a copy of the row as it is:
-    the chains' rmsnorm-apply stages (csrc/int4_gemv.cuh copy_rows), with
-    16 bytes for the copy's alignment."""
-    return staged_row_bytes(n_in) + 2 * n_in + 16
+def raw_row_bytes(n_in: int, elem: int = 2) -> int:
+    """Shared memory of one staged row plus a copy of the row as it is
+    (elem bytes a value: 2 for bf16 and fp16, 4 for f32): the chains'
+    rmsnorm-apply stages (csrc/int4_gemv.cuh copy_rows), with 16 bytes for
+    the copy's alignment."""
+    return staged_row_bytes(n_in) + elem * n_in + 16
 
 
-def rows_per_pass_raw(m: int, n_in: int) -> int:
+def rows_per_pass_raw(m: int, n_in: int, elem: int = 2) -> int:
     """Rows a pass of a stage that keeps the raw copy stages."""
-    return max(1, min(m, _MAX_ROWS, _SMEM_BUDGET // raw_row_bytes(n_in)))
+    return max(1, min(m, _MAX_ROWS,
+                      _SMEM_BUDGET // raw_row_bytes(n_in, elem)))
+
+
+def dtype_suffix(out_dtype, residual) -> str:
+    """The variant key's tail for an output or residual that is not bf16
+    (--act-dtype float16 / float32): "" for the bf16 forms."""
+    parts = [f"out_{dtype_name(out_dtype)}"] if out_dtype != torch.bfloat16 \
+        else []
+    if residual is not None and residual.dtype != torch.bfloat16:
+        parts.append(f"res_{dtype_name(residual.dtype)}")
+    return "".join("/" + p for p in parts)
 
 
 def _as_rows(a: torch.Tensor, m: int, n: int) -> torch.Tensor:
@@ -125,8 +143,7 @@ def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
     m, n_in = x2.shape
     dev = x2.device
     require(n_in % 32 == 0, f"the kernel needs n_in % 32 == 0, got {n_in}")
-    require(out_dtype in (torch.bfloat16, torch.float32),
-            f"unsupported out_dtype {out_dtype}")
+    out_dt = dtype_code(out_dtype, "out")
     check_tensor(qt.qw, "qw", torch.int32, (qt.n_out, n_in // 8), dev)
     check_tensor(qt.scales, "scales", torch.float16,
                  (qt.n_out, qt.n_groups), dev)
@@ -139,10 +156,11 @@ def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
     if ss is not None:
         check_tensor(ss, "ss", torch.float32, (m,), dev)
         check_tensor(nw, "norm_w", torch.float32, (n_in,), dev)
+    res_dt = 1
     if res is not None:
-        check_tensor(res, "residual", torch.bfloat16, (m, qt.n_out), dev)
+        res_dt = dtype_code(res.dtype, "residual")
+        check_tensor(res, "residual", res.dtype, (m, qt.n_out), dev)
     out = torch.empty(m, qt.n_out, dtype=out_dtype, device=dev)
-    out_bf16 = int(out_dtype == torch.bfloat16)
     stream = stream_ptr()
     args = [x2.data_ptr(), x2.stride(0),
             u2.data_ptr() if u2 is not None else None,
@@ -150,8 +168,8 @@ def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
             ss.data_ptr() if ss is not None else None,
             nw.data_ptr() if nw is not None else None,
             qt.qw.data_ptr(), qt.scales.data_ptr(), qt.zeros.data_ptr(),
-            res.data_ptr() if res is not None else None, out.data_ptr(),
-            out_bf16, m, n_in, qt.n_out, qt.n_groups]
+            res.data_ptr() if res is not None else None, res_dt,
+            out.data_ptr(), out_dt, m, n_in, qt.n_out, qt.n_groups]
     if kernel == "gemm":
         # scratch: the staged x_eff tiles and group sums, and the split
         # partials
@@ -174,7 +192,7 @@ def _launch(x2, qt: QTensor, *, u2=None, ss=None, nw=None, res=None,
     if eps is not None:
         ss_out = torch.empty(m, 1, dtype=torch.float32, device=dev)
         rms = _build.function("int4_gemv", "rms_scale", _RMS_ARGS)
-        rc = rms(out.data_ptr(), out_bf16, ss_out.data_ptr(), m, qt.n_out,
+        rc = rms(out.data_ptr(), out_dt, ss_out.data_ptr(), m, qt.n_out,
                  float(eps), stream)
         _build.check(rc, "int4_gemv", "rms_scale")
     return out, ss_out
@@ -212,8 +230,10 @@ def int4_matmul_fused_plain(x, qt: QTensor, *, prescale=None, silu_u=None,
                             residual=None, emit_ss_eps=None,
                             out_dtype=torch.bfloat16):
     """The unfused composite with the kernel's numerics (the staging of
-    llama_cu_awq_tpu/ops/linear.py:120-137): bf16 effective x, f32
-    accumulation, f32 residual add, cast, then the rms scale."""
+    llama_cu_awq_tpu/ops/linear.py:120-137, after the JAX kernel wrapper's
+    casts of x and u to bf16, int4_matmul.py:656-661): bf16 effective x,
+    f32 accumulation, the residual (any float type) added in f32, the cast
+    to out_dtype, then the rms scale of the cast output."""
     lead, m = _rows(x, qt.n_in)
     xf = x.to(torch.bfloat16).float()
     if prescale is not None:
@@ -238,8 +258,9 @@ def int4_matmul_fused(x, qt: QTensor, *, prescale=None, silu_u=None,
                       out_dtype=torch.bfloat16, plain: bool = False):
     """x: (..., n_in); prescale: (ss (..., 1) f32, norm_w (n_in,) f32);
     silu_u: (..., n_in) up values (x is then the gate); residual:
-    (..., n_out) bf16; emit_ss_eps: float -> also return ss' (..., 1) f32.
-    Returns (out, ss') with ss' None unless asked for."""
+    (..., n_out) bf16, fp16 or f32; out_dtype bf16, fp16 or f32;
+    emit_ss_eps: float -> also return ss' (..., 1) f32. Returns (out, ss')
+    with ss' None unless asked for."""
     require(prescale is None or silu_u is None,
             "prescale and silu_u are exclusive")
     if use_plain(x, plain):
@@ -263,7 +284,7 @@ def int4_matmul_fused(x, qt: QTensor, *, prescale=None, silu_u=None,
                              ("residual", res is not None),
                              ("ss", emit_ss_eps is not None)) if on]
     count("int4_matmul_fused", f"{kernel}/{'+'.join(flags) or 'plain'}"
-          f"/m{m}/{qt.n_in}x{qt.n_out}")
+          f"/m{m}/{qt.n_in}x{qt.n_out}{dtype_suffix(out_dtype, res)}")
     out = out.reshape(*lead, qt.n_out)
     if ss_out is not None:
         ss_out = ss_out.reshape(*lead, 1)

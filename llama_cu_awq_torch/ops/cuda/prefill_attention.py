@@ -19,6 +19,11 @@ order (attention_step.combine_splits). The plain version walks the same
 splits and chunks; kernel and plain version then differ only in the
 order of f32 sums. (The JAX kernel walks blocks of 256 to 1024 keys;
 against it the two agree to bf16 rounding of p.)
+
+Under --act-dtype float16 / float32 the unquantized cache is fp16 or f32:
+its rows round to bf16 as they load, as the JAX kernel casts its blocks
+(prefill_attention.py:93-94), and q is cast to bf16 before the kernel, as
+the JAX wrapper does (:204).
 """
 
 from __future__ import annotations
@@ -28,9 +33,11 @@ import ctypes
 import torch
 
 from llama_cu_awq_torch.ops.cuda import (_build, attn_scale, check_tensor,
-                                         count, require, stream_ptr,
-                                         use_plain)
-from llama_cu_awq_torch.ops.cuda.attention_step import combine_splits
+                                         count, dtype_code, require,
+                                         stream_ptr, use_plain)
+from llama_cu_awq_torch.ops.cuda.attention_step import (bf16_values,
+                                                        cache_format,
+                                                        combine_splits)
 
 # SPLIT and KC in csrc/prefill_attention.cu (compile-time constants there;
 # tests/test_torch_prefill.py holds the three equal)
@@ -39,7 +46,7 @@ CHUNK = 64
 _NEG = -1e30
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P]
+_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P]
 
 
 def kernel_takes(n_heads: int, n_kv: int, head_dim: int, T: int) -> bool:
@@ -67,6 +74,8 @@ def prefill_attention_plain(q, k, v, pos, k_scale=None, v_scale=None, *,
     scale = attn_scale(D)
     dev = q.device
     qg = q.to(torch.bfloat16).float().reshape(B, T, n_kv, kv_mul, D)
+    # cached rows as the kernel reads them: codes, or bf16-rounded values
+    values = torch.Tensor.float if quantized else bf16_values
     t_idx = torch.arange(T, device=dev)
     out = torch.empty(B, T, H, D, dtype=torch.float32, device=dev)
     for b in range(B):
@@ -82,8 +91,8 @@ def prefill_attention_plain(q, k, v, pos, k_scale=None, v_scale=None, *,
             acc = torch.zeros(T, n_kv, kv_mul, D, device=dev)
             for c0 in range(s0, min(s0 + SPLIT_ROWS, horizon + 1), CHUNK):
                 c1 = min(c0 + CHUNK, window)
-                kb = k[b, c0:c1].float()  # (n, n_kv, D)
-                vb = v[b, c0:c1].float()
+                kb = values(k[b, c0:c1])  # (n, n_kv, D)
+                vb = values(v[b, c0:c1])
                 raw = torch.einsum("thgd,shd->thgs", qg[b], kb)
                 if quantized:
                     raw = raw * k_scale[b, c0:c1].T[None, :, None, :]
@@ -111,8 +120,9 @@ def prefill_attention_plain(q, k, v, pos, k_scale=None, v_scale=None, *,
 def prefill_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
                       attn_len: int | None = None,
                       plain: bool = False) -> torch.Tensor:
-    """q: (B, T, H, D); k, v: (B, S, Hkv, D) bf16, or int8 codes with
-    k_scale/v_scale (B, S, Hkv) f32, read in place (not sliced); pos: (B,)
+    """q: (B, T, H, D); k, v: (B, S, Hkv, D) bf16, fp16 or f32, or int8
+    codes with k_scale/v_scale (B, S, Hkv) f32, read in place (not sliced);
+    pos: (B,)
     int32 position of each slot's first token; attn_len: the window
     (default S), at least max(pos) + T. Returns (B, T, H, D) f32."""
     if use_plain(q, plain):
@@ -122,7 +132,8 @@ def prefill_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
     _, S, n_kv, _ = k.shape
     dev = q.device
     quantized = k_scale is not None
-    kv_dtype = torch.int8 if quantized else torch.bfloat16
+    kv_dtype = torch.int8 if quantized else k.dtype
+    kv_dt = dtype_code(torch.bfloat16 if quantized else k.dtype, "k_cache")
     window = min(attn_len or S, S)
     require(kernel_takes(H, n_kv, D, T),
             f"the kernel cannot take n_heads={H}, n_kv={n_kv}, head_dim={D}")
@@ -147,8 +158,8 @@ def prefill_attention(q, k, v, pos, k_scale=None, v_scale=None, *,
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None, pos.data_ptr(),
             out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(), B, T,
-            H, n_kv, D, S, window, attn_scale(D), stream_ptr())
+            H, n_kv, D, S, window, attn_scale(D), kv_dt, stream_ptr())
     _build.check(rc, "prefill_attention", "prefill_attention")
     count("prefill_attention",
-          f"{'int8' if quantized else 'bf16'}/B{B}/T{T}/H{H}/kv{n_kv}/D{D}")
+          f"{cache_format(k)}/B{B}/T{T}/H{H}/kv{n_kv}/D{D}")
     return out

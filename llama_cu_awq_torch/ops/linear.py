@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
+from llama_cu_awq_torch.ops.cuda.dense_gemv import (dense_gemv,
+                                                    dense_gemv_plain)
 from llama_cu_awq_torch.ops.cuda.int4_matmul import (int4_matmul,
                                                      int4_matmul_fused)
 from llama_cu_awq_torch.quant.int8 import Int8Dense
@@ -40,7 +41,18 @@ def qmatmul_fused(x: torch.Tensor, qt: QTensor, plain: bool = False, *,
 
 def dense_matmul(x: torch.Tensor, w, plain: bool = False) -> torch.Tensor:
     """Dense matmul with f32 accumulation; w is (n_out, n_in) row-major
-    like the reference's wcls, a bf16 tensor or an Int8Dense."""
+    like the reference's wcls: a bf16, fp16 or f32 tensor, or an
+    Int8Dense.
+
+    Routed by the JAX package's rule (ops/pallas/dense_gemv.py:136-143
+    `supports`): bf16 and int8 rows take the dense_gemv kernel; an fp16 or
+    f32 head (--act-dtype float16 keeps the checkpoint's fp16, float32
+    stores f32) takes no kernel there either, but jnp.dot with f32
+    accumulation and HIGHEST precision (ops/linear.py:166-172), which the
+    plain product is on any device: x rounded to the head's type, both
+    widened exactly to f32, an f32 matmul (TF32 off, PyTorch's default)."""
     if isinstance(w, Int8Dense):
         return dense_gemv(x, w.w8, w.scale, plain=plain)
-    return dense_gemv(x, w, plain=plain)
+    if w.dtype == torch.bfloat16:
+        return dense_gemv(x, w, plain=plain)
+    return dense_gemv_plain(x, w)

@@ -6,7 +6,8 @@ head): absmax * f32(1/127) for int8 and absmax * f32(1/7) for int4, with a
 floor of 1e-10. Inside a jit, XLA rewrites the JAX package's division by
 the constant into that product, so the jitted forward's scales and those
 of its attention_step kernel are it; torch.round rounds half to even, as
-jnp.round.
+jnp.round. The input is any float type (the activation type under
+--act-dtype); it is widened to f32 first, as the JAX functions do.
 
 int4 codes are clipped to [-7, 7] and packed in HALVES: byte i of a head
 holds lane i in its low nibble and lane i + D/2 in its high nibble, both

@@ -1,8 +1,9 @@
-"""AWQ w4-g128 file-layout packing and the NumPy dequant oracle.
+"""AWQ w4-g128 file-layout packing, the original AWQ export's interleaved
+layout, and the NumPy dequant oracle.
 
-The file-layout half of llama_cu_awq_tpu/quant/packing.py (its pair-planar
-TPU layout has no counterpart here: the GPU kernels read the file's own
-layout, see quant/qtensor.py).
+The file-layout and AWQ halves of llama_cu_awq_tpu/quant/packing.py (its
+pair-planar TPU layout has no counterpart here: the GPU kernels read the
+file's own layout, see quant/qtensor.py).
 
 For a logical weight W of shape (n_in, n_out) with out = x @ W, group size
 128 along n_in, the `.bin` stores (reference: weight_packer.cpp:94-144):
@@ -134,3 +135,47 @@ def quantize_np(w: np.ndarray, group_size: int = GROUP_SIZE):
             np.round(wg / scale.astype(np.float32) + zero), 0, 15
         ).astype(np.int32)
     return pack_nibbles(q), zeros, scales
+
+
+# ---------------------------------------------------------------------------
+# AWQ original-format repacking (the offline pipeline, io/awq.py;
+# reference: weight_packer.cpp:94-127). The original AWQ export packs 8
+# elements along the *output* (width) dimension per uint32, interleaved with
+# order_map = {0, 2, 4, 6, 1, 3, 5, 7}, in row-major (height, width/8).
+
+_AWQ_ORDER_MAP = np.array([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def awq_pack_interleaved(vals: np.ndarray) -> np.ndarray:
+    """int (h, w) 0..15 -> uint32 (h, w//8) with AWQ's order_map nibble
+    interleave (the inverse of awq_unpack_interleaved: the export
+    direction, for writing original-format AWQ tensors)."""
+    h, w = vals.shape
+    v = vals.reshape(h, w // 8, 8).astype(np.uint32)
+    v = v[:, :, _AWQ_ORDER_MAP]  # nibble j holds column order_map[j]
+    shifts = (4 * np.arange(8, dtype=np.uint32)).reshape(1, 1, 8)
+    return np.bitwise_or.reduce(v << shifts, axis=2)
+
+
+def awq_unpack_interleaved(arr: np.ndarray, height: int,
+                           width: int) -> np.ndarray:
+    """uint32 (height, width//8) AWQ-ordered -> int32 (height, width)."""
+    shifts = (4 * np.arange(8, dtype=np.uint32)).reshape(1, 1, 8)
+    vals = (arr.reshape(height, width // 8, 1) >> shifts) & np.uint32(0xF)
+    # nibble j (shift position j) belongs to logical column order_map[j]
+    out = np.empty((height, width // 8, 8), dtype=np.int32)
+    out[:, :, _AWQ_ORDER_MAP] = vals.astype(np.int32)
+    return out.reshape(height, width)
+
+
+def repack_awq_old_format(qweight: np.ndarray, qzeros: np.ndarray,
+                          scales: np.ndarray, height: int, width: int):
+    """Old-format AWQ tensors -> the in-memory layout (qw, zeros, scales).
+
+    qweight: uint32 (height, width//8) interleaved; qzeros: uint32
+    (ceil(height/128), width//8) interleaved; scales: fp16 (g, width).
+    """
+    q = awq_unpack_interleaved(qweight, height, width)
+    g = div_up(height, GROUP_SIZE)
+    z = awq_unpack_interleaved(qzeros, g, width)
+    return pack_nibbles(q), z.astype(np.int8), scales.astype(np.float32)

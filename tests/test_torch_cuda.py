@@ -466,7 +466,7 @@ def test_wrappers_raise_on_bad_input(gen):
     x = _randn(gen, 1, 256)
     with pytest.raises(ValueError, match="residual"):
         int4_matmul_fused(x, qt, residual=_randn(gen, 1, 64,
-                                                 dtype=torch.float32))
+                                                 dtype=torch.float64))
     with pytest.raises(ValueError, match="inputs"):
         int4_matmul(_randn(gen, 1, 240), qt)
     with pytest.raises(ValueError, match="w"):
@@ -1271,3 +1271,247 @@ def test_batch_capture_needs_the_split_scratch_for_all_slots(gen):
     be.submit([1, 5, 9], max_new=8)
     with pytest.raises(ValueError, match="sized before a CUDA graph"):
         be.run()
+
+
+# --act-dtype float16 / float32: each kernel's fp16 and f32 forms against
+# its plain version at small ragged shapes (the int4 bar: a stored fp16 or
+# bf16 value, or a bf16 p, may round one ulp apart after f32 sums in
+# another order)
+
+ACT = [torch.float16, torch.float32]
+_SHORT = {torch.float16: "f16", torch.float32: "f32"}
+
+
+@pytest.mark.parametrize("act", ACT)
+@pytest.mark.parametrize("variant", ["prescale", "residual", "silu"])
+@pytest.mark.parametrize("m", [1, 8, 11, GEMM_MIN_M, 130])
+def test_int4_matmul_fused_act_dtype_matches_plain(gen, act, variant, m):
+    """x, u and the residual in act and the output stored in act: the
+    GEMV at 1, 8 and 11 rows (two passes), the GEMM at GEMM_MIN_M and 130
+    rows (a partial second tile), over a partial last group and column
+    tile (320 x 200)."""
+    n_in, n_out = 320, 200
+    qt = _qtensor(gen, n_in, n_out)
+    x = _randn(gen, m, n_in, dtype=act)
+    kw = _fused_kwargs(gen, variant, m, n_in, n_out)
+    for name in ("residual", "silu_u"):
+        if name in kw:
+            kw[name] = kw[name].to(act)
+    reset_launches()
+    out, ss = int4_matmul_fused(x, qt, out_dtype=act, **kw)
+    ref, ss_ref = int4_matmul_fused(x, qt, out_dtype=act, plain=True, **kw)
+    torch.cuda.synchronize()
+    (key,) = VARIANT_LAUNCHES
+    tail = f"/out_{_SHORT[act]}" + (f"/res_{_SHORT[act]}"
+                                    if "residual" in kw else "")
+    assert key.endswith(tail), key
+    assert out.dtype == act and bool(out.float().isfinite().all())
+    _close(out, ref, **INT4)
+    if ss_ref is not None:
+        _close(ss, ss_ref, **INT4)
+
+
+def _act_caches(gen, fmt, act, B, S, n_kv, D):
+    """k, v caches and scales of one format: "act" (the activation type),
+    "int8" codes or "int4" packed codes with f32 scales."""
+    if fmt == "act":
+        return (_randn(gen, B, S, n_kv, D, dtype=act),
+                _randn(gen, B, S, n_kv, D, dtype=act), None, None)
+    width = D // 2 if fmt == "int4" else D
+    lo, smax = (-128, 0.2) if fmt == "int4" else (-127, 0.02)
+    kc, vc = (torch.randint(lo, 128, (B, S, n_kv, width), dtype=torch.int8,
+                            device="cuda", generator=gen) for _ in range(2))
+    ks, vs = (torch.rand(B, S, n_kv, device="cuda", generator=gen) * smax
+              for _ in range(2))
+    return kc, vc, ks, vs
+
+
+@pytest.mark.parametrize("act", ACT)
+@pytest.mark.parametrize("fmt", ["act", "int8", "int4"])
+@pytest.mark.parametrize("H,n_kv,D", [(4, 4, 128), (8, 2, 64)])
+def test_attention_step_act_dtype_matches_plain(gen, act, fmt, H, n_kv, D):
+    """An fp16 or f32 qkv row over a cache of its type, int8 or int4: slots
+    with 0, SPLIT_ROWS - 1, SPLIT_ROWS and SPLIT_ROWS + 1 history rows
+    (one split, a full one, and the first row of a second); the new rows
+    and scales bit-equal."""
+    B, S = 4, 2 * SPLIT_ROWS + 64
+    pos = torch.tensor([0, SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1],
+                       dtype=torch.int32, device="cuda")
+    cos2, sinm = rope_rows(pos, D, 10000.0)
+    qkv = _randn(gen, B, (H + 2 * n_kv) * D, dtype=act)
+    kc, vc, ks, vs = _act_caches(gen, fmt, act, B, S, n_kv, D)
+    args = (qkv, kc, vc, pos, cos2, sinm, ks, vs)
+    kw = dict(n_heads=H, kv_bits=4 if fmt == "int4" else 8)
+    reset_launches()
+    got = attention_step(*args, **kw)
+    want = attention_step(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    (key,) = VARIANT_LAUNCHES
+    assert key.split("/")[1] == (_SHORT[act] if fmt == "act" else fmt)
+    _close(got[0], want[0], **INT4)
+    for g, w in zip(got[1:], want[1:]):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("act", ACT)
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_batched_attention_act_dtype_matches_plain(gen, act, quant,
+                                                   early_exit):
+    """An fp16 or f32 q over a cache of its type or int8: slots with
+    SPLIT_ROWS - 1, SPLIT_ROWS and SPLIT_ROWS + 1 rows to read and one at
+    position 0, attn_len 320 short of the 384-row cache."""
+    H, n_kv, D = 8, 2, 128
+    B, S, attn_len = 4, 384, 320
+    pos = torch.tensor([0, SPLIT_ROWS - 2, SPLIT_ROWS - 1, SPLIT_ROWS],
+                       dtype=torch.int32, device="cuda")
+    kc, vc, ks, vs = _act_caches(gen, "int8" if quant else "act", act, B, S,
+                                 n_kv, D)
+    args = (_randn(gen, B, H, D, dtype=act), kc, vc, pos, ks, vs)
+    kw = dict(attn_len=attn_len, early_exit=early_exit)
+    reset_launches()
+    got = batched_decode_attention(*args, **kw)
+    want = batched_decode_attention(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["batched_decode_attention"] == 1
+    _close(got, want, **INT4)
+
+
+@pytest.mark.parametrize("act", ACT)
+@pytest.mark.parametrize("H,n_kv,D", [(4, 4, 128), (8, 2, 64)])
+@pytest.mark.parametrize("positions", [
+    (0,), (PFA_SPLIT - 80,), (PFA_SPLIT - 79, 0), (150, 7)])
+def test_prefill_attention_act_dtype_matches_plain(gen, act, H, n_kv, D,
+                                                   positions):
+    """fp16 and f32 caches (and q): the ring of raw rows rounded to bf16
+    as each chunk lands; blocks whose last key is the last row of the
+    first split and the first row of the second, T = 80 (a partial query
+    tile), attn_len 320 short of the 384-row cache."""
+    B, S, T, attn_len = len(positions), 384, 80, 320
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    kc, vc, _, _ = _act_caches(gen, "act", act, B, S, n_kv, D)
+    args = (_randn(gen, B, T, H, D, dtype=act), kc, vc, pos)
+    reset_launches()
+    got = prefill_attention(*args, attn_len=attn_len)
+    want = prefill_attention(*args, attn_len=attn_len, plain=True)
+    torch.cuda.synchronize()
+    (key,) = VARIANT_LAUNCHES
+    assert key.split("/")[1] == _SHORT[act]
+    _close(got, want, **INT4)
+
+
+@pytest.mark.parametrize("act", ACT)
+@pytest.mark.parametrize("m", [1, 3, 11])
+def test_down_qkv_act_dtype_matches_plain(gen, act, m):
+    """x2 stored in act and read back in act by stage Q, the residual
+    rounded to bf16 (the JAX chain); x2 and ss2 bit-equal to the down GEMV
+    on the bf16 residual, qkv within the int4 bar of the plain version."""
+    from llama_cu_awq_torch.ops.cuda.down_qkv import down_qkv_fused
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import _launch
+
+    hid, dim, n_q = 384, 256, 320
+    wd, wq = _qtensor(gen, hid, dim), _qtensor(gen, dim, n_q)
+    g, u = _randn(gen, m, 2 * hid, dtype=act).chunk(2, dim=-1)
+    res = _randn(gen, m, dim, dtype=act)
+    nw = torch.rand(dim, device="cuda", generator=gen) + 0.5
+    kw = dict(eps=1e-5, out_dtype=act, x2_dtype=act)
+    reset_launches()
+    x2, ss2, qkv = down_qkv_fused(g, u, res, wd, wq, nw, **kw)
+    rx2, rss2, rqkv = down_qkv_fused(g, u, res, wd, wq, nw, plain=True, **kw)
+    px2, pss2 = _launch(g.bfloat16(), wd, u2=u.bfloat16(),
+                        res=res.bfloat16(), out_dtype=act, eps=1e-5,
+                        kernel="gemv")
+    torch.cuda.synchronize()
+    assert LAUNCHES["down_qkv"] == 1
+    assert x2.dtype == act and qkv.dtype == act
+    assert torch.equal(x2, px2)
+    assert torch.equal(ss2.reshape(-1), pss2.reshape(-1))
+    _close(x2, rx2, **INT4)
+    _close(qkv, rqkv, **INT4)
+
+
+@pytest.mark.parametrize("act", ACT)
+@pytest.mark.parametrize("attn_impl", ["auto", "fused_step", "batched"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_forward_act_dtype_on_card_matches_cpu(gen, act, attn_impl,
+                                               quantized):
+    """fp16 and f32 activations over a cache of that type (or int8), with
+    the JAX CLI's params (fp16 embed and head for float16, f32 for
+    float32): an 80-token block (prefill_attention), then five steps,
+    kernels on the card against the plain versions on the CPU, within the
+    JAX package's bar for two paths that round differently
+    (tests/test_fused_path.py:51-52)."""
+    ckpt = random_checkpoint(_CFG, seed=3)
+    param_dtype = None if act == torch.float16 else act
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params_from_checkpoint(ckpt, device=dev, param_dtype=param_dtype)
+        c = init_kv_cache(_CFG, 1, 256, dtype=act, quantized=quantized,
+                          device=dev)
+        block = torch.tensor([[1 + (7 * i) % 500 for i in range(80)]],
+                             device=dev)
+        zero = torch.tensor([0], dtype=torch.int32, device=dev)
+        first, c = forward(p, _CFG, block, zero, c, act_dtype=act)
+        logits = [first.float().cpu()]
+        for step, t in enumerate([1, 7, 42, 3, 200]):
+            lg, c = forward(p, _CFG, torch.tensor([[t]], device=dev),
+                            torch.tensor([80 + step], dtype=torch.int32,
+                                         device=dev), c,
+                            attn_impl=attn_impl, act_dtype=act)
+            logits.append(lg.float().cpu())
+        out[dev] = torch.stack(logits)
+    assert bool(out["cuda"].isfinite().all())
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("act", ["float16", "float32"])
+@pytest.mark.parametrize("mode", ["generate", "chat", "perplexity"])
+def test_cli_act_dtype_on_card(gen, tmp_path, capsys, monkeypatch, act,
+                               mode):
+    """python -m llama_cu_awq_torch model.bin --act-dtype float16|float32
+    runs generate, chat and perplexity on the card (a random 2-layer
+    checkpoint, a toy tokenizer): the text, the reply or a finite
+    perplexity line."""
+    import io
+    import struct
+    import sys
+
+    from llama_cu_awq_torch.cli import main
+    from llama_cu_awq_torch.io.checkpoint import save_checkpoint
+
+    path = str(tmp_path / "model.bin")
+    save_checkpoint(path, random_checkpoint(_CFG, seed=5))
+    tok = str(tmp_path / "tok.bin")
+    vocab = [(b"<unk>", 0.0), (b"<s>", 0.0), (b"</s>", 0.0)]
+    vocab += [(bytes([b]), -1000.0) for b in range(256)]
+    vocab += [(w, -float(i)) for i, w in enumerate(
+        [b" the", b" cat", b" sat", b" on", b" mat"])]
+    vocab += [(b"<pad%d>" % i, -2000.0)
+              for i in range(_CFG.vocab_size - len(vocab))]
+    with open(tok, "wb") as f:
+        f.write(struct.pack("<i", max(len(p) for p, _ in vocab)))
+        for piece, score in vocab:
+            f.write(struct.pack("<fi", score, len(piece)) + piece)
+    args = [path, "-m", mode, "-z", tok, "-t", "0", "--act-dtype", act]
+    if mode == "perplexity":
+        data = tmp_path / "data.txt"
+        data.write_text("the cat sat on the mat<|endoftext|>the cat sat")
+        args += ["-q", str(data)]
+    elif mode == "generate":
+        args += ["-n", "24", "-i", "the cat"]
+    else:
+        args += ["-i", "the cat", "-y", "be brief"]
+        monkeypatch.setattr(sys, "stdin", io.StringIO(""))  # one turn
+    assert main(args) == 0
+    out = capsys.readouterr().out
+    if mode == "perplexity":
+        (line,) = [ln for ln in out.splitlines()
+                   if ln.startswith("Geomean perplexity on 2 sequences: ")]
+        assert math.isfinite(float(line.rsplit(" ", 1)[1]))
+    elif mode == "chat":
+        assert out.split("Assistant: ", 1)[1].split("\nUser: ")[0].strip()
+    else:
+        assert "achieved tok/s" in out

@@ -180,8 +180,9 @@ def test_kv_cache_from_numpy_continues_jax_state(tiny_config):
 
 def test_unported_options_raise(tiny_config):
     """What forward and the cache still refuse: a KV width other than 4 or
-    8, an unknown attn_impl, activations other than bf16, and an explicit
-    batched that its kernel cannot take (the int4 cache, head_dim 16)."""
+    8, an unknown attn_impl, activations other than bf16, fp16 and f32
+    (f32 over an f32 cache runs), and an explicit batched that its kernel
+    cannot take (the int4 cache, head_dim 16)."""
     _, tp = _params(tiny_config)
     with pytest.raises(ValueError, match="kv_bits"):
         tl.init_kv_cache(tiny_config, 1, 16, quantized=True, kv_bits=3,
@@ -191,9 +192,16 @@ def test_unported_options_raise(tiny_config):
     cache = tl.init_kv_cache(tiny_config, 1, 16, device="cpu")
     with pytest.raises(ValueError, match="unknown attn_impl"):
         tl.forward(tp, tiny_config, tok, pos, cache, attn_impl="mono")
-    with pytest.raises(NotImplementedError, match="bf16"):
+    c32 = tl.init_kv_cache(tiny_config, 1, 16, dtype=torch.float32,
+                           device="cpu")
+    logits, _ = tl.forward(tp, tiny_config, tok, pos, c32,
+                           act_dtype=torch.float32)
+    assert logits.shape == (1, tiny_config.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert bool(c32.k[0][0, 0].abs().sum() > 0)
+    with pytest.raises(ValueError, match="act_dtype"):
         tl.forward(tp, tiny_config, tok, pos, cache,
-                   act_dtype=torch.float32)
+                   act_dtype=torch.float64)
     with pytest.raises(ValueError, match="head_dim=16"):
         tl.forward(tp, tiny_config, tok, pos, cache, attn_impl="batched")
     kv4 = tl.init_kv_cache(tiny_config, 1, 16, quantized=True, kv_bits=4,
