@@ -140,6 +140,33 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      `python -m llama_cu_awq_torch.tools.pack_weights --model-dir`, the
      port's loader and the card, every projection bit-equal to the source
      tensors.
+ 11. (run last) the served head type and tensor parallelism. First the
+     cost of the server's fp16 head (the checkpoint's fp16 embed and
+     lm_head, as serve.main builds them at --tp 1; an fp16
+     head takes the plain f32 product): the batch_engine workload (16
+     greedy requests on 8 slots) and the serve_http one (8 completions
+     through make_server, spec="ngram") on graph engines with the bf16
+     head and with the fp16 head, in turns (tok/s or wall, graph pool
+     bytes). Then 2 ranks, spawned processes sharing cuda:0 and joined
+     over gloo, at Llama-2 7B's full widths and 32 layers, each holding
+     its shard (parallel/tp.py shard_params) of the synthetic weights of
+     seed 0: rank 0 times every kernel at its per-shard shapes against
+     its plain version (the four w4 projections at m=1 and m=128, o and
+     down as the f32 partials with no epilogue, the 16000-row head at m=1
+     and m=128, attention_step over 16 heads at position 1500,
+     prefill_attention at T=128 over 16 heads at position 1024; rows
+     tagged tp2) while rank 1 waits; then the TP forward at T=1 (position
+     1500, fused_step) and on a 128-token block (position 1024) against
+     the single-device forward on the same weights and cache (2 % of the
+     largest logit); a TP InferenceEngine (fused_step, capture=False):
+     32 greedy steps from an 8-token prompt, the ranks' streams equal,
+     each token replayed through the single-device forward within that
+     tolerance of its top logit, and 8 steps again with every collective
+     timed between synchronizations; the perplexity of 255 ids beside
+     the single-device engine's (|delta ln ppl| <= 0.01); a TP
+     BatchEngine (rank 0 serves 4 greedy requests on 4 slots, rank 1
+     follows) replayed the same way. Two ranks on one card with gloo
+     through the host measure no tensor-parallel speed.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm, torch._weight_int8pack_mm; the
@@ -3297,6 +3324,507 @@ def act_dtype_phase(torch, timer, rows, params, launches):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the served head type, and tensor parallelism on one card
+
+def served_head_cost(torch, params, cfg):
+    """The server's fp16 head against the bf16 head (see the module
+    docstring, phase 11): graph engines of each kind, in turns after one
+    untimed run each (the captures)."""
+    import dataclasses
+
+    from llama_cu_awq_torch.engine import BatchEngine
+    from llama_cu_awq_torch.serve import make_server
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+
+    heads = {"bf16": params, "fp16": dataclasses.replace(
+        params, embed=params.embed.half(), lm_head=params.lm_head.half())}
+    lengths = [20, 36, 48] + [60 + (1000 - 60) * i // 12 for i in range(13)]
+    prompts = [[1] + [3 + (104729 * (i + 131 * j)) % 31990
+                      for i in range(n - 1)]
+               for j, n in enumerate(lengths)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_head_")
+    tok = Tokenizer(write_toy_tokenizer(os.path.join(tmp, "tok.bin"),
+                                        cfg.vocab_size), cfg.vocab_size)
+    texts = [("the cat sat on the mat" * (1 + i % 3)) + " a" * i
+             for i in range(8)]
+
+    def batch(be):
+        be.reset()
+        for p in prompts:
+            be.submit(p, max_new=64)
+        be.run()
+        return be.stats()["tok_per_s"]
+
+    def serve(be):
+        be.reset()
+        httpd, seng = make_server(be, tok, host="127.0.0.1", port=0)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        seng.start()
+        try:
+            t0 = time.perf_counter()
+            res = [None] * len(texts)
+            clients = [threading.Thread(target=lambda i=i: res.__setitem__(
+                i, http_json(base + "/v1/completions",
+                             {"prompt": texts[i], "max_tokens": 32,
+                              "temperature": 0.0}))) for i in range(8)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=600)
+            wall = time.perf_counter() - t0
+        finally:
+            httpd.shutdown()
+            seng.stop()
+            httpd.server_close()
+            th.join(timeout=30)
+        if not all(r is not None and r[0] == 200 for r in res):
+            raise AssertionError(f"served_head: a request failed: {res}")
+        return wall
+
+    for name, run, kw in (("batch_engine", batch, dict(spec=None)),
+                          ("serve_http", serve, dict(spec="ngram"))):
+        engs = {h: BatchEngine(p, cfg, tok, n_slots=8, max_seq=2048,
+                               chunk_size=8, **kw)
+                for h, p in heads.items()}
+        got = {h: [] for h in heads}
+        for h in heads:
+            run(engs[h])  # the captures
+        for h in ("bf16", "fp16", "fp16", "bf16"):
+            got[h].append(run(engs[h]))
+        metric = "tok_per_s" if name == "batch_engine" else "wall_s"
+        print(json.dumps({
+            "e2e": f"served_head_{name}", "model": "llama2-7b", "slots": 8,
+            **{f"{metric}_{h}": got[h] for h in heads},
+            **{f"pool_bytes_{h}": graph_summary(engs[h])["pool_bytes"]
+               for h in heads},
+            **{f"graphs_{h}": graph_summary(engs[h])["graphs"]
+               for h in heads},
+            "why": "serve.main keeps the checkpoint's fp16 head at --tp 1 "
+                   "(the JAX server's choice); an fp16 head takes the plain "
+                   "f32 product"}), flush=True)
+        del engs
+
+
+TP_RANKS = 2
+
+
+def tp_phase(torch, rows, launches):
+    """Tensor parallelism at 7B on one card (see the module docstring,
+    phase 11): spawn the ranks, which run tp_rank, and take rank 0's
+    kernel rows and launch counts."""
+    import torch.multiprocessing as mp
+
+    t0 = time.time()
+    torch.cuda.empty_cache()  # the ranks share this process's card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    out = os.path.join(tmp, "rank0.json")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank,
+                         args=(r, f"file://{tmp}/init", out))
+             for r in range(TP_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TP_RANKS:
+        raise AssertionError(f"tp: the ranks exited with {codes}")
+    with open(out) as f:
+        res = json.load(f)
+    rows.extend(res["rows"])
+    launches.update(res["launches"])
+    print(json.dumps({"phase": "tp", "ranks": TP_RANKS,
+                      "seconds": time.time() - t0}), flush=True)
+
+
+def tp_rank(rank: int, init: str, out: str) -> None:
+    """One rank of phase 11 (a spawned process on cuda:0): rank 0 prints,
+    rank 1's output goes nowhere."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from llama_cu_awq_torch.config import LLAMA2_7B
+    from llama_cu_awq_torch.models import synthetic_params
+    from llama_cu_awq_torch.parallel import init_multihost, make_mesh
+    from llama_cu_awq_torch.parallel.tp import shard_params
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")  # noqa: SIM115 (the process's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_multihost(init, TP_RANKS, rank, backend="gloo",
+                   timeout=datetime.timedelta(seconds=600))
+    try:
+        tp = make_mesh(tp=TP_RANKS, dp=1, device="cuda:0").tp_group
+        cfg = LLAMA2_7B
+        # every rank makes the same full weights from seed 0 and keeps
+        # its shard; rank 0 keeps the full ones for the references
+        full = synthetic_params(cfg, seed=0)
+        params = shard_params(full, cfg, TP_RANKS, rank)
+        if rank:
+            full = None
+        torch.cuda.synchronize()
+        res = {"rows": [], "launches": {}}
+        if rank == 0:
+            tp_kernel_rows(torch, Timer(torch), res["rows"])
+        dist.barrier(group=tp.group)
+        tp_forward_checks(torch, cfg, full, params, tp)
+        tp_engine_runs(torch, cfg, full, params, tp, res["launches"])
+        tp_batch_run(torch, cfg, full, params, tp, res["launches"])
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_int4_rows(torch, timer, rows, g):
+    """The four w4 projections at tp=2's per-shard shapes of 7B: qkv and
+    gate_up with the rmsnorm prologue, o and down (SwiGLU prologue) as
+    the f32 partials with no epilogue that the ranks sum; m=1 (a decode
+    step) and m=128 (a block)."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import int4_matmul_fused
+    from llama_cu_awq_torch.quant.qtensor import QTensor
+
+    dim, hid, n = 4096, 11008, TP_RANKS
+    cases = [("qkv_prescale", dim, 3 * dim // n, "prescale"),
+             ("o_partial", dim // n, dim, "partial"),
+             ("gate_up_prescale", dim, 2 * hid // n, "prescale"),
+             ("down_silu_partial", hid // n, dim, "silu")]
+    for m, prefix, path in ((1, "", "tp2_engine"),
+                            (128, "gemm_", "tp2_perplexity")):
+        for tag, n_in, n_out, kind in cases:
+            tag = f"tp2_{prefix}{tag}"
+            qt = random_qtensor(torch, QTensor, n_in, n_out, g)
+            x = torch.randn(m, n_in, device="cuda", generator=g).bfloat16()
+            if kind == "prescale":
+                ss = torch.rand(m, 1, device="cuda", generator=g) + 0.5
+                nw = torch.rand(n_in, device="cuda", generator=g) + 0.5
+                kw = dict(prescale=(ss, nw))
+                extra = [ss, nw]
+            else:
+                kw = dict(out_dtype=torch.float32)
+                extra = []
+                if kind == "silu":
+                    kw["silu_u"] = torch.randn(m, n_in, device="cuda",
+                                               generator=g).bfloat16()
+                    extra.append(kw["silu_u"])
+            (out, _), variant = launched_variant(
+                lambda: int4_matmul_fused(x, qt, **kw))
+            ref, _ = int4_matmul_fused(x, qt, plain=True, **kw)
+            torch.cuda.synchronize()
+            chk = check_close(f"int4_matmul_fused/{tag}", out, ref,
+                              **INT4_TOL)
+            b, src = bound_ms(nbytes(qt.qw, qt.scales, qt.zeros, x, out,
+                                     *extra), 2 * m * n_in * n_out)
+            row = dict(
+                name=f"int4_matmul_fused/{tag}", kernel="int4_matmul_fused",
+                route="cuda", source=int4_source(variant),
+                replaces="llama_cu_awq_tpu/ops/pallas/int4_matmul.py:543",
+                variant=variant, path=path, tp=TP_RANKS, **chk,
+                ms=timer(lambda: int4_matmul_fused(x, qt, **kw)),
+                plain_ms=timer(lambda: int4_matmul_fused(x, qt, plain=True,
+                                                         **kw)),
+                bound_ms=b, bound_by=src,
+                library_ms=timer(int4pack_library(torch, qt, x)))
+            if m == 128:
+                row["linear_ms"] = linear_yardstick(torch, timer, qt, x)
+            rows.append(row)
+
+
+def tp_kernel_rows(torch, timer, rows):
+    """Every kernel of the TP path at its per-shard shapes (rank 0 alone
+    on the card): the w4 rows, the vocab-sharded head, attention_step and
+    prefill_attention over the rank's 16 heads."""
+    from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
+                                                            rope_rows)
+    from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    tp_int4_rows(torch, timer, rows, g)
+    dim, vocab = 4096, 32000 // TP_RANKS
+    w = (torch.randn(vocab, dim, device="cuda", generator=g)
+         * 0.02).bfloat16()
+    for tag, m, path in (("tp2_bf16", 1, "tp2_engine"),
+                         ("tp2_bf16_m128", 128, "tp2_perplexity")):
+        x = torch.randn(m, dim, device="cuda", generator=g).bfloat16()
+        out, variant = launched_variant(lambda: dense_gemv(x, w))
+        ref = dense_gemv(x, w, plain=True)
+        torch.cuda.synchronize()
+        chk = check_close(f"dense_gemv/{tag}", out, ref, **GEMV_TOL)
+        b, src = bound_ms(nbytes(w, x, out), 2 * m * dim * vocab)
+        rows.append(dict(
+            name=f"dense_gemv/{tag}", kernel="dense_gemv", route="cuda",
+            source="llama_cu_awq_torch/csrc/dense_gemm.cu",
+            replaces="llama_cu_awq_tpu/ops/pallas/dense_gemv.py:147",
+            variant=variant, path=path, tp=TP_RANKS, **chk,
+            ms=timer(lambda: dense_gemv(x, w)),
+            plain_ms=timer(lambda: dense_gemv(x, w, plain=True)),
+            bound_ms=b, bound_by=src,
+            library_ms=timer(lambda: torch.nn.functional.linear(x, w))))
+    # attention_step over the rank's 16 of 32 heads, window 2048, pos 1500
+    S, D, H, pos_v = 2048, 128, 32 // TP_RANKS, 1500
+    pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+    cos2, sinm = rope_rows(pos, D, 10000.0)
+    qkv = torch.randn(1, 3 * H * D, device="cuda", generator=g).bfloat16()
+    kc, vc = (torch.randn(1, S, H, D, device="cuda",
+                          generator=g).bfloat16() for _ in range(2))
+    args = (qkv, kc, vc, pos, cos2, sinm, None, None)
+    outs, variant = launched_variant(lambda: attention_step(*args,
+                                                            n_heads=H))
+    refs = attention_step(*args, n_heads=H, plain=True)
+    torch.cuda.synchronize()
+    chk = check_close("attention_step/tp2_mha16_16_bf16", outs[0], refs[0],
+                      **ATTN_TOL)
+    for i in (1, 2):
+        if not torch.equal(outs[i], refs[i]):
+            raise AssertionError("attention_step/tp2: the new cache row "
+                                 "differs from the plain version's")
+    b, src = bound_ms(pos_v * H * D * 2 * 2 + nbytes(qkv, cos2, sinm,
+                                                     *outs),
+                      4 * (pos_v + 1) * H * D)
+    rows.append(dict(
+        name="attention_step/tp2_mha16_16_bf16", kernel="attention_step",
+        route="cuda", source="llama_cu_awq_torch/csrc/attention_step.cu",
+        replaces="llama_cu_awq_tpu/ops/pallas/attention_step.py:425",
+        variant=variant, path="tp2_engine", tp=TP_RANKS, **chk,
+        ms=timer(lambda: attention_step(*args, n_heads=H)),
+        plain_ms=timer(lambda: attention_step(*args, n_heads=H, plain=True),
+                       iters=5),
+        bound_ms=b, bound_by=src,
+        library_ms=timer(sdpa_library(torch, qkv[:, :H * D].reshape(1, H, D),
+                                      kc[:, :pos_v + 1],
+                                      vc[:, :pos_v + 1]))))
+    prefill_attention_row(torch, timer, rows, g, "tp2_mha16_16_bf16",
+                          "tp2_perplexity", 1, 128, S, D, H, H, 1024, False)
+    rows[-1]["tp"] = TP_RANKS
+
+
+def tp_cache_slice(torch, cache, tp):
+    """The rank's kv heads of a whole cache, as copies."""
+    from llama_cu_awq_torch.models import KVCache
+
+    n = cache.k[0].shape[2] // tp.size
+
+    def mine(xs):
+        return [x[:, :, tp.rank * n:(tp.rank + 1) * n].contiguous()
+                for x in xs]
+
+    return KVCache(mine(cache.k), mine(cache.v), mine(cache.k_scale),
+                   mine(cache.v_scale))
+
+
+def logit_tolerance(ref) -> float:
+    """forward_check's bar: 2 % of the largest logit (at least 2e-2)."""
+    return 2e-2 * max(1.0, float(ref.abs().max()))
+
+
+def tp_forward_checks(torch, cfg, full, params, tp):
+    """The TP forward against the single-device forward on the same
+    weights and the same random cache: T=1 at position 1500 (fused_step)
+    and a 128-token block at position 1024 (prefill_attention)."""
+    from llama_cu_awq_torch.models import forward
+
+    for label, T, pos_v, kw in (
+            ("t1_pos1500_fused_step", 1, 1500, dict(attn_impl="fused_step")),
+            ("block128_pos1024", 128, 1024, dict(logits_all=True))):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(21)  # the same cache on every rank
+        cache = random_cache(torch, cfg, False, g)
+        tok = torch.randint(3, cfg.vocab_size, (1, T), dtype=torch.int32,
+                            device="cuda", generator=g)
+        pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
+        got, _ = forward(params, cfg, tok, pos, tp_cache_slice(torch, cache,
+                                                              tp),
+                         tp=tp, **kw)
+        if full is None:
+            continue
+        want, _ = forward(full, cfg, tok, pos, cache, **kw)
+        got = got.float().reshape(-1, cfg.vocab_size)
+        want = want.float().reshape(-1, cfg.vocab_size)
+        diff = float((got - want).abs().max())
+        tol = logit_tolerance(want)
+        print(json.dumps({
+            "forward_7b": f"tp2_{label}", "rows": got.shape[0],
+            "max_abs_logit_diff": diff,
+            "max_abs_logit": float(want.abs().max()), "tolerance": tol,
+            "argmax_equal_rows": int((got.argmax(-1) ==
+                                      want.argmax(-1)).sum()),
+            "why": "the ranks' partial sums add in another order and the "
+                   "rms scale is taken of the f32 sum before the cast: "
+                   "forward_check's 2 % of the largest logit"}), flush=True)
+        if not bool(got.isfinite().all()) or diff > tol:
+            raise AssertionError(f"tp2 {label}: TP and single-device "
+                                 f"logits differ by {diff} > {tol}")
+        del cache
+
+
+def tp_agree(torch, tp, tokens) -> int:
+    """The summed max - min of each token over the ranks (0: every rank
+    drew the same stream)."""
+    import torch.distributed as dist
+
+    t = torch.tensor(tokens, dtype=torch.int64)
+    hi, lo = t.clone(), t.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=tp.group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=tp.group)
+    return int((hi - lo).abs().sum())
+
+
+def tp_replay(torch, cfg, full, label, prompt, stream, attn_impl):
+    """Teacher-force the stream through the single-device forward as the
+    engine ran it (replay_check's schedule: the prompt's prefill, then
+    T=1 steps with the engine's attn_impl): every token within
+    logit_tolerance of that step's top logit. Returns the largest gap and
+    the tolerance. (On the synthetic weights fused_step and plain
+    attention part by whole logits: the activations grow large and the
+    two round scores differently, so the replay takes the engine's
+    path.)"""
+    from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.models import forward
+
+    eng = InferenceEngine(full, cfg, None, temperature=0.0, max_seq=2048,
+                          attn_impl=attn_impl, capture=False)
+    if len(prompt) > 1:
+        eng._prefill(prompt[:-1])
+    gaps, tols = [], []
+    for t_in, t_out in zip([prompt[-1]] + stream[:-1], stream):
+        logits, _ = forward(
+            full, cfg, torch.tensor([[t_in]], dtype=torch.int32,
+                                    device="cuda"), position(torch, eng),
+            eng.cache, attn_len=eng._bucket_for(eng.pos + 1),
+            attn_impl=eng.attn_impl)
+        gaps.append(float(logits[0].max() - logits[0, t_out]))
+        tols.append(logit_tolerance(logits))
+        eng.pos += 1
+    del eng
+    worst = max(range(len(gaps)), key=lambda i: gaps[i] - tols[i])
+    if gaps[worst] > tols[worst]:
+        raise AssertionError(f"tp2 {label}: token {worst} is {gaps[worst]} "
+                             f"below the replayed top logit "
+                             f"(> {tols[worst]})")
+    return max(gaps), min(tols)
+
+
+def tp_engine_runs(torch, cfg, full, params, tp, launches):
+    """A TP InferenceEngine: 32 greedy steps (tok/s, the ranks' agreement,
+    the single-device replay), 8 more with the collectives timed, and the
+    perplexity of 255 ids beside the single-device engine's."""
+    from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.engine.perplexity import token_perplexity
+    from llama_cu_awq_torch.models import llama as tl
+
+    prompt = list(range(5, 13))
+    eng = InferenceEngine(params, cfg, None, temperature=0.0, seed=1234,
+                          max_seq=2048, attn_impl="fused_step", tp=tp,
+                          capture=False)
+    eng.generate_benchmark(prompt, 12)  # warm-up
+    steps = 32 + len(prompt) - 1
+    toks, dt, tps = run_path(torch, "tp2_engine",
+                             lambda: eng.generate_benchmark(prompt, steps),
+                             launches)
+    disagree = tp_agree(torch, tp, toks)
+    # the collectives alone, each between synchronizations, over 8 decode
+    # steps after the prompt
+    spent = {"calls": 0, "s": 0.0}
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+        return call
+
+    eng.reset()
+    eng._prefill(prompt[:-1])
+    saved = tl.all_reduce_sum, tl.all_gather_last
+    tl.all_reduce_sum, tl.all_gather_last = map(timed, saved)
+    try:
+        eng._decode_tokens(torch.tensor([prompt[-1]], dtype=torch.int32,
+                                        device="cuda"), 8,
+                           stop_at_eos=False)
+    finally:
+        tl.all_reduce_sum, tl.all_gather_last = saved
+    ids = [1] + [3 + (7919 * i) % 31990 for i in range(254)]
+    ppl = run_path(torch, "tp2_perplexity",
+                   lambda: token_perplexity(eng, ids), launches)
+    if full is None:
+        return
+    single = InferenceEngine(full, cfg, None, temperature=0.0,
+                             max_seq=2048)
+    ppl_1 = token_perplexity(single, ids)
+    del single
+    gap, tol = tp_replay(torch, cfg, full, "engine", prompt, toks,
+                         "fused_step")
+    d_ln = abs(math.log(ppl) - math.log(ppl_1))
+    print(json.dumps({
+        "e2e": "tp2_engine", "model": "llama2-7b", "ranks": tp.size,
+        "backend": tp.backend, "steps": len(toks), "tok_per_s": tps,
+        "seconds": dt, "ranks_disagree": disagree,
+        "replay_max_gap": gap, "replay_tolerance": tol,
+        "collectives_per_token": spent["calls"] / 8,
+        "collective_ms_per_token": spent["s"] * 1e3 / 8,
+        "perplexity_tp": ppl, "perplexity_single": ppl_1,
+        "abs_d_ln_ppl": d_ln, "first_tokens": toks[:8],
+        "note": "2 ranks sharing one card, gloo through the host: not a "
+                "TP speed"}), flush=True)
+    if disagree or len(toks) != 32:
+        raise AssertionError(f"tp2 engine: {len(toks)} tokens, ranks "
+                             f"disagree by {disagree}")
+    if not d_ln <= 0.01:
+        raise AssertionError(f"tp2 perplexity: |d ln ppl| = {d_ln}")
+
+
+def tp_batch_run(torch, cfg, full, params, tp, launches):
+    """A TP BatchEngine: rank 0 serves 4 greedy requests on 4 slots (two
+    prompts long enough for block prefill) and rank 1 follows; each
+    stream replayed through the single-device forward."""
+    from llama_cu_awq_torch.engine import BatchEngine
+
+    be = BatchEngine(params, cfg, None, n_slots=4, max_seq=512,
+                     chunk_size=8, spec=None, tp=tp, capture=False)
+    if tp.rank:
+        be.follow()
+        return
+    prompts = [[1] + [3 + (104729 * (i + 131 * j)) % 31990
+                      for i in range(n - 1)]
+               for j, n in enumerate((20, 40, 100, 200))]
+    try:
+        rids = [be.submit(p, max_new=16) for p in prompts]
+        out = run_path(torch, "tp2_batch", be.run, launches)
+        st = be.stats()
+    finally:
+        be.stop_followers()
+    gaps = [tp_replay(torch, cfg, full, f"batch request {i}", p, out[r],
+                      "auto")[0]
+            for i, (p, r) in enumerate(zip(prompts, rids))]
+    print(json.dumps({
+        "e2e": "tp2_batch_engine", "model": "llama2-7b", "ranks": tp.size,
+        "slots": 4, "requests": 4, "max_new": 16,
+        "tok_per_s": st["tok_per_s"], "finished": st["finished"],
+        "replay_max_gap": max(gaps),
+        "note": "2 ranks sharing one card, gloo through the host: not a "
+                "TP speed"}), flush=True)
+    if st["finished"] != 4 or not all(out[r] for r in rids):
+        raise AssertionError(f"tp2 batch: {st}")
+
+
 def main() -> int:
     import torch
 
@@ -3329,6 +3857,8 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     print(json.dumps({"phase": "build", "seconds": secs}), flush=True)
 
+    from llama_cu_awq_torch.config import LLAMA2_7B
+
     rows: list[dict] = []
     timer = Timer(torch)
     kernel_phase(torch, timer, rows)
@@ -3340,6 +3870,8 @@ def main() -> int:
     slice4_phase(torch, timer, rows, params, launches)
     chain_phase(torch, timer, rows, params, launches)
     act_dtype_phase(torch, timer, rows, params, launches)
+    served_head_cost(torch, params, LLAMA2_7B)
+    tp_phase(torch, rows, launches)
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

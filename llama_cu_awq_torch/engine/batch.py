@@ -52,6 +52,18 @@ so on the card. Per-slot positions keep every slot causally independent
 inside the shared step. Coins are consumed as the JAX engine consumes
 them: k x S per chunk, S x T per sampled spec block, none for an
 all-greedy block, so seeded sampled streams match it.
+
+Tensor parallelism (tp, a TPGroup of parallel/mesh.py, with each rank's
+shard of the params): rank 0, the leader, owns the requests, the
+scheduler and every host decision; before each body it runs (a chunk, a
+slot's prefill block, a spec block) and each prefix-cache copy, it writes
+a header (what to run, T, the window, steps, slot, flags) into the
+staged input buffer and broadcasts the whole buffer over the group. Ranks
+1 and up run follow(): receive the buffer, run the same body on it, until
+the leader's stop_followers(). Every body reads only that buffer and
+static state, so the ranks run the same program; the collectives inside
+forward pair up in order. Under tp the bodies run eagerly (capture=False,
+as the InferenceEngine's).
 """
 
 from __future__ import annotations
@@ -75,6 +87,8 @@ from llama_cu_awq_torch.engine.scheduler import make_scheduler
 from llama_cu_awq_torch.models.llama import (KVCache, LlamaParams, forward,
                                              init_kv_cache, plan)
 from llama_cu_awq_torch.ops.cuda.attention_step import reserve_split_scratch
+from llama_cu_awq_torch.parallel.mesh import TPGroup
+from llama_cu_awq_torch.parallel.tp import tp_init_kv_cache
 from llama_cu_awq_torch.sampling import (XorshiftRNG, sample_token,
                                          sample_token_vec)
 from llama_cu_awq_torch.tokenizer import BOS_TOKEN, EOS_TOKEN
@@ -132,6 +146,16 @@ class _Inputs:
         self._stage.put(self._host, self._dev)
 
 
+# the header's first word under tensor parallelism: what a follower runs
+# (BatchEngine._send / follow)
+_CHUNK, _PREFILL, _SPEC, _PREFIX_GET, _PREFIX_PUT, _PREFIX_DROP, _RESET, \
+    _STOP, _NOOP = range(1, 10)
+# an idle leader's heartbeat, well inside torch.distributed's timeout
+# (30 minutes by default), which a follower's wait would otherwise reach
+_IDLE_SEND_S = 60.0
+_HEADER = 8  # words: code, T, window, steps, slot, flag, m, serial
+
+
 class _PrefixCache:
     """LRU store of prompt-prefix KV rows at PREFILL_BLOCK-multiple
     lengths: multi-turn chat and shared-system-prompt serving re-send the
@@ -139,10 +163,12 @@ class _PrefixCache:
     on earlier tokens, so for an identical token prefix the cached rows
     are exact, and admission becomes a row copy plus a prefill of the
     tail. Entries hold per layer (1, m, Hkv, D) rows [+ (1, m, Hkv)
-    scales when quantized], cloned off the slot cache."""
+    scales when quantized], cloned off the slot cache. on_drop(rows) is
+    called for rows that put() does not keep or evicts."""
 
-    def __init__(self, capacity: int):
+    def __init__(self, capacity: int, on_drop=None):
         self.capacity = capacity
+        self.on_drop = on_drop
         self._entries = OrderedDict()  # key: tuple(tokens) -> rows
         self.hits = 0
         self.misses = 0
@@ -169,10 +195,15 @@ class _PrefixCache:
         key = tuple(tokens[:m])
         if key in self._entries:
             self._entries.move_to_end(key)
-            return
-        self._entries[key] = rows
+            dropped = [rows]
+        else:
+            self._entries[key] = rows
+            dropped = []
         while len(self._entries) > self.capacity:
-            self._entries.popitem(last=False)
+            dropped.append(self._entries.popitem(last=False)[1])
+        if self.on_drop is not None:
+            for r in dropped:
+                self.on_drop(r)
 
 
 @dataclasses.dataclass
@@ -202,12 +233,23 @@ class BatchEngine:
                  topp: float = 0.6, seed: int = 1234, chunk_size: int = 8,
                  spec: str | None = None, spec_k: int = 7,
                  prefix_cache_size: int = 0, device="cuda",
-                 capture: bool = True, act_dtype=torch.bfloat16):
+                 capture: bool = True, act_dtype=torch.bfloat16,
+                 tp: TPGroup | None = None):
         """capture=False runs the step bodies eagerly on the card too (how
         chip_smoke.py and the card tests hold the graphs to eager
         launches); on the CPU they always run eagerly. act_dtype (bf16,
         fp16 or f32) is the activations' and the unquantized cache's type,
-        as the JAX engine's (batch.py:141, 234-242)."""
+        as the JAX engine's (batch.py:141, 234-242). tp: this rank's
+        TPGroup (see the module docstring); every rank makes its engine
+        with the same arguments, rank 0 serves and the others follow().
+        capture=True with a group of more than one rank raises
+        ValueError: a gloo collective cannot be captured in a graph."""
+        if tp is not None and tp.size > 1 and capture:
+            raise ValueError(
+                "capture=True with tensor parallelism: the steps run eagerly "
+                "(a gloo collective cannot be captured in a CUDA graph); "
+                "pass capture=False")
+        self.tp = tp if tp is not None and tp.size > 1 else None
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
@@ -247,19 +289,34 @@ class BatchEngine:
         # for spec_backoff rounds, then one block probes again
         self.spec_min_accept = 0.5
         self.spec_backoff = 8
-        self.prefix_cache = (_PrefixCache(prefix_cache_size)
-                             if prefix_cache_size > 0 else None)
+        self.prefix_cache = (_PrefixCache(
+            prefix_cache_size,
+            on_drop=lambda rows: self._send(_PREFIX_DROP, serial=rows[0]))
+            if prefix_cache_size > 0 else None)
+        self._prefix_serial = 0
+        self._reseed = False  # the next chunk starts from the staged carry
+        self._sent_t = time.monotonic()  # the leader's last _send
         self._next_id = 0
         self.cache = self._init_cache()
         self._init_step_state(capture)
-        self.reset()
+        self._reset_state()
 
     # ------------------------------------------------------------------
 
     def _init_cache(self) -> KVCache:
-        return init_kv_cache(self.cfg, self.n_slots, self.max_seq,
-                             dtype=self.act_dtype, quantized=self.kv_quant,
-                             kv_bits=self.kv_bits, device=self.device)
+        if self.tp is None:
+            return init_kv_cache(self.cfg, self.n_slots, self.max_seq,
+                                 dtype=self.act_dtype,
+                                 quantized=self.kv_quant,
+                                 kv_bits=self.kv_bits, device=self.device)
+        return tp_init_kv_cache(self.cfg, self.n_slots, self.max_seq,
+                                self.tp.size, dtype=self.act_dtype,
+                                quantized=self.kv_quant,
+                                kv_bits=self.kv_bits, device=self.device)
+
+    @property
+    def _tp_size(self) -> int:
+        return self.tp.size if self.tp is not None else 1
 
     def _init_step_state(self, capture: bool):
         """The step bodies' device buffers (see the module docstring): the
@@ -278,7 +335,8 @@ class BatchEngine:
             topps=((S,), f32), carry=((S,), i32), coins=((C, S), f32),
             forced=((C, S), i32), mask=((C, S), i32),
             spec_tok=((S, T), i32), spec_coins=((S, T), f32),
-            block=((1, PREFILL_BLOCK), i32), block_pos=((1,), i32))
+            block=((1, PREFILL_BLOCK), i32), block_pos=((1,), i32),
+            hdr=((_HEADER,), i32))
         self._idx = torch.zeros(1, dtype=torch.int64, device=dev)
         self._tok = torch.zeros(S, dtype=i32, device=dev)  # the carry
         self._out = torch.zeros(C, S, dtype=i32, device=dev)
@@ -335,7 +393,7 @@ class BatchEngine:
         logits, _ = forward(self.params, self.cfg, in_tok[:, None], d.pos,
                             self.cache, attn_len=attn_len,
                             attn_impl=self.attn_impl,
-                            act_dtype=self.act_dtype)
+                            act_dtype=self.act_dtype, tp=self.tp)
         coin = d.coins.index_select(0, i)[0]
         if sampled:  # per-slot temperature and top-p
             nxt = sample_token_vec(logits, coin, d.temps, d.topps)
@@ -355,7 +413,7 @@ class BatchEngine:
         d = self._in.dev
         forward(self.params, self.cfg, d.block[:, :T], d.block_pos,
                 self._slot_cache(slot), attn_len=attn_len, no_logits=True,
-                act_dtype=self.act_dtype)
+                act_dtype=self.act_dtype, tp=self.tp)
 
     def _spec_body(self, attn_len: int, sampled: bool):
         """One teacher-forced forward over the (S, T) blocks spec_tok with
@@ -368,7 +426,8 @@ class BatchEngine:
         logits, _ = forward(self.params, self.cfg, d.spec_tok, d.pos,
                             self.cache, attn_len=attn_len,
                             attn_impl=self.attn_impl,
-                            act_dtype=self.act_dtype, logits_all=True)
+                            act_dtype=self.act_dtype, logits_all=True,
+                            tp=self.tp)
         if not sampled:
             self._spec_out.copy_(torch.argmax(logits, dim=-1))
             return
@@ -388,11 +447,20 @@ class BatchEngine:
         B, impl = ((1, None) if kind[0] == "prefill"
                    else (self.n_slots, self.attn_impl))
         return (kind, T, attn_len, plan(self.params, self.cfg, self.cache,
-                                        B, T, attn_len, impl))
+                                        B, T, attn_len, impl, self._tp_size))
 
     def _run(self, kind: tuple, T: int, attn_len: int, body, n: int = 1):
         """body() n times: eagerly without graphs, else through the graph
-        of its key."""
+        of its key. On a tensor-parallel leader, the followers are told
+        first (_send)."""
+        if kind[0] == "chunk":
+            self._send(_CHUNK, T=T, window=attn_len, steps=n,
+                       flag=int(kind[1]) | 2 * self._reseed)
+            self._reseed = False
+        elif kind[0] == "spec":
+            self._send(_SPEC, T=T, window=attn_len, flag=int(kind[1]))
+        else:
+            self._send(_PREFILL, T=T, window=attn_len, slot=kind[1])
         if self._graphs is None:
             for _ in range(n):
                 body()
@@ -410,7 +478,93 @@ class BatchEngine:
         self._run(("prefill", slot), T, attn_len, functools.partial(
             self._prefill_body, slot, attn_len, T))
 
-    def _prefix_put(self, rows, slot: int) -> None:
+    # -- tensor parallelism ----------------------------------------------
+
+    @property
+    def _leader(self) -> bool:
+        return self.tp is not None and self.tp.rank == 0
+
+    def _send(self, code: int, *, T=0, window=0, steps=0, slot=0, flag=0,
+              m=0, serial=0) -> None:
+        """On a tensor-parallel leader: the header into the staged inputs,
+        the inputs to the device, and the device buffer broadcast to the
+        followers. Elsewhere nothing."""
+        if not self._leader:
+            return
+        self._in.host.hdr[:] = (code, T, window, steps, slot, flag, m,
+                                serial)
+        self._in.push()
+        self._broadcast()
+        self._sent_t = time.monotonic()
+
+    def idle(self) -> None:
+        """Called by the loop that steps the engine when it has nothing to
+        dispatch: a leader that has sent nothing for _IDLE_SEND_S seconds
+        sends a no-op, so the followers' waits never time out."""
+        if self._leader and (time.monotonic() - self._sent_t
+                             > _IDLE_SEND_S):
+            self._send(_NOOP)
+
+    def _broadcast(self) -> None:
+        torch.distributed.broadcast(self._in._dev, src=self.tp.src,
+                                    group=self.tp.group)
+
+    def stop_followers(self) -> None:
+        """End the followers' follow() loops (a tensor-parallel leader's
+        last call)."""
+        self._send(_STOP)
+
+    def follow(self) -> None:
+        """A tensor-parallel rank other than 0: run what the leader
+        broadcasts (see the module docstring) until it stops."""
+        if self.tp is None or self.tp.rank == 0:
+            raise ValueError("follow() runs on tensor-parallel ranks >= 1")
+        prefixes = {}  # serial -> this rank's cloned rows
+        while True:
+            self._broadcast()
+            code, T, window, steps, slot, flag, m, serial = \
+                self._in.dev.hdr.tolist()
+            if code == _STOP:
+                return
+            if code == _CHUNK:
+                self._idx.zero_()
+                if flag & 2:
+                    self._tok.copy_(self._in.dev.carry)
+                sampled = bool(flag & 1)
+                self._run(("chunk", sampled), T, window, functools.partial(
+                    self._chunk_body, window, sampled), steps)
+            elif code == _PREFILL:
+                self._run(("prefill", slot), T, window, functools.partial(
+                    self._prefill_body, slot, window, T))
+            elif code == _SPEC:
+                self._run(("spec", bool(flag)), T, window, functools.partial(
+                    self._spec_body, window, bool(flag)))
+            elif code == _PREFIX_GET:
+                prefixes[serial] = self._clone_rows(slot, m)
+            elif code == _PREFIX_PUT:
+                self._copy_rows(prefixes[serial], slot)
+            elif code == _PREFIX_DROP:
+                del prefixes[serial]
+            elif code == _RESET:
+                self._reset_state()
+            elif code != _NOOP:
+                raise ValueError(f"unknown tensor-parallel header {code}")
+
+    # -- prefix-cache rows -------------------------------------------------
+
+    def _prefix_put(self, entry, slot: int) -> None:
+        """Copy a prefix-cache entry (serial, rows) into one slot."""
+        self._send(_PREFIX_PUT, slot=slot, serial=entry[0])
+        self._copy_rows(entry[1], slot)
+
+    def _prefix_get(self, slot: int, m: int):
+        """A prefix-cache entry of rows [0, m) of one slot: (serial,
+        clones); the serial names the followers' clones of their rows."""
+        self._prefix_serial += 1
+        self._send(_PREFIX_GET, slot=slot, m=m, serial=self._prefix_serial)
+        return self._prefix_serial, self._clone_rows(slot, m)
+
+    def _copy_rows(self, rows, slot: int) -> None:
         """Copy cached prefix rows into rows [0, m) of one slot."""
         sub = self._slot_cache(slot)
         for dst_field, src_field in zip(
@@ -418,7 +572,7 @@ class BatchEngine:
             for dst, src in zip(dst_field, src_field):
                 dst[:, :src.shape[1]].copy_(src)
 
-    def _prefix_get(self, slot: int, m: int):
+    def _clone_rows(self, slot: int, m: int):
         """Clones of rows [0, m) of one slot."""
         sub = self._slot_cache(slot)
         return tuple([a[:, :m].clone() for a in field]
@@ -607,6 +761,7 @@ class BatchEngine:
             self._in.host.carry[:] = self._carry
             self._in.push()
             self._tok.copy_(self._in.dev.carry)
+            self._reseed = True  # followers copy the carry too
             chunk = self._dispatch_chunk()
             return ("chunk", chunk) if chunk else None
         return ("block", self._dispatch_spec_block(active, props))
@@ -627,7 +782,12 @@ class BatchEngine:
     def reset(self):
         """Clear all requests and per-slot state. The cache and the token
         carry are zeroed in place, where the JAX engine builds new ones:
-        the graphs hold their addresses."""
+        the graphs hold their addresses. A tensor-parallel leader's
+        followers reset too."""
+        self._send(_RESET)
+        self._reset_state()
+
+    def _reset_state(self):
         S = self.n_slots
         self.scheduler = make_scheduler(S, self.max_seq)
         c = self.cache

@@ -54,6 +54,8 @@ from llama_cu_awq_torch.engine.graphs import GraphSet
 from llama_cu_awq_torch.models.llama import (LlamaParams, forward,
                                              init_kv_cache, plan)
 from llama_cu_awq_torch.ops.cuda.attention_step import reserve_split_scratch
+from llama_cu_awq_torch.parallel.mesh import TPGroup
+from llama_cu_awq_torch.parallel.tp import tp_init_kv_cache
 from llama_cu_awq_torch.sampling import XorshiftRNG, sample_token
 from llama_cu_awq_torch.tokenizer import EOS_TOKEN, Tokenizer
 
@@ -129,12 +131,27 @@ class InferenceEngine:
                  max_seq: int | None = None, temperature: float = 0.5,
                  topp: float = 0.6, seed: int = 0, chunk_size: int = 16,
                  spec: str | None = None, spec_k: int = 7, device="cuda",
-                 capture: bool = True, act_dtype=torch.bfloat16):
+                 capture: bool = True, act_dtype=torch.bfloat16,
+                 tp: TPGroup | None = None):
         """capture=False runs the step bodies eagerly on the card too (how
         chip_smoke.py and the card tests hold the graphs to eager
         launches); on the CPU they always run eagerly. act_dtype (bf16,
         fp16 or f32; --act-dtype) is the activations' and the unquantized
-        cache's type, as the JAX engine's (engine.py:197, 251-260)."""
+        cache's type, as the JAX engine's (engine.py:197, 251-260).
+
+        tp: this rank's TPGroup (parallel/mesh.py) for tensor parallelism,
+        with the rank's shard of the params (parallel/tp.py): the cache
+        holds the rank's kv heads, and every rank runs this same program
+        on the same gathered logits with the same seed, so every rank
+        draws the same tokens. Its steps run eagerly: a gloo collective
+        cannot be captured in a CUDA graph, so capture=True with a group
+        of more than one rank raises ValueError."""
+        if tp is not None and tp.size > 1 and capture:
+            raise ValueError(
+                "capture=True with tensor parallelism: the steps run eagerly "
+                "(a gloo collective cannot be captured in a CUDA graph); "
+                "pass capture=False")
+        self.tp = tp
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params are on {params.device}, the engine "
@@ -197,9 +214,19 @@ class InferenceEngine:
                 cfg.head_dim, self.max_seq))
 
     def _init_cache(self):
-        return init_kv_cache(self.cfg, 1, self.max_seq, dtype=self.act_dtype,
-                             quantized=self.kv_quant, kv_bits=self.kv_bits,
-                             device=self.device)
+        if self.tp is None:
+            return init_kv_cache(self.cfg, 1, self.max_seq,
+                                 dtype=self.act_dtype,
+                                 quantized=self.kv_quant,
+                                 kv_bits=self.kv_bits, device=self.device)
+        return tp_init_kv_cache(self.cfg, 1, self.max_seq, self.tp.size,
+                                dtype=self.act_dtype,
+                                quantized=self.kv_quant,
+                                kv_bits=self.kv_bits, device=self.device)
+
+    @property
+    def _tp_size(self) -> int:
+        return self.tp.size if self.tp is not None else 1
 
     def _bucket_for(self, seq: int) -> int:
         for b in self._buckets:
@@ -220,7 +247,7 @@ class InferenceEngine:
         logits, _ = forward(self.params, self.cfg, self._tok, self._pos_buf,
                             self.cache, attn_len=attn_len,
                             attn_impl=self.attn_impl,
-                            act_dtype=self.act_dtype)
+                            act_dtype=self.act_dtype, tp=self.tp)
         coin = self._coin_buf.index_select(0, self._idx)
         nxt = sample_token(logits, coin, self.temperature, self.topp)
         # garbage-token clamp (llama2_q4.cu:474)
@@ -239,7 +266,7 @@ class InferenceEngine:
                             self.cache, attn_len=attn_len,
                             attn_impl=self.attn_impl,
                             act_dtype=self.act_dtype, logits_all=head,
-                            no_logits=not head)
+                            no_logits=not head, tp=self.tp)
         if head:
             self._logits[:T].copy_(logits[0])
         self._advance(T)
@@ -263,7 +290,8 @@ class InferenceEngine:
         after "auto", the cache format, the lm_head's type, the
         LLAMA_TPU_DOWN_QKV switch). No chunk length."""
         return (kind, T, attn_len, plan(self.params, self.cfg, self.cache,
-                                        1, T, attn_len, self.attn_impl))
+                                        1, T, attn_len, self.attn_impl,
+                                        self._tp_size))
 
     def _run(self, kind, T: int, attn_len: int, body, n: int = 1):
         """body() n times: eagerly without graphs, else through the graph

@@ -33,6 +33,8 @@ from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
 from llama_cu_awq_torch.ops.linear import dense_matmul, qmatmul, qmatmul_fused
 from llama_cu_awq_torch.ops.norms import RMS_EPS
 from llama_cu_awq_torch.ops.rope import apply_rope, rope_angles
+from llama_cu_awq_torch.parallel.mesh import (TPGroup, all_gather_last,
+                                              all_reduce_sum)
 from llama_cu_awq_torch.quant.int8 import Int8Dense, quantize_dense_int8
 from llama_cu_awq_torch.quant.kv import quantize_kv, quantize_kv4, unpack_kv4
 from llama_cu_awq_torch.quant.qtensor import QTensor
@@ -90,11 +92,14 @@ class KVCache:
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype=torch.bfloat16, quantized: bool = False,
-                  kv_bits: int = 8, device="cuda") -> KVCache:
+                  kv_bits: int = 8, device="cuda",
+                  n_kv_heads: int | None = None) -> KVCache:
+    """n_kv_heads: the heads a rank holds under tensor parallelism
+    (parallel/tp.py tp_init_kv_cache), default all of cfg's."""
     dev = resolve_device(device)
     if kv_bits not in (4, 8):
         raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, max_seq, n_kv_heads or cfg.n_kv_heads, cfg.head_dim)
     n = cfg.n_layers
     if not quantized:
         return KVCache([torch.zeros(shape, dtype=dtype, device=dev)
@@ -343,6 +348,34 @@ def _post_attention(attn, x, layer: LlamaLayer, plain: bool, act_dtype):
                          emit_ss_eps=RMS_EPS, out_dtype=act_dtype)
 
 
+def _after_sum(part, res, tp: TPGroup, act_dtype):
+    """The row-parallel epilogue after the collective (the JAX forward's
+    after_psum, models/llama.py:446-450): the ranks' f32 partials summed,
+    the residual added in f32, the rms scale of that f32 sum, then the
+    cast. The single-device kernels' epilogue takes the rms of the cast
+    output instead, so it cannot serve here."""
+    xf = all_reduce_sum(part, tp) + res.float()
+    ss = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + RMS_EPS)
+    return xf.to(act_dtype), ss
+
+
+def _post_attention_tp(attn, x, layer: LlamaLayer, plain: bool, act_dtype,
+                       tp: TPGroup):
+    """_post_attention on one rank's shard: the row-parallel o and down
+    projections give f32 partials (the same kernels, with no residual and
+    no rms epilogue; the rmsnorm and SwiGLU prologues act on replicated or
+    per-shard data and stay in them), each summed over the ranks by
+    _after_sum (the JAX package's tp branch, models/llama.py:435-460)."""
+    part, _ = qmatmul_fused(attn, layer.wo, plain, out_dtype=torch.float32)
+    x, ss = _after_sum(part, x, tp, act_dtype)
+    gu, _ = qmatmul_fused(x, layer.w_gate_up, plain,
+                          prescale=(ss, layer.ffn_norm), out_dtype=act_dtype)
+    g, u = gu.chunk(2, dim=-1)
+    part, _ = qmatmul_fused(g, layer.w_down, plain, silu_u=u,
+                            out_dtype=torch.float32)
+    return _after_sum(part, x, tp, act_dtype)
+
+
 def _post_attention_chained(attn, x, layer: LlamaLayer,
                             next_layer: LlamaLayer, plain: bool, act_dtype):
     """_post_attention whose down projection runs in one launch with the
@@ -376,15 +409,24 @@ class Plan:
     quantized: bool  # int8 or int4 cache
     dq_chain: bool  # the down->next-qkv chain launches
     head: str       # the lm_head's type
+    tp: int = 1     # ranks of the tensor-parallel group (local heads)
 
 
 def plan(params: LlamaParams, cfg: ModelConfig, cache: KVCache, B: int,
-         T: int, A: int, attn_impl: str | None) -> Plan:
+         T: int, A: int, attn_impl: str | None, tp: int = 1) -> Plan:
     """forward's choices for a (B, T) block over an A-row window (see
-    forward); raises ValueError where an explicit attn_impl's kernel
-    cannot take the call."""
-    H, D, KV = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
+    forward) on one rank of tp (its n_heads / tp and n_kv_heads / tp
+    heads); raises ValueError where an explicit attn_impl's kernel cannot
+    take the call."""
+    H, D, KV = cfg.n_heads // tp, cfg.head_dim, cfg.n_kv_heads // tp
     kv4 = cache.quantized and cache.k[0].shape[-1] == D // 2
+    # under tensor parallelism the two attention kernels run per shard
+    # unless switched off, read as the JAX package reads them
+    # (models/llama.py:589-590, 651-652): then plain attention
+    fstep_tp = tp == 1 or os.environ.get("LLAMA_TPU_FSTEP_TP", "1") == "1"
+    pfk_tp = tp == 1 or os.environ.get("LLAMA_TPU_PFK_TP", "1") == "1"
+    if attn_impl == "fused_step" and not fstep_tp:
+        attn_impl = None
     step_ok = kernel_takes(H, KV, D)
     if attn_impl == "fused_step" and not step_ok:
         raise ValueError(
@@ -400,30 +442,33 @@ def plan(params: LlamaParams, cfg: ModelConfig, cache: KVCache, B: int,
             f"attn_impl={attn_impl!r}: the batched_decode_attention kernel "
             f"cannot take n_heads={H}, n_kv_heads={KV}, head_dim={D}")
     if attn_impl == "auto":
-        attn_impl = ("fused_step" if step_ok and A >= FSTEP_MIN_WINDOW
+        attn_impl = ("fused_step"
+                     if step_ok and fstep_tp and A >= FSTEP_MIN_WINDOW
                      else None)
     fstep = attn_impl == "fused_step" and T == 1
     # T > 1 blocks (prefill, perplexity): the flash kernel over the
     # unsliced cache (models/llama.py:637-661 of the JAX package); the
     # int4 cache takes plain attention there, as in the JAX package
-    pfk = (T >= PFK_MIN_T and not kv4 and attn_impl != "einsum"
+    pfk = (T >= PFK_MIN_T and not kv4 and attn_impl != "einsum" and pfk_tp
            and pfa.kernel_takes(H, KV, D, T))
     # down->next-qkv chain (models/llama.py:669-677 of the JAX package):
-    # opt-in, T == 1 fused_step steps only; layer 0's qkv and the last
-    # layer's down stay standalone
-    dq_chain = (fstep and len(params.layers) > 1
+    # opt-in, T == 1 fused_step steps only, off under tensor parallelism
+    # (the row-parallel down ends in a collective); layer 0's qkv and the
+    # last layer's down stay standalone
+    dq_chain = (fstep and tp == 1 and len(params.layers) > 1
                 and os.environ.get("LLAMA_TPU_DOWN_QKV", "0") == "1"
                 and dq.supported(params.layers[0].w_down,
                                  params.layers[1].wqkv, B * T))
     return Plan(attn_impl, fstep, batched and T == 1, pfk, kv4,
-                cache.quantized, dq_chain, type(params.lm_head).__name__)
+                cache.quantized, dq_chain, type(params.lm_head).__name__, tp)
 
 
 def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
             pos: torch.Tensor, cache: KVCache, *,
             attn_len: int | None = None, act_dtype=torch.bfloat16,
             attn_impl: str | None = None, logits_all: bool = False,
-            no_logits: bool = False, plain: bool = False):
+            no_logits: bool = False, plain: bool = False,
+            tp: TPGroup | None = None):
     """Run the network over a token block.
 
     tokens: (B, T) int; pos: (B,) int32 absolute position of tokens[:, 0],
@@ -456,6 +501,13 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
     act_dtype: bf16, fp16 or f32, the type of the activations, the
     residual stream and the unquantized cache (the engines make the cache
     in it); the kernels take each of them.
+    tp: this rank's TPGroup under tensor parallelism (parallel/tp.py),
+    with its shard of the params and of the cache (its n_heads / tp and
+    n_kv_heads / tp heads): the row-parallel o and down projections end
+    in a sum over the ranks (_post_attention_tp) and the vocab-sharded
+    head in a gather of the logits, so every rank returns the whole
+    logits. The down_qkv chain is off; fused_step and prefill_attention
+    run per shard unless LLAMA_TPU_FSTEP_TP or LLAMA_TPU_PFK_TP is "0".
     Returns (logits, cache): logits f32 (B, T, vocab) if logits_all else
     (B, vocab), None with no_logits.
     """
@@ -466,8 +518,10 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     B, T = tokens.shape
     A = attn_len or cache.k[0].shape[1]
-    H, D, KV = cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
-    p = plan(params, cfg, cache, B, T, A, attn_impl)
+    n_tp = tp.size if tp is not None else 1
+    # the rank's heads (models/llama.py:537-538 of the JAX package)
+    H, D, KV = cfg.n_heads // n_tp, cfg.head_dim, cfg.n_kv_heads // n_tp
+    p = plan(params, cfg, cache, B, T, A, attn_impl, n_tp)
     attn_impl, kv4, fstep, bstep, pfk, dq_chain = (
         p.attn_impl, p.kv4, p.fstep, p.bstep, p.pfk, p.dq_chain)
     n_layers = len(params.layers)
@@ -554,12 +608,17 @@ def forward(params: LlamaParams, cfg: ModelConfig, tokens: torch.Tensor,
         if dq_chain and l + 1 < n_layers:
             x, ss, qkv_pending = _post_attention_chained(
                 attn, x, layer, params.layers[l + 1], plain, act_dtype)
+        elif n_tp > 1:
+            x, ss = _post_attention_tp(attn, x, layer, plain, act_dtype, tp)
         else:
             x, ss = _post_attention(attn, x, layer, plain, act_dtype)
 
     if no_logits:
         return None, cache
-    return final_logits(params, x, ss, act_dtype, logits_all, plain), cache
+    logits = final_logits(params, x, ss, act_dtype, logits_all, plain)
+    if n_tp > 1:  # the ranks' vocab rows side by side
+        logits = all_gather_last(logits, tp)
+    return logits, cache
 
 
 def final_logits(params: LlamaParams, x: torch.Tensor, ss: torch.Tensor,
@@ -569,7 +628,8 @@ def final_logits(params: LlamaParams, x: torch.Tensor, ss: torch.Tensor,
     (B, vocab). x goes to the head in act_dtype for a w4 head, else in the
     head's type (ops/linear.py dense_matmul routes a bf16 or int8 head to
     its kernel and an fp16 or f32 one to the plain product, the JAX
-    rule)."""
+    rule). Under tensor parallelism the head holds the rank's vocab rows
+    and forward gathers the ranks' logits."""
     x = (x.float() * ss * params.final_norm.float()).to(act_dtype)
     if not logits_all:
         x = x[:, -1, :]

@@ -1,0 +1,15 @@
+"""Tensor parallelism over torch.distributed, one process per shard.
+
+mesh (TPGroup, make_mesh and the two collectives) and multihost (joining
+the ranks) import no model code; parallel.tp (the shard functions and the
+shard forward) imports models.llama, which imports parallel.mesh, so it
+is imported by its own name.
+"""
+
+from llama_cu_awq_torch.parallel.mesh import (TPGroup, all_gather_last,
+                                              all_reduce_sum, make_mesh)
+from llama_cu_awq_torch.parallel.multihost import (init_multihost,
+                                                   is_coordinator, pod_mesh)
+
+__all__ = ["TPGroup", "all_gather_last", "all_reduce_sum",
+           "init_multihost", "is_coordinator", "make_mesh", "pod_mesh"]

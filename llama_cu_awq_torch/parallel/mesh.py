@@ -1,0 +1,111 @@
+"""Rank layout and the two collectives of tensor parallelism.
+
+The counterpart of llama_cu_awq_tpu/parallel/mesh.py. Where JAX runs one
+program over a Mesh of devices (shard_map), the port runs one process per
+shard: a rank of torch.distributed. The world's ranks are laid out as a
+(dp, tp) grid, rank r at row r // tp, column r % tp, so a tp group is a
+row of tp consecutive ranks (on one host, ranks are its cards in order)
+and a dp group a column. `TPGroup` is what a rank's forward and engines
+take: its place in its tp row, the row's process group and backend, and
+the device it computes on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+DP_AXIS = "dp"
+TP_AXIS = "tp"
+
+
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """One rank's view of its tensor-parallel group."""
+
+    rank: int           # index in the group, 0..size-1: the shard it holds
+    size: int           # ranks in the group (the tp degree)
+    group: object       # the torch.distributed ProcessGroup, None at size 1
+    backend: str        # "nccl" (a card per rank) or "gloo"
+    device: torch.device
+    ranks: tuple = (0,)  # the group's global ranks, in shard order
+
+    @property
+    def src(self) -> int:
+        """Global rank of the group's rank 0 (the broadcasts' source)."""
+        return self.ranks[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The (dp, tp) grid of global ranks and this process's groups."""
+
+    ranks: np.ndarray   # (dp, tp) global ranks
+    tp_group: TPGroup   # this rank's row
+    dp_group: object    # this rank's column (a ProcessGroup), None at dp 1
+    dp_index: int       # this rank's row
+
+    @property
+    def shape(self) -> dict:
+        return {DP_AXIS: self.ranks.shape[0], TP_AXIS: self.ranks.shape[1]}
+
+
+def make_mesh(tp: int | None = None, dp: int | None = None,
+              device=None) -> Mesh:
+    """Lay out the world's ranks as a (dp, tp) grid (defaults: tp = the
+    world, dp = 1; raises ValueError where dp * tp is not the world size)
+    and make its process groups. Every rank calls it with the same
+    arguments, since torch.distributed.new_group is collective. device:
+    this rank's device (default: cuda:<rank mod the host's cards> with
+    the nccl backend, else the CPU)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if tp is None and dp is None:
+        tp, dp = world, 1
+    elif tp is None:
+        tp = world // dp
+    elif dp is None:
+        dp = world // tp
+    if dp * tp != world:
+        raise ValueError(f"dp*tp = {dp}*{tp} != {world} ranks")
+    grid = np.arange(world).reshape(dp, tp)
+    backend = dist.get_backend() if dist.is_initialized() else "none"
+    if device is None:
+        device = (torch.device("cuda", rank % torch.cuda.device_count())
+                  if backend == "nccl" else torch.device("cpu"))
+    row, col = divmod(rank, tp)
+    tp_pg = dp_pg = None
+    # new_group is collective over the world: every rank makes every group
+    for r in range(dp):
+        g = dist.new_group(grid[r].tolist()) if tp > 1 else None
+        if r == row:
+            tp_pg = g
+    for c in range(tp):
+        g = dist.new_group(grid[:, c].tolist()) if dp > 1 else None
+        if c == col:
+            dp_pg = g
+    group = TPGroup(col, tp, tp_pg, backend, torch.device(device),
+                    tuple(grid[row].tolist()))
+    return Mesh(grid, group, dp_pg, row)
+
+
+def all_reduce_sum(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """x summed over the group, in place (the JAX forward's psum). Every
+    rank receives the same bits."""
+    if tp.size > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=tp.group)
+    return x
+
+
+def all_gather_last(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """The ranks' x side by side along the last dim, in rank order (the
+    JAX forward's tiled all_gather of the vocab-sharded logits). gloo
+    takes CUDA tensors here too (checked on the H100: PERF.md §6)."""
+    if tp.size == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x.contiguous(), group=tp.group)
+    return torch.cat(parts, dim=-1)

@@ -28,7 +28,15 @@ The counterpart of llama_cu_awq_tpu/serve.py, stdlib only
   its request.
 
 CLI: python -m llama_cu_awq_torch.serve model.bin -z tokenizer.bin \
-         [--port 8000] [--slots 16] [--dp N] [--device cuda|cpu] ...
+         [--port 8000] [--slots 16] [--dp N | --tp N] [--device cuda|cpu]
+
+--tp N serves one model in tensor parallelism over N ranks (parallel/tp.py,
+engine/batch.py): this process is rank 0 and owns HTTP, the queue and the
+scheduler; it starts ranks 1..N-1 itself (parallel/multihost.py
+run_ranks), which build their shards and follow its engine's dispatches.
+With --device cuda rank r runs on cuda:r over nccl, with --device cpu over
+gloo. The engines run eagerly (no CUDA graphs). --dp with --tp is not
+supported yet.
 """
 
 from __future__ import annotations
@@ -192,6 +200,7 @@ class ServingEngine:
                     break
                 nxt = r.be._dispatch_chunk() if r.be.pending else None
                 if in_flight is None and nxt is None:
+                    r.be.idle()
                     r.work.wait(timeout=0.5)
                     continue
             if in_flight is not None:
@@ -215,6 +224,7 @@ class ServingEngine:
                 work = (r.be.dispatch_spec_round()
                         if r.be.pending else None)
                 if work is None:
+                    r.be.idle()
                     r.work.wait(timeout=0.5)
                     continue
             kind, payload = work
@@ -589,7 +599,9 @@ def build_argparser():
     ap.add_argument("--prefix-cache", type=int, default=0, metavar="N",
                     help="keep the KV rows of up to N prompt prefixes "
                          "(block-multiple lengths) for admission by copy")
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel over N ranks, one process and "
+                         "(with --device cuda) one card each")
     ap.add_argument("--dp", type=int, default=1,
                     help="data-parallel replicas: one BatchEngine per card "
                          "(cuda:0..N-1), requests routed to the least-"
@@ -601,50 +613,124 @@ def build_argparser():
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError("--tp is not ported yet")
+    if args.tp > 1 and args.dp > 1:
+        raise NotImplementedError(
+            "--dp with --tp: a replica of several ranks needs a leader "
+            "per replica and its own process group, not ported yet")
     if args.seed <= 0:
         args.seed = int(time.time())
 
     import torch
 
     from llama_cu_awq_torch.device import resolve_device
-    from llama_cu_awq_torch.engine import BatchEngine
     from llama_cu_awq_torch.io.checkpoint import load_checkpoint
-    from llama_cu_awq_torch.models import params_from_checkpoint
     from llama_cu_awq_torch.tokenizer import Tokenizer
 
     resolve_device(args.device)
+    need = args.dp * args.tp
     if args.device == "cuda":
         have = torch.cuda.device_count()
-        if args.dp > have:
-            raise SystemExit(f"--dp {args.dp} needs {args.dp} cards, "
-                             f"have {have}")
+        if need > have:
+            raise SystemExit(f"--dp {args.dp} x --tp {args.tp} needs "
+                             f"{need} cards, have {have}")
         devices = [f"cuda:{i}" for i in range(args.dp)]
     else:
         devices = ["cpu"] * args.dp
-    log = get_logger("serve")
     ckpt = load_checkpoint(args.checkpoint, verbose=True)
     tokenizer = Tokenizer(args.tokenizer, ckpt.config.vocab_size)
-    engines = []
-    for i, dev in enumerate(devices):
-        params = params_from_checkpoint(ckpt, device=dev)
-        engines.append(BatchEngine(
-            params, ckpt.config, tokenizer, n_slots=args.slots,
-            max_seq=args.max_seq, temperature=args.temperature,
-            topp=args.topp, seed=args.seed + i,
-            kv_quant=(4 if args.kv_bits == 4 else args.kv_quant),
-            spec=None if args.spec == "none" else args.spec,
-            spec_k=args.spec_k, prefix_cache_size=args.prefix_cache,
-            chunk_size=args.chunk_size, device=dev))
+    if args.tp == 1:
+        return _serve(args, [_engine(args, ckpt, tokenizer, dev, seed=i)
+                             for i, dev in enumerate(devices)], tokenizer)
+
+    from llama_cu_awq_torch.parallel.multihost import run_ranks
+    from llama_cu_awq_torch.parallel.tp import _check_divisible
+
+    _check_divisible(ckpt.config, args.tp)  # before any rank starts
+
+    def leader(init):
+        be = _tp_engine(args, ckpt, tokenizer, 0, init)
+        try:
+            return _serve(args, [be], tokenizer)
+        finally:
+            be.stop_followers()
+            torch.distributed.destroy_process_group()
+
+    return run_ranks(args.tp, leader, _tp_follower, (args,))
+
+
+def _engine(args, ckpt, tokenizer, device, seed: int = 0, params=None,
+            tp=None):
+    """One replica's BatchEngine. Its params at --tp 1: the checkpoint's
+    fp16 embed and head (param_dtype None), as the JAX server's
+    (llama_cu_awq_tpu/serve.py:641); an fp16 head takes the plain f32
+    product (ops/linear.py dense_matmul)."""
+    from llama_cu_awq_torch.engine import BatchEngine
+    from llama_cu_awq_torch.models import params_from_checkpoint
+
+    if params is None:
+        params = params_from_checkpoint(ckpt, device=device, param_dtype=None)
+    return BatchEngine(
+        params, ckpt.config, tokenizer, n_slots=args.slots,
+        max_seq=args.max_seq, temperature=args.temperature,
+        topp=args.topp, seed=args.seed + seed,
+        kv_quant=(4 if args.kv_bits == 4 else args.kv_quant),
+        spec=None if args.spec == "none" else args.spec,
+        spec_k=args.spec_k, prefix_cache_size=args.prefix_cache,
+        chunk_size=args.chunk_size, device=device, tp=tp,
+        capture=tp is None)
+
+
+def _tp_engine(args, ckpt, tokenizer, rank: int, init: str):
+    """Rank `rank`'s BatchEngine under --tp: it joins the group and builds
+    its shard, with tp_params_from_checkpoint's default bf16 embed and
+    head (the JAX server's, llama_cu_awq_tpu/serve.py:639)."""
+    import torch
+
+    from llama_cu_awq_torch.parallel import init_multihost, make_mesh
+    from llama_cu_awq_torch.parallel.tp import tp_params_from_checkpoint
+
+    cuda = args.device == "cuda"
+    device = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(device)
+    init_multihost(init, args.tp, rank, backend="nccl" if cuda else "gloo")
+    tp = make_mesh(tp=args.tp, dp=1, device=device).tp_group
+    params = tp_params_from_checkpoint(ckpt, args.tp, rank, device=device)
+    return _engine(args, ckpt, tokenizer, device, params=params, tp=tp)
+
+
+def _tp_follower(rank: int, n: int, init: str, args) -> None:
+    """Rank 1..n-1 of `serve --tp n` (a spawned process): its engine
+    follows rank 0's until rank 0 stops it."""
+    import signal
+
+    import torch
+
+    from llama_cu_awq_torch.io.checkpoint import load_checkpoint
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+
+    # rank 0 takes the interrupt and stops this rank (stop_followers)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    ckpt = load_checkpoint(args.checkpoint)
+    be = _tp_engine(args, ckpt, Tokenizer(args.tokenizer,
+                                          ckpt.config.vocab_size),
+                    rank, init)
+    be.follow()
+    torch.distributed.destroy_process_group()
+
+
+def _serve(args, engines, tokenizer) -> int:
+    """Serve the replicas until interrupted."""
+    log = get_logger("serve")
     httpd, eng = make_server(engines if args.dp > 1 else engines[0],
                              tokenizer, args.host, args.port,
                              max_queue=args.max_queue,
                              max_streams=args.max_streams)
     eng.start()
-    log.info("serving on %s:%d (%d slots x %d replicas, max_seq %d)",
+    log.info("serving on %s:%d (%d slots x %d replicas, max_seq %d%s)",
              args.host, httpd.server_address[1], args.slots, args.dp,
-             engines[0].max_seq)
+             engines[0].max_seq,
+             f", {args.tp} tensor-parallel ranks" if args.tp > 1 else "")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -209,8 +209,9 @@ def test_prefix_cache_hits(engines):
     _both(pair, scenario)
     st = pair[1].stats()["prefix_cache"]
     assert st["hits"] == 1 and st["rows_saved"] == 128
-    # entries are clones, not views of the slot cache
-    (rows,) = pair[1].prefix_cache._entries.values()
+    # entries are (serial, rows), the rows clones, not views of the slot
+    # cache (the serial names a tensor-parallel follower's own clones)
+    ((_, rows),) = pair[1].prefix_cache._entries.values()
     assert rows[0][0].untyped_storage().data_ptr() != \
         pair[1].cache.k[0].untyped_storage().data_ptr()
 

@@ -1515,3 +1515,38 @@ def test_cli_act_dtype_on_card(gen, tmp_path, capsys, monkeypatch, act,
         assert out.split("Assistant: ", 1)[1].split("\nUser: ")[0].strip()
     else:
         assert "achieved tok/s" in out
+
+
+@pytest.mark.parametrize("case", ["steps_fused_step", "block_prefill",
+                                  "steps_int8"])
+def test_tp_forward_on_card_matches_single_device(gen, tmp_path, case):
+    """Two ranks sharing the card over gloo (tests/torch_tp_ranks.py): the
+    per-shard kernels (the w4 GEMV and GEMM with the f32 partials, the
+    vocab-sharded head, attention_step and prefill_attention over the
+    rank's heads) and the collectives on CUDA tensors, against the
+    single-device forward on the card, f32 activations. The bar is
+    tests/test_tp.py:77's for the same comparison: the ranks' sums add in
+    another order, which the kernels' bf16 staging of x can carry one
+    bf16 ulp."""
+    from llama_cu_awq_torch.io.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    import torch_tp_ranks as ranks
+
+    cfg = ModelConfig(dim=512, hidden_dim=1024, n_layers=2, n_heads=4,
+                      n_kv_heads=4, vocab_size=512, seq_len=256)
+    path = str(tmp_path / "tp.bin")
+    save_checkpoint(path, random_checkpoint(cfg, seed=78))
+    mode, what = case.split("_", 1)
+    job = dict(kind="forward", name=case, device="cuda", act="float32",
+               cache="int8" if what == "int8" else "plain", max_seq=256,
+               mode=mode, attn_impl="fused_step",
+               tokens=([3, 141, 59, 26, 500] if mode == "steps" else
+                       [1 + (7 * i) % 500 for i in range(80)]))
+    got, calls = ranks.spawn_ranks(2, tmp_path, path, [job])[case]
+    want, _ = ranks.forward_job(job, load_checkpoint(path))
+    assert got.shape == want.shape and bool(torch.isfinite(
+        torch.from_numpy(got)).all())
+    torch.testing.assert_close(torch.from_numpy(got), torch.from_numpy(want),
+                               rtol=5e-3, atol=5e-3)
+    kernel = "attention_step" if mode == "steps" else "prefill_attention"
+    assert calls.get(kernel, 0) >= cfg.n_layers

@@ -236,8 +236,12 @@ def test_cli_perplexity_needs_dataset(tmp_path, tiny_config, capsys):
 
 @pytest.mark.parametrize("extra", [["--tp", "2"]])
 def test_cli_unported_options_raise(tmp_path, tiny_config, extra):
+    """The options the port refuses raise before any work: --tp 2 on
+    tiny_config (dim 64) would give each rank 16 of kv_dim's inputs and
+    cut wo's 128-row groups, which the port refuses
+    (parallel/tp.py _check_divisible) before it starts a rank."""
     path, tok_path = _write_model(tmp_path, tiny_config)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="multiple of 128"):
         t_main([path, "-z", tok_path, "--device", "cpu", *extra])
 
 

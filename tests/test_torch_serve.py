@@ -491,17 +491,65 @@ def test_router_all_down_503():
 
 def test_serve_cli_flags():
     """serve's flags: the JAX server's, with --device in place of
-    --platform and without --impl; --tp still raises."""
+    --platform and without --impl; --dp with --tp still raises, before
+    it reads the checkpoint."""
     from llama_cu_awq_torch.serve import main
 
     args = build_argparser().parse_args(["m.bin", "--device", "cpu",
-                                         "--dp", "2"])
-    assert (args.device, args.dp, args.spec, args.slots) == ("cpu", 2,
-                                                             "ngram", 16)
+                                         "--dp", "2", "--tp", "2"])
+    assert (args.device, args.dp, args.tp, args.spec, args.slots) == (
+        "cpu", 2, 2, "ngram", 16)
     with pytest.raises(SystemExit):
         build_argparser().parse_args(["m.bin", "--impl", "pallas"])
-    with pytest.raises(NotImplementedError):
-        main(["m.bin", "--tp", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="--dp with --tp"):
+        main(["m.bin", "--tp", "2", "--dp", "2", "--device", "cpu"])
+
+
+def test_served_head_is_the_checkpoints_fp16(tmp_path):
+    """At --tp 1 the server's params keep the checkpoint's fp16 embed and
+    lm_head (param_dtype None), the JAX server's choice
+    (llama_cu_awq_tpu/serve.py:641); under --tp the bf16 default of
+    tp_params_from_checkpoint (:639). A greedy completion served by the
+    engine serve.main builds equals the JAX BatchEngine's on the same
+    .bin."""
+    from llama_cu_awq_torch import serve as t_serve
+    from llama_cu_awq_torch.io.checkpoint import load_checkpoint as t_load
+    from llama_cu_awq_torch.parallel.tp import tp_params_from_checkpoint
+    from llama_cu_awq_tpu.io.checkpoint import load_checkpoint as j_load
+
+    ckpt_path, tok_path = str(tmp_path / "m.bin"), str(tmp_path / "t.bin")
+    t_save(ckpt_path, t_random(TModelConfig(
+        dim=256, hidden_dim=256, n_layers=2, n_heads=2, n_kv_heads=2,
+        vocab_size=512, seq_len=96), seed=11))
+    write_toy_tokenizer(tok_path, _toy_vocab(512))
+    args = build_argparser().parse_args(
+        [ckpt_path, "-z", tok_path, "--device", "cpu", "--slots", "2",
+         "--chunk-size", "4", "-t", "0", "--spec", "none"])
+    ckpt = t_load(ckpt_path)
+    tok = Tokenizer(tok_path, ckpt.config.vocab_size)
+    be = t_serve._engine(args, ckpt, tok, "cpu")
+    jp = jl.params_from_checkpoint(j_load(ckpt_path))  # the JAX server's
+    assert be.params.lm_head.dtype == torch.float16
+    assert be.params.embed.dtype == torch.float16
+    assert str(jp.lm_head.dtype) == "float16"
+    assert np.array_equal(be.params.lm_head.numpy(), np.asarray(jp.lm_head))
+    assert tp_params_from_checkpoint(ckpt, 2, 0, device="cpu").lm_head.dtype \
+        == torch.bfloat16
+    prompt = "the cat sat on the mat the cat"
+    base, httpd, eng = _start(be, tok)
+    try:
+        _, body = _post(base, {"prompt": prompt, "max_tokens": 10})
+    finally:
+        _stop(httpd, eng)
+    ids = tok.encode(prompt, bos=True, eos=False)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_engine_mod, "forward",
+                   functools.partial(jl.forward, fused=True))
+        jbe = JBatchEngine(jp, ckpt.config, n_slots=2, max_seq=96,
+                           temperature=0.0, chunk_size=4)
+        rid = jbe.submit(ids, max_new=10)
+        want = jbe.run()[rid]
+    assert body["choices"][0]["token_ids"] == want and want
 
 
 def test_serve_main_logs_startup_line(tmp_path):

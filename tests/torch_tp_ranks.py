@@ -1,0 +1,281 @@
+"""Rank processes for tests/test_torch_tp.py: the port's tensor-parallel
+runs on the CPU, one spawned process per rank over gloo.
+
+Imports torch, numpy and the port only (a spawned rank imports this
+module, not the test module, so it never loads JAX). spawn_ranks starts
+the ranks, joins them through a file under a test's tmp_path (no port
+number, so parallel test workers never collide) and returns rank 0's
+results: a dict from job name to what the job returned.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import functools
+import os
+import pickle
+
+import torch
+
+# a failing rank makes the others fail here rather than hang
+TIMEOUT = datetime.timedelta(seconds=180)
+
+
+@contextlib.contextmanager
+def exact_staging():
+    """The plain w4 matmuls with x (and the SwiGLU u) kept in f32 instead
+    of being staged to bf16 as the kernels stage them: a TP forward and a
+    single-device forward then differ by the order of their f32 sums
+    alone (with the bf16 staging, a sum one f32 ulp apart can round an
+    element of x one bf16 ulp apart, which moves the whole row)."""
+    from llama_cu_awq_torch.ops.cuda import int4_matmul as im
+
+    def fused(x, qt, *, prescale=None, silu_u=None, residual=None,
+              emit_ss_eps=None, out_dtype=torch.bfloat16):
+        lead, m = im._rows(x, qt.n_in)
+        xf = x.float()
+        if prescale is not None:
+            xf = xf * prescale[0].float() * prescale[1].float()
+        elif silu_u is not None:
+            xf = xf * torch.sigmoid(xf) * silu_u.float()
+        out = (xf.reshape(m, qt.n_in) @ qt.dequantize_t().T).reshape(
+            *lead, qt.n_out)
+        if residual is not None:
+            out = out + residual.float()
+        out = out.to(out_dtype)
+        ss = None
+        if emit_ss_eps is not None:
+            of = out.float()
+            ss = torch.rsqrt((of * of).mean(dim=-1, keepdim=True)
+                             + emit_ss_eps)
+        return out, ss
+
+    saved = im.int4_matmul_fused_plain
+    im.int4_matmul_fused_plain = fused
+    try:
+        yield
+    finally:
+        im.int4_matmul_fused_plain = saved
+
+
+@contextlib.contextmanager
+def counting(calls: dict):
+    """Count forward's calls of the two attention kernels' wrappers (on
+    the CPU their plain versions run, which the launch counters do not
+    count)."""
+    from llama_cu_awq_torch.models import llama as tl
+
+    saved = tl.pfa.prefill_attention, tl.attention_step
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    tl.pfa.prefill_attention = wrap("prefill_attention", saved[0])
+    tl.attention_step = wrap("attention_step", saved[1])
+    try:
+        yield
+    finally:
+        tl.pfa.prefill_attention, tl.attention_step = saved
+
+
+ACT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CACHE = {"plain": dict(), "int8": dict(quantized=True),
+         "int4": dict(quantized=True, kv_bits=4)}
+
+
+def forward_job(job, ckpt, tp=None, rank=0):
+    """Logits of one forward case (see test_torch_tp.FORWARD_CASES), on
+    one rank's shard under tp, else single-device, on job["device"] (the
+    CPU by default). Returns (logits as f32 numpy, the attention kernels'
+    call counts)."""
+    from llama_cu_awq_torch.models import llama as tl
+    from llama_cu_awq_torch.parallel.tp import (make_shard_forward,
+                                                make_tp_forward,
+                                                tp_init_kv_cache,
+                                                tp_params_from_checkpoint)
+
+    cfg, act = ckpt.config, ACT[job["act"]]
+    dev = torch.device(job.get("device", "cpu"))
+    if tp is None:
+        params = tl.params_from_checkpoint(ckpt, device=dev,
+                                           param_dtype=act)
+        cache = tl.init_kv_cache(cfg, 1, job["max_seq"], dtype=act,
+                                 device=dev, **CACHE[job["cache"]])
+    else:
+        params = tp_params_from_checkpoint(ckpt, tp.size, rank,
+                                           device=dev, param_dtype=act)
+        cache = tp_init_kv_cache(cfg, 1, job["max_seq"], tp.size,
+                                 dtype=act, device=dev,
+                                 **CACHE[job["cache"]])
+    if tp is None:
+        fwd = functools.partial(tl.forward, params, cfg, cache=cache,
+                                attn_len=job["max_seq"], act_dtype=act)
+    else:
+        fwd = functools.partial(make_shard_forward(cfg, tp), params,
+                                cache=cache, attn_len=job["max_seq"],
+                                act_dtype=act)
+    toks = job["tokens"]
+    calls: dict = {}
+    with counting(calls), (exact_staging() if job.get("exact")
+                           else contextlib.nullcontext()):
+        def ids(xs):
+            return torch.tensor([xs], device=dev)
+
+        def at(p):
+            return torch.tensor([p], dtype=torch.int32, device=dev)
+
+        if job["mode"] == "steps":  # T=1 steps, one token at a time
+            out = [fwd(ids([t]), at(i), attn_impl=job.get("attn_impl"))[0][0]
+                   for i, t in enumerate(toks)]
+            logits = torch.stack(out)
+        elif job["mode"] == "block" and tp is not None \
+                and job.get("attn_impl") is None:
+            # one T-token block, every row, through the bound TP forward
+            logits = make_tp_forward(cfg, tp, attn_len=job["max_seq"],
+                                     act_dtype=act, logits_all=True)(
+                params, ids(toks), at(0), cache)[0][0]
+        elif job["mode"] == "block":
+            logits = fwd(ids(toks), at(0), attn_impl=job.get("attn_impl"),
+                         logits_all=True)[0][0]
+        else:  # "prompt_step": toks[:-1] as a block, then one step
+            fwd(ids(toks[:-1]), at(0), no_logits=True)
+            logits = fwd(ids(toks[-1:]), at(len(toks) - 1),
+                         attn_impl=job["attn_impl"])[0]
+    return logits.float().cpu().numpy(), calls
+
+
+def _agree(tp, tokens: list[int]) -> int:
+    """max - min over the ranks of each token, summed: 0 when every rank
+    drew the same stream."""
+    import torch.distributed as dist
+
+    t = torch.tensor(tokens, dtype=torch.int64)
+    hi, lo = t.clone(), t.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=tp.group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=tp.group)
+    return int((hi - lo).abs().sum())
+
+
+def engine_job(job, ckpt, tp, rank):
+    """A TP InferenceEngine's greedy stream, and the ranks' agreement."""
+    from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.parallel.tp import tp_params_from_checkpoint
+
+    act = ACT[job["act"]]
+    params = tp_params_from_checkpoint(ckpt, tp.size, rank, device="cpu",
+                                       param_dtype=act)
+    eng = InferenceEngine(params, ckpt.config, None, temperature=0.0,
+                          max_seq=job["max_seq"], device="cpu",
+                          act_dtype=act, tp=tp, capture=False,
+                          **job.get("kw", {}))
+    toks, _, _ = eng.generate_benchmark(job["prompt"], job["steps"])
+    return toks, _agree(tp, toks)
+
+
+def batch_job(job, ckpt, tp, rank):
+    """A TP BatchEngine: rank 0 serves the requests and returns their
+    streams; the other ranks follow."""
+    from llama_cu_awq_torch.engine import BatchEngine
+    from llama_cu_awq_torch.parallel.tp import tp_params_from_checkpoint
+
+    params = tp_params_from_checkpoint(ckpt, tp.size, rank, device="cpu")
+    be = BatchEngine(params, ckpt.config, None, device="cpu", tp=tp,
+                     capture=False, **job["kw"])
+    if rank:
+        be.follow()
+        return None
+    try:
+        streams = []
+        for _ in range(job.get("rounds", 1)):
+            be.reset()
+            rids = [be.submit(p, max_new=job["max_new"])
+                    for p in job["prompts"]]
+            out = be.run()
+            streams.append([out[r] for r in rids])
+            be._sent_t -= 120  # an idle minute: idle() sends its no-op
+            be.idle()
+        stats = be.stats()
+        return streams, stats.get("prefix_cache")
+    finally:
+        be.stop_followers()
+
+
+def mesh_job(job, ckpt, tp, rank):
+    """make_mesh over the whole world, and what each group sums."""
+    import torch.distributed as dist
+
+    from llama_cu_awq_torch.parallel import is_coordinator, make_mesh
+
+    m = make_mesh(tp=job["tp"], dp=job["dp"])
+    x = torch.tensor([float(dist.get_rank())])
+    dist.all_reduce(x, group=m.tp_group.group)
+    y = torch.tensor([float(dist.get_rank())])
+    if m.dp_group is not None:
+        dist.all_reduce(y, group=m.dp_group)
+    row = dict(rank=dist.get_rank(), shape=m.shape, tp_rank=m.tp_group.rank,
+               tp_ranks=m.tp_group.ranks, dp_index=m.dp_index,
+               tp_sum=float(x), dp_sum=float(y),
+               coordinator=is_coordinator())
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, row)
+    return rows
+
+
+JOBS = {"forward": forward_job, "engine": engine_job, "batch": batch_job,
+        "mesh": mesh_job}
+
+
+def _rank_main(rank: int, n: int, init: str, path: str, jobs, out: str):
+    torch.set_num_threads(1)
+    if any(j.get("device", "cpu") != "cpu" for j in jobs):
+        torch.cuda.set_device(0)  # the ranks share the card
+    from llama_cu_awq_torch.io.checkpoint import load_checkpoint
+    from llama_cu_awq_torch.parallel import init_multihost, make_mesh
+
+    init_multihost(init, n, rank, backend="gloo", timeout=TIMEOUT)
+    try:
+        tp = make_mesh(tp=n, dp=1).tp_group
+        results = {}
+        ckpts = {}
+        for job in jobs:
+            p = job.get("bin", path)
+            if p not in ckpts:
+                ckpts[p] = load_checkpoint(p)
+            ckpt = ckpts[p]
+            results[job["name"]] = JOBS[job["kind"]](job, ckpt, tp, rank)
+        if rank == 0:
+            with open(out, "wb") as f:
+                pickle.dump(results, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(n: int, tmp_path, path: str, jobs) -> dict:
+    """Run `jobs` on n gloo ranks; rank 0's results."""
+    import torch.multiprocessing as mp
+
+    init = f"file://{tmp_path}/init_{n}"
+    out = os.path.join(str(tmp_path), f"results_{n}.pkl")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, n, init, path, jobs, out))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * n:
+            raise AssertionError(f"ranks exited with {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    with open(out, "rb") as f:
+        return pickle.load(f)
