@@ -167,6 +167,28 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      BatchEngine (rank 0 serves 4 greedy requests on 4 slots, rank 1
      follows) replayed the same way. Two ranks on one card with gloo
      through the host measure no tensor-parallel speed.
+ 12. (run last) `serve --dp 2 --tp 2` and the ppl matrix tool. Phase 4's
+     seed-0 weights are written to a 7B `.bin` (full width, 32 layers)
+     with the port's save_checkpoint, beside make_test_model's byte
+     tokenizer at vocab 32000. serve.run_replicas, the server's own
+     replica builder, runs 2 replicas of 2 ranks with every rank on
+     cuda:0 over gloo (3 processes: this one holds shard 0 of both
+     replicas and serves): 2 slots a replica, max_seq 512, spec="ngram";
+     8 concurrent completions of 16 tokens, 4 of them streamed, prompts
+     of 20-200 tokens, queued before the engine threads start (4 a
+     replica); each reply held to the token ids its request was routed,
+     each stream replayed through the single-device forward within 2 %
+     of its top logit, every rank's exit code 0 (e2e dp2_tp2_serve_http:
+     not a speed). Then the 8 rows of llama_cu_awq_torch/tools/ppl_matrix
+     on 2 sequences of 128 letters from the seed, through its own
+     functions, each under the launch counters (attention_step over the
+     bf16, int8 and int4 caches, the int8 head's dense_gemv, the w4
+     head's int4_matmul; the checkpoint's fp16 head of the other rows
+     takes the plain f32 product, as the JAX tool's does): finite rows,
+     each fused_step row within |delta ln ppl| <= 0.01 of its cache's
+     einsum row, and `python -m llama_cu_awq_torch.tools.ppl_matrix
+     --only "bf16 KV"` run once as a user runs it (beside the served
+     run), its rows equal to these (e2e ppl_matrix_7b).
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm, torch._weight_int8pack_mm; the
@@ -3825,6 +3847,359 @@ def tp_batch_run(torch, cfg, full, params, tp, launches):
         raise AssertionError(f"tp2 batch: {st}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serve --dp 2 --tp 2, and the ppl matrix tool, on one card
+
+DP_TP = (2, 2)  # serve --dp 2 --tp 2: 3 processes, rank 0 the server
+
+
+def synthetic_checkpoint(torch, params, cfg):
+    """The RawCheckpoint of models.llama.synthetic_params' weights, to
+    write with save_checkpoint: each fused projection cut back into the
+    file's tensors (wqkv into wq, wk, wv; w_gate_up into w_gate, w_up),
+    the bf16 embed and head in the file's fp16."""
+    import numpy as np
+
+    from llama_cu_awq_torch.io.checkpoint import (RawCheckpoint, RawLayer,
+                                                  RawQWeight)
+
+    def raw(qt, a, b):
+        return RawQWeight(qt.qw[a:b].cpu().numpy().view(np.uint32).T,
+                          qt.zeros[a:b].cpu().numpy().T.astype(np.int8),
+                          qt.scales[a:b].float().cpu().numpy().T,
+                          qt.n_in, b - a)
+
+    def f16(t):
+        return t.to(torch.float16).cpu().numpy()
+
+    dim, kv, hid = cfg.dim, cfg.kv_dim, cfg.hidden_dim
+    layers = [RawLayer(
+        wq=raw(l.wqkv, 0, dim), wk=raw(l.wqkv, dim, dim + kv),
+        wv=raw(l.wqkv, dim + kv, dim + 2 * kv), wo=raw(l.wo, 0, dim),
+        w_gate=raw(l.w_gate_up, 0, hid), w_up=raw(l.w_gate_up, hid, 2 * hid),
+        w_down=raw(l.w_down, 0, dim), attn_norm=f16(l.attn_norm),
+        ffn_norm=f16(l.ffn_norm)) for l in params.layers]
+    return RawCheckpoint(cfg, f16(params.embed), f16(params.lm_head),
+                         f16(params.final_norm), layers)
+
+
+def params_of_file(torch, params, ckpt, dtype):
+    """What params_from_checkpoint(ckpt, param_dtype=dtype) builds from
+    the .bin written from params (synthetic_checkpoint), made from params
+    without the 7B load: the embed and head through the file's fp16; held
+    to params_from_checkpoint's own on the dense tensors and layer 0."""
+    import dataclasses
+
+    from llama_cu_awq_torch.models import params_from_checkpoint
+
+    def dense(t):
+        h = t.half()
+        return h if dtype is None else h.to(dtype)
+
+    out = dataclasses.replace(params, embed=dense(params.embed),
+                              lm_head=dense(params.lm_head))
+    one = params_from_checkpoint(dataclasses.replace(
+        ckpt, layers=ckpt.layers[:1]), param_dtype=dtype)
+    pairs = [(out.embed, one.embed), (out.lm_head, one.lm_head),
+             (out.final_norm, one.final_norm)]
+    a, b = out.layers[0], one.layers[0]
+    pairs += [(a.attn_norm, b.attn_norm), (a.ffn_norm, b.ffn_norm)]
+    for qa, qb in ((a.wqkv, b.wqkv), (a.wo, b.wo), (a.w_gate_up, b.w_gate_up),
+                   (a.w_down, b.w_down)):
+        pairs += [(qa.qw, qb.qw), (qa.scales, qb.scales),
+                  (qa.zeros, qb.zeros)]
+    if not all(x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs):
+        raise AssertionError("the .bin's weights differ from the "
+                             "synthetic ones")
+    return out
+
+
+def dp_tp_serve(torch, cfg, path, tok_path, ckpt, full, launches):
+    """`serve --dp 2 --tp 2` through serve.run_replicas, with every rank
+    on cuda:0 over gloo (see the module docstring, phase 12): 8
+    concurrent completions, 4 streamed, queued before the engine threads
+    start; each stream replayed through the single-device forward."""
+    import datetime
+
+    from llama_cu_awq_torch.serve import (build_argparser, make_server,
+                                          run_replicas)
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+
+    dp, tp = DP_TP
+    args = build_argparser().parse_args(
+        [path, "-z", tok_path, "--dp", str(dp), "--tp", str(tp), "--slots",
+         "2", "--max-seq", "512", "-t", "0", "-s", "1"])
+    tok = Tokenizer(tok_path, cfg.vocab_size)
+    lengths = (20, 45, 70, 95, 120, 145, 170, 200)
+    prompts = [[1] + [3 + (104729 * (i + 131 * j)) % 31990
+                      for i in range(n - 1)]
+               for j, n in enumerate(lengths)]
+    res = {}
+
+    def body(engines):
+        httpd, seng = make_server(engines, tok, host="127.0.0.1", port=0)
+        # each request's id and the token ids it was routed, read on the
+        # engine threads (a streamed reply carries text alone)
+        ids, rid_of = {}, {}
+        route, submit = seng._route, seng.submit
+
+        def recording(r, results):
+            for lrid, new, _ in results:
+                ids.setdefault((r.idx, lrid), []).extend(new)
+            route(r, results)
+
+        def submitting(prompt, **kw):
+            rid, q = submit(prompt, **kw)
+            rid_of[tuple(prompt)] = rid
+            return rid, q
+
+        seng._route, seng.submit = recording, submitting
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        replies = {}
+
+        def client(i):
+            replies[i] = http_json(base + "/v1/completions",
+                                   {"prompt": prompts[i], "max_tokens": 16,
+                                    "temperature": 0.0},
+                                   stream=i % 2 == 1)
+
+        def run():
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            deadline = time.perf_counter() + 120
+            while seng.stats()["queued_requests"] < len(prompts):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("dp2_tp2: requests not queued")
+                time.sleep(0.005)
+            t0 = time.perf_counter()
+            seng.start()
+            for t in threads:
+                t.join(timeout=600)
+            return time.perf_counter() - t0
+
+        try:
+            res["wall"] = run_path(torch, "dp2_tp2_serve", run, launches)
+            res["stats"] = http_json(base + "/stats")[1]
+        finally:
+            httpd.shutdown()
+            seng.stop()
+            httpd.server_close()
+            server.join(timeout=30)
+        res["replies"] = replies
+        res["ids"] = {i: ids.get(rid_of.get(tuple(p)), [])
+                      for i, p in enumerate(prompts)}
+        return 0
+
+    t0 = time.time()
+    rc = run_replicas(args, ckpt, tok, body, devices=["cuda:0"] * (dp * tp),
+                      backend="gloo",
+                      timeout=datetime.timedelta(seconds=600))
+    seconds = time.time() - t0
+    replies, stats = res["replies"], res["stats"]
+    # each reply against the ids its request was routed: token_ids for a
+    # blocking one, the text of those ids for a streamed one
+    streams = res["ids"]
+    for i, p in enumerate(prompts):
+        r = replies.get(i)
+        if r is None or r[0] != 200:
+            raise AssertionError(f"dp2_tp2: request {i} failed: {r}")
+        same = (tok_text(tok, p, streams[i]) == r[1] and r[2] == "stop"
+                if i % 2 else
+                r[1]["choices"][0]["token_ids"] == streams[i])
+        if not same or len(streams[i]) != 16:
+            raise AssertionError(f"dp2_tp2: request {i}'s reply is not "
+                                 f"the 16 tokens it was routed: {r}")
+    served = [p["requests"] for p in stats["replicas"]]
+    gaps = [tp_replay(torch, cfg, full, f"dp2_tp2 request {i}", prompts[i],
+                      streams[i], "auto")[0] for i in range(len(prompts))]
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "e2e": "dp2_tp2_serve_http", "model": "llama2-7b", "dp": dp,
+        "tp": tp, "processes": 1 + dp * (tp - 1), "backend": "gloo",
+        "slots_per_replica": 2, "max_seq": 512, "spec": "ngram",
+        "requests": len(prompts), "streamed": len(prompts) // 2,
+        "max_new": 16, "prompt_lengths": list(lengths),
+        "finished": len(streams), "wall_s": res["wall"],
+        "seconds_with_startup": seconds, "served_per_replica": served,
+        "server_stats": stats, "exit_code_of_every_rank": rc,
+        "replay_max_gap": max(gaps),
+        "replay_tolerance": "2 % of the replayed top logit",
+        "kernels_launched": launches["dp2_tp2_serve"]["kernels"],
+        "note": "3 processes sharing one card over gloo: not a speed"}),
+        flush=True)
+    if rc != 0 or min(served) < 2 or stats["requests"] != len(prompts):
+        raise AssertionError(f"dp2_tp2: rc {rc}, served {served}")
+
+
+def tok_text(tok, prompt, ids):
+    """The text the server streams for ids after prompt (its pieces)."""
+    prev, out = prompt[-1], []
+    for t in ids:
+        out.append(tok.safe_piece(tok.decode(prev, t)))
+        prev = t
+    return "".join(out)
+
+
+# the fused_step rows against the plain-attention row of their cache
+PPL_PAIRS = (("bf16 KV, einsum", "bf16 KV, fused_step"),
+             ("int8 KV, einsum", "int8 KV, fused_step"),
+             ("int4 KV, einsum", "int4 KV, fused_step"))
+
+
+def ppl_text(tmp):
+    """The ppl matrix's text: 2 sequences of 128 letters and spaces from
+    seed 0 (one token a byte under the byte tokenizer), joined by
+    <|endoftext|>; (the sequences, the file's path)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
+    seqs = [bytes(rng.choice(letters, 128)).decode() for _ in range(2)]
+    path = os.path.join(tmp, "valid.txt")
+    with open(path, "w") as f:
+        f.write("<|endoftext|>".join(seqs))
+    return seqs, path
+
+
+def ppl_tool(path, tok_path, text_path, out):
+    """`python -m llama_cu_awq_torch.tools.ppl_matrix` as a user runs it,
+    on the bf16 rows (`--only` splits on commas: "bf16 KV" takes both),
+    started in the background: it runs beside the served run."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "llama_cu_awq_torch.tools.ppl_matrix", path,
+         "-z", tok_path, "-q", text_path, "--only", "bf16 KV", "--json",
+         out], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ppl_matrix_run(torch, tok_path, base, seqs, tool, out, launches):
+    """tools/ppl_matrix's 8 rows in this process through the tool's own
+    functions, each under the launch counters; then the tool's own run
+    (ppl_tool), whose rows must equal these (see the module docstring,
+    phase 12)."""
+    from llama_cu_awq_torch.config import LLAMA2_7B as cfg
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+    from llama_cu_awq_torch.tools import ppl_matrix as pm
+
+    t0 = time.time()
+    tok = Tokenizer(tok_path, cfg.vocab_size)
+    text = "<|endoftext|>".join(seqs)
+    rows, secs, used = [], {}, {}
+    for label, kw, bits in pm.MATRIX:
+        name = "ppl_" + label.replace(" ", "_").replace(",", "")
+        t1 = time.time()
+        rows.append(run_path(torch, name, lambda: pm.score_row(
+            base, cfg, tok, text, 30, label, kw, bits, "cuda"), launches))
+        secs[label] = time.time() - t1
+        used[label] = launches[name]
+        torch.cuda.empty_cache()
+    by = {r["config"]: r for r in rows}
+    d_ln = {f: abs(math.log(by[f]["geomean_ppl"])
+                   - math.log(by[e]["geomean_ppl"])) for e, f in PPL_PAIRS}
+    _, err = tool.communicate(timeout=600)
+    if tool.returncode != 0:
+        raise AssertionError(f"ppl_matrix tool: {err[-2000:]}")
+    with open(out) as f:
+        tool_json = json.load(f)
+
+    def variants(label, prefix):
+        return sum(n for k, n in used[label]["variants"].items()
+                   if k.startswith(prefix))
+
+    checks = {
+        "attention_step_bf16": variants("bf16 KV, fused_step",
+                                        "attention_step/bf16/"),
+        "attention_step_int8": variants("int8 KV, fused_step",
+                                        "attention_step/int8/"),
+        "attention_step_kv4_int4": variants("int4 KV, fused_step",
+                                            "attention_step_kv4/int4/"),
+        "dense_gemv_int8": variants("int8 lm_head", "dense_gemv/int8/"),
+        "int4_matmul_w4_head": variants("w4-g128 lm_head", "int4_matmul/"),
+        "int4_matmul_fused": variants("bf16 KV, einsum",
+                                      "int4_matmul_fused/"),
+        # the checkpoint's fp16 head takes the plain f32 product
+        "dense_gemv_fp16_head_rows": variants("bf16 KV, einsum",
+                                              "dense_gemv/"),
+    }
+    print(json.dumps({
+        "e2e": "ppl_matrix_7b", "model": "llama2-7b", "rows": rows,
+        "sequences": 2, "tokens_per_sequence": [len(tok.encode(
+            s, bos=False, eos=False)) for s in seqs],
+        "seconds_per_row": secs, "seconds": time.time() - t0,
+        "abs_d_ln_ppl_fused_step_vs_einsum": d_ln,
+        "launch_checks": checks, "tool_rows": tool_json["rows"],
+        "tool_device": tool_json["device"],
+        "head": "the checkpoint's fp16 (the JAX tool's), plain f32 "
+                "product; int8 and w4 heads take their kernels"}),
+        flush=True)
+    if not all(math.isfinite(r["geomean_ppl"]) for r in rows) or \
+            len(rows) != 8:
+        raise AssertionError(f"ppl_matrix: {rows}")
+    if not all(v <= 0.01 for v in d_ln.values()):
+        raise AssertionError(f"ppl_matrix: fused_step rows off: {d_ln}")
+    if checks["dense_gemv_fp16_head_rows"] or not all(
+            v > 0 for k, v in checks.items()
+            if k != "dense_gemv_fp16_head_rows"):
+        raise AssertionError(f"ppl_matrix: launches {checks}")
+    if tool_json["rows"] != [by["bf16 KV, einsum"],
+                             by["bf16 KV, fused_step"]]:
+        raise AssertionError(f"ppl_matrix tool rows {tool_json['rows']} "
+                             f"differ from this process's")
+
+
+def dp_tp_phase(torch, params):
+    """Phase 12 (see the module docstring): the seed-0 weights of phase 4
+    written to a 7B .bin, then `serve --dp 2 --tp 2` and the ppl
+    matrix on it. Returns the launches of its runs."""
+    import shutil
+
+    from llama_cu_awq_torch.config import LLAMA2_7B
+    from llama_cu_awq_torch.io.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    from llama_cu_awq_torch.tools.make_test_model import write_byte_tokenizer
+
+    t0 = time.time()
+    torch.cuda.empty_cache()  # the ranks share this process's card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dptp_")
+    path, tok_path = (os.path.join(tmp, "7b.bin"),
+                      os.path.join(tmp, "tok.bin"))
+    launches: dict[str, dict] = {}
+    tool = None
+    try:
+        save_checkpoint(path, synthetic_checkpoint(torch, params, LLAMA2_7B))
+        write_byte_tokenizer(tok_path, LLAMA2_7B.vocab_size)
+        seqs, text_path = ppl_text(tmp)
+        tool_out = os.path.join(tmp, "ppl.json")
+        tool = ppl_tool(path, tok_path, text_path, tool_out)
+        ckpt = load_checkpoint(path)
+        t_write = time.time() - t0
+        t1 = time.time()
+        # the single-device replay's weights: the TP shards' bf16 head
+        dp_tp_serve(torch, LLAMA2_7B, path, tok_path, ckpt,
+                    params_of_file(torch, params, ckpt, torch.bfloat16),
+                    launches)
+        t_serve = time.time() - t1
+        t1 = time.time()
+        # the tool's: the checkpoint's fp16 embed and head (its load())
+        ppl_matrix_run(torch, tok_path,
+                       params_of_file(torch, params, ckpt, None), seqs, tool,
+                       tool_out, launches)
+        t_ppl = time.time() - t1
+    finally:
+        if tool is not None and tool.poll() is None:
+            tool.kill()
+            tool.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"phase": "dp_tp_tools", "seconds": time.time() - t0,
+                      "checkpoint_write_s": t_write, "serve_s": t_serve,
+                      "ppl_matrix_s": t_ppl}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3861,17 +4236,27 @@ def main() -> int:
 
     rows: list[dict] = []
     timer = Timer(torch)
-    kernel_phase(torch, timer, rows)
     launches: dict[str, dict] = {}
-    params = e2e_phase(torch, launches)
-    prefill_phase(torch, params, launches)
-    graph_phase(torch, params, launches)
-    slice3_phase(torch, params, launches)
-    slice4_phase(torch, timer, rows, params, launches)
-    chain_phase(torch, timer, rows, params, launches)
-    act_dtype_phase(torch, timer, rows, params, launches)
-    served_head_cost(torch, params, LLAMA2_7B)
-    tp_phase(torch, rows, launches)
+
+    def timed(fn, *args):
+        """fn(*args), then a line with its wall seconds."""
+        t0 = time.time()
+        out = fn(*args)
+        print(json.dumps({"phase_seconds": fn.__name__,
+                          "seconds": time.time() - t0}), flush=True)
+        return out
+
+    timed(kernel_phase, torch, timer, rows)
+    params = timed(e2e_phase, torch, launches)
+    timed(prefill_phase, torch, params, launches)
+    timed(graph_phase, torch, params, launches)
+    timed(slice3_phase, torch, params, launches)
+    timed(slice4_phase, torch, timer, rows, params, launches)
+    timed(chain_phase, torch, timer, rows, params, launches)
+    timed(act_dtype_phase, torch, timer, rows, params, launches)
+    timed(served_head_cost, torch, params, LLAMA2_7B)
+    timed(tp_phase, torch, rows, launches)
+    launches.update(timed(dp_tp_phase, torch, params))
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

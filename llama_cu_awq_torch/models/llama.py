@@ -137,10 +137,10 @@ def params_from_checkpoint(ckpt: RawCheckpoint, device="cuda",
     dev = resolve_device(device)
 
     def dense(a, dtype):
-        if dtype is None:
-            return torch.from_numpy(np.array(a)).to(dev)
-        return torch.from_numpy(np.asarray(a, np.float32)).to(
-            device=dev, dtype=dtype)
+        # widened on the device: numpy's fp16 -> f32 is the slow part of
+        # a 7B load
+        t = torch.from_numpy(np.array(a)).to(dev)
+        return t if dtype is None else t.float().to(dtype)
 
     layers = [
         LlamaLayer(

@@ -8,6 +8,11 @@ row of tp consecutive ranks (on one host, ranks are its cards in order)
 and a dp group a column. `TPGroup` is what a rank's forward and engines
 take: its place in its tp row, the row's process group and backend, and
 the device it computes on.
+
+`make_replica_groups` lays the world out for `serve --dp N --tp M`
+instead: N replicas of M ranks whose rank 0 is one and the same process,
+the server, which holds shard 0 of every replica (the JAX server holds
+every replica in one process too, llama_cu_awq_tpu/serve.py:621-651).
 """
 
 from __future__ import annotations
@@ -90,6 +95,48 @@ def make_mesh(tp: int | None = None, dp: int | None = None,
     group = TPGroup(col, tp, tp_pg, backend, torch.device(device),
                     tuple(grid[row].tolist()))
     return Mesh(grid, group, dp_pg, row)
+
+
+def replica_ranks(dp: int, tp: int) -> list[tuple]:
+    """The global ranks of each replica's group under `serve --dp N --tp
+    M`, in shard order: replica r is (0, 1 + r*(M-1), ..., (r+1)*(M-1)),
+    so the world has 1 + N*(M-1) ranks and global rank 0 is shard 0 of
+    every replica."""
+    return [(0, *range(1 + r * (tp - 1), 1 + (r + 1) * (tp - 1)))
+            for r in range(dp)]
+
+
+def default_replica_devices(dp: int, tp: int, backend: str) -> list[str]:
+    """Replica r's shard c computes on entry r*M + c: cuda:r*M + c under
+    nccl (the JAX server's devices[i*tp:(i+1)*tp]), else the CPU."""
+    return [f"cuda:{i}" if backend == "nccl" else "cpu"
+            for i in range(dp * tp)]
+
+
+def make_replica_groups(dp: int, tp: int, devices=None) -> dict:
+    """This process's TPGroups under `serve --dp N --tp M`, by replica:
+    rank 0 gets one per replica (shard 0 of each), any other rank the one
+    it holds a shard of. Every rank calls it with the same arguments,
+    since torch.distributed.new_group is collective: every rank makes
+    every group, in replica order. devices: a list of dp*tp devices,
+    replica r's shard c at r*M + c (default: default_replica_devices).
+    Raises ValueError where the world is not 1 + N*(M-1) ranks."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if world != 1 + dp * (tp - 1):
+        raise ValueError(f"--dp {dp} --tp {tp} takes 1 + {dp}*({tp}-1) = "
+                         f"{1 + dp * (tp - 1)} ranks, the world has {world}")
+    backend = dist.get_backend() if dist.is_initialized() else "none"
+    if devices is None:
+        devices = default_replica_devices(dp, tp, backend)
+    out = {}
+    for r, ranks in enumerate(replica_ranks(dp, tp)):
+        g = dist.new_group(list(ranks)) if tp > 1 else None
+        if rank in ranks:
+            c = ranks.index(rank)
+            out[r] = TPGroup(c, tp, g, backend,
+                             torch.device(devices[r * tp + c]), ranks)
+    return out
 
 
 def all_reduce_sum(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:

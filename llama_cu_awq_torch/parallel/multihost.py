@@ -68,12 +68,23 @@ def is_coordinator() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def replica_shard(rank: int, tp: int) -> tuple[int, int]:
+    """(replica, shard) of global rank `rank` >= 1 under `serve --dp N
+    --tp M`: ranks 1..M-1 are replica 0's shards 1..M-1, the next M-1
+    replica 1's, and so on (mesh.replica_ranks); rank 0 holds shard 0 of
+    every replica."""
+    if rank < 1 or tp < 2:
+        raise ValueError(f"rank {rank} at --tp {tp} holds no one replica")
+    return (rank - 1) // (tp - 1), 1 + (rank - 1) % (tp - 1)
+
+
 def run_ranks(n: int, leader, follower, extra: tuple) -> int:
     """Run rank 0 here, leader(init_method), and ranks 1..n-1 as spawned
     processes, each follower(rank, n, init_method, *extra). The ranks join
     through a file in a fresh temporary directory. A rank that fails makes
     the others fail or time out; the processes are stopped either way.
-    Returns the largest exit code of the ranks."""
+    Returns 0 where every rank exited with 0, else the first other code
+    in rank order (a negative one: that rank was killed by the signal)."""
     tmp = tempfile.mkdtemp(prefix="llama_tp_")
     init = "file://" + os.path.join(tmp, "init")
     ctx = mp.get_context("spawn")
@@ -85,7 +96,8 @@ def run_ranks(n: int, leader, follower, extra: tuple) -> int:
         rc = leader(init)
         for p in procs:
             p.join()
-        return max([rc] + [p.exitcode for p in procs])
+        return next((c for c in [rc] + [p.exitcode for p in procs] if c),
+                    0)
     finally:
         for p in procs:
             if p.is_alive():

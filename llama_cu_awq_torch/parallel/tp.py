@@ -92,10 +92,8 @@ def _row_shard(raw: RawQWeight, tp: int, rank: int, device) -> QTensor:
 def _dense(a: np.ndarray, dtype, device) -> torch.Tensor:
     """A dense fp16 array in dtype, or with None its fp16 bits as they
     are (params_from_checkpoint's rule)."""
-    if dtype is None:
-        return torch.from_numpy(np.array(a)).to(device)
-    return torch.from_numpy(np.asarray(a, np.float32)).to(device=device,
-                                                           dtype=dtype)
+    t = torch.from_numpy(np.array(a)).to(device)  # widened on the device
+    return t if dtype is None else t.float().to(dtype)
 
 
 def tp_params_from_checkpoint(ckpt: RawCheckpoint, tp: int, rank: int,

@@ -28,15 +28,17 @@ The counterpart of llama_cu_awq_tpu/serve.py, stdlib only
   its request.
 
 CLI: python -m llama_cu_awq_torch.serve model.bin -z tokenizer.bin \
-         [--port 8000] [--slots 16] [--dp N | --tp N] [--device cuda|cpu]
+         [--port 8000] [--slots 16] [--dp N] [--tp M] [--device cuda|cpu]
 
---tp N serves one model in tensor parallelism over N ranks (parallel/tp.py,
-engine/batch.py): this process is rank 0 and owns HTTP, the queue and the
-scheduler; it starts ranks 1..N-1 itself (parallel/multihost.py
-run_ranks), which build their shards and follow its engine's dispatches.
-With --device cuda rank r runs on cuda:r over nccl, with --device cpu over
-gloo. The engines run eagerly (no CUDA graphs). --dp with --tp is not
-supported yet.
+--dp N serves N replicas of the model, each request routed to the
+least-loaded one. --tp M serves each replica in tensor parallelism over M
+ranks (parallel/tp.py, engine/batch.py): this process is global rank 0,
+owns HTTP, the queue and the schedulers, and holds shard 0 of every
+replica (parallel/mesh.py make_replica_groups); it starts the other
+N*(M-1) ranks itself (parallel/multihost.py run_ranks), each of which
+builds its shard and follows its replica's dispatches. With --device cuda
+replica r's shard c runs on cuda:r*M + c over nccl (N*M cards), with
+--device cpu over gloo. TP engines run eagerly (no CUDA graphs).
 """
 
 from __future__ import annotations
@@ -600,12 +602,12 @@ def build_argparser():
                     help="keep the KV rows of up to N prompt prefixes "
                          "(block-multiple lengths) for admission by copy")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel over N ranks, one process and "
-                         "(with --device cuda) one card each")
+                    help="tensor-parallel over M ranks a replica, one "
+                         "process and (with --device cuda) one card each")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel replicas: one BatchEngine per card "
-                         "(cuda:0..N-1), requests routed to the least-"
-                         "loaded replica")
+                    help="data-parallel replicas: one BatchEngine per group "
+                         "of --tp cards (replica r on cuda:r*M..r*M+M-1), "
+                         "requests routed to the least-loaded replica")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default) or the CPU")
     return ap
@@ -613,10 +615,6 @@ def build_argparser():
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.tp > 1 and args.dp > 1:
-        raise NotImplementedError(
-            "--dp with --tp: a replica of several ranks needs a leader "
-            "per replica and its own process group, not ported yet")
     if args.seed <= 0:
         args.seed = int(time.time())
 
@@ -633,29 +631,58 @@ def main(argv=None) -> int:
         if need > have:
             raise SystemExit(f"--dp {args.dp} x --tp {args.tp} needs "
                              f"{need} cards, have {have}")
-        devices = [f"cuda:{i}" for i in range(args.dp)]
-    else:
-        devices = ["cpu"] * args.dp
     ckpt = load_checkpoint(args.checkpoint, verbose=True)
     tokenizer = Tokenizer(args.tokenizer, ckpt.config.vocab_size)
     if args.tp == 1:
+        devices = ([f"cuda:{i}" for i in range(args.dp)]
+                   if args.device == "cuda" else ["cpu"] * args.dp)
         return _serve(args, [_engine(args, ckpt, tokenizer, dev, seed=i)
                              for i, dev in enumerate(devices)], tokenizer)
+    return run_replicas(args, ckpt, tokenizer,
+                        lambda engines: _serve(args, engines, tokenizer))
 
+
+def run_replicas(args, ckpt, tokenizer, body, devices=None,
+                 backend=None, timeout=None) -> int:
+    """Serve `--dp N --tp M` (M > 1) through body(engines): this process
+    is global rank 0 and builds the N replicas' leader engines (shard 0
+    of each, parallel/mesh.py make_replica_groups); it spawns ranks 1 ..
+    N*(M-1) (parallel/multihost.py run_ranks), each of which builds its
+    replica's shard and follows that replica's leader. When body returns,
+    every leader stops its followers. Returns 0 where body and every
+    rank returned or exited with 0 (multihost.run_ranks).
+
+    devices: N*M devices, replica r's shard c at r*M + c (default: cuda:
+    r*M + c, or the CPU with --device cpu); backend: "nccl" by default
+    with --device cuda (a card per rank; rank 0 then drives N cards over
+    NCCL, untried: every card run of this path had one card), else
+    "gloo" (the CPU, or ranks sharing one card); timeout: each rank's
+    wait on the others, a datetime.timedelta (torch.distributed's default
+    where None)."""
+    import torch
+
+    from llama_cu_awq_torch.parallel.mesh import default_replica_devices
     from llama_cu_awq_torch.parallel.multihost import run_ranks
     from llama_cu_awq_torch.parallel.tp import _check_divisible
 
     _check_divisible(ckpt.config, args.tp)  # before any rank starts
+    if backend is None:
+        backend = "nccl" if args.device == "cuda" else "gloo"
+    if devices is None:
+        devices = default_replica_devices(args.dp, args.tp, backend)
 
     def leader(init):
-        be = _tp_engine(args, ckpt, tokenizer, 0, init)
+        engines = _replica_engines(args, ckpt, tokenizer, 0, init, backend,
+                                   devices, timeout)
         try:
-            return _serve(args, [be], tokenizer)
+            return body([engines[r] for r in range(args.dp)])
         finally:
-            be.stop_followers()
+            for be in engines.values():
+                be.stop_followers()
             torch.distributed.destroy_process_group()
 
-    return run_ranks(args.tp, leader, _tp_follower, (args,))
+    return run_ranks(1 + args.dp * (args.tp - 1), leader, _replica_follower,
+                     (args, backend, devices, timeout))
 
 
 def _engine(args, ckpt, tokenizer, device, seed: int = 0, params=None,
@@ -680,28 +707,38 @@ def _engine(args, ckpt, tokenizer, device, seed: int = 0, params=None,
         capture=tp is None)
 
 
-def _tp_engine(args, ckpt, tokenizer, rank: int, init: str):
-    """Rank `rank`'s BatchEngine under --tp: it joins the group and builds
-    its shard, with tp_params_from_checkpoint's default bf16 embed and
-    head (the JAX server's, llama_cu_awq_tpu/serve.py:639)."""
+def _replica_engines(args, ckpt, tokenizer, rank: int, init: str,
+                     backend: str, devices, timeout=None) -> dict:
+    """Global rank `rank`'s BatchEngines under --tp, by replica: it joins
+    the world and the replicas' groups and builds its shard of each
+    replica it is in (rank 0: shard 0 of every one), with
+    tp_params_from_checkpoint's default bf16 embed and head (the JAX
+    server's, llama_cu_awq_tpu/serve.py:639). Replica r's seed is
+    args.seed + r (the JAX server's seed=args.seed + i)."""
     import torch
 
-    from llama_cu_awq_torch.parallel import init_multihost, make_mesh
+    from llama_cu_awq_torch.parallel import (init_multihost,
+                                             make_replica_groups,
+                                             replica_shard)
     from llama_cu_awq_torch.parallel.tp import tp_params_from_checkpoint
 
-    cuda = args.device == "cuda"
-    device = torch.device("cuda", rank) if cuda else torch.device("cpu")
-    if cuda:
-        torch.cuda.set_device(device)
-    init_multihost(init, args.tp, rank, backend="nccl" if cuda else "gloo")
-    tp = make_mesh(tp=args.tp, dp=1, device=device).tp_group
-    params = tp_params_from_checkpoint(ckpt, args.tp, rank, device=device)
-    return _engine(args, ckpt, tokenizer, device, params=params, tp=tp)
+    r, c = replica_shard(rank, args.tp) if rank else (0, 0)
+    first = torch.device(devices[r * args.tp + c])
+    if first.type == "cuda":
+        torch.cuda.set_device(first)
+    init_multihost(init, 1 + args.dp * (args.tp - 1), rank, backend=backend,
+                   timeout=timeout)
+    groups = make_replica_groups(args.dp, args.tp, devices)
+    return {r: _engine(args, ckpt, tokenizer, tp.device, seed=r, tp=tp,
+                       params=tp_params_from_checkpoint(
+                           ckpt, args.tp, tp.rank, device=tp.device))
+            for r, tp in groups.items()}
 
 
-def _tp_follower(rank: int, n: int, init: str, args) -> None:
-    """Rank 1..n-1 of `serve --tp n` (a spawned process): its engine
-    follows rank 0's until rank 0 stops it."""
+def _replica_follower(rank: int, n: int, init: str, args, backend: str,
+                      devices, timeout=None) -> None:
+    """Global rank 1..n-1 under --tp (a spawned process): its engine
+    follows its replica's leader until the leader stops it."""
     import signal
 
     import torch
@@ -712,9 +749,10 @@ def _tp_follower(rank: int, n: int, init: str, args) -> None:
     # rank 0 takes the interrupt and stops this rank (stop_followers)
     signal.signal(signal.SIGINT, signal.SIG_IGN)
     ckpt = load_checkpoint(args.checkpoint)
-    be = _tp_engine(args, ckpt, Tokenizer(args.tokenizer,
-                                          ckpt.config.vocab_size),
-                    rank, init)
+    engines = _replica_engines(
+        args, ckpt, Tokenizer(args.tokenizer, ckpt.config.vocab_size), rank,
+        init, backend, devices, timeout)
+    (be,) = engines.values()
     be.follow()
     torch.distributed.destroy_process_group()
 
@@ -730,7 +768,8 @@ def _serve(args, engines, tokenizer) -> int:
     log.info("serving on %s:%d (%d slots x %d replicas, max_seq %d%s)",
              args.host, httpd.server_address[1], args.slots, args.dp,
              engines[0].max_seq,
-             f", {args.tp} tensor-parallel ranks" if args.tp > 1 else "")
+             f", {args.tp} tensor-parallel ranks a replica"
+             if args.tp > 1 else "")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

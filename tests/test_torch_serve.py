@@ -489,10 +489,10 @@ def test_router_all_down_503():
         rhttpd.server_close()
 
 
-def test_serve_cli_flags():
+def test_serve_cli_flags(tmp_path):
     """serve's flags: the JAX server's, with --device in place of
-    --platform and without --impl; --dp with --tp still raises, before
-    it reads the checkpoint."""
+    --platform and without --impl; --dp with --tp is taken: main gets
+    past the flags and stops at the missing checkpoint."""
     from llama_cu_awq_torch.serve import main
 
     args = build_argparser().parse_args(["m.bin", "--device", "cpu",
@@ -501,8 +501,26 @@ def test_serve_cli_flags():
         "cpu", 2, 2, "ngram", 16)
     with pytest.raises(SystemExit):
         build_argparser().parse_args(["m.bin", "--impl", "pallas"])
-    with pytest.raises(NotImplementedError, match="--dp with --tp"):
-        main(["m.bin", "--tp", "2", "--dp", "2", "--device", "cpu"])
+    missing = str(tmp_path / "m.bin")
+    with pytest.raises(FileNotFoundError, match="m.bin"):
+        main([missing, "--tp", "2", "--dp", "2", "--device", "cpu"])
+
+
+def test_serve_card_check_counts_dp_times_tp(tmp_path, monkeypatch):
+    """With --device cuda, main needs --dp x --tp cards and exits before
+    it reads the checkpoint where the host has fewer (the JAX server's
+    check, llama_cu_awq_tpu/serve.py:630-632)."""
+    from llama_cu_awq_torch import device as t_device
+    from llama_cu_awq_torch.serve import main
+
+    monkeypatch.setattr(t_device, "resolve_device", torch.device)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    missing = str(tmp_path / "m.bin")
+    with pytest.raises(SystemExit, match="--dp 2 x --tp 2 needs 4 cards, "
+                                         "have 1"):
+        main([missing, "--tp", "2", "--dp", "2"])
+    with pytest.raises(FileNotFoundError):
+        main([missing])  # one card is enough for one
 
 
 def test_served_head_is_the_checkpoints_fp16(tmp_path):
