@@ -189,6 +189,28 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      einsum row, and `python -m llama_cu_awq_torch.tools.ppl_matrix
      --only "bf16 KV"` run once as a user runs it (beside the served
      run), its rows equal to these (e2e ppl_matrix_7b).
+ 13. (run last) the trainer, and a trained model through the kernels:
+     llama_cu_awq_torch/tools/build_corpus --max-mb 2 over the installed
+     packages' documentation; make_test_model's byte tokenizer at vocab 32000;
+     tools/train_tiny at its full widths (dim 512, hidden 1536, 8 layers,
+     batch 32 x 256) with 4 heads of 128 for 300 steps (the JAX default
+     is 3000: the phase's one cut) in plain f32 on the card (step ms,
+     tokens/s, peak memory, the logged losses; every loss finite, the
+     last valid loss below the first and below ln 259, uniform over the
+     ids the tokenizer emits; no inference kernel launched); one train
+     step's loss and gradients from the trained params on the card against
+     the CPU (rel 1e-4); pack_weights on its dump; then through the CLI in
+     this process: 64 greedy tokens from 400 characters of valid.txt's
+     first document, plain and --spec ngram, each held to an engine's
+     tokens on the same weights and replayed through plain decode
+     (replay_check; the acceptance rate on real text); tools/ppl_matrix's
+     8 rows on valid.txt's first 4 documents through its own functions
+     (finite; each fused_step row within 0.01 of its einsum row and
+     launching its attention kernel); and the perplexity of the first 8
+     documents (|delta ln ppl| <= 0.01 against --device cpu, run as its
+     own process beside the card runs; within 0.25 of the float model's
+     ln ppl through train_tiny's forward_loss); each run under the launch
+     counters, with the launches per kernel table row over the phase.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm, torch._weight_int8pack_mm; the
@@ -4200,6 +4222,479 @@ def dp_tp_phase(torch, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the trainer on real text, and the trained model through the
+# kernels
+
+TRAIN_STEPS = 300  # the JAX tool's default is 3000: the phase's one cut
+CORPUS_MB = 2      # build_corpus --max-mb
+PPL_DOCS = 8       # valid.txt's first documents, scored by the CLI
+MATRIX_SEQS = 4    # tools.ppl_matrix --seqs
+GEN_TOKENS = 64    # greedy tokens a generate run
+PROMPT_CHARS = 400  # the prompt: the head of valid.txt's first document
+# a model that learned nothing scores ln 259 nats a token: uniform over the
+# ids the byte tokenizer emits (3 specials and 256 bytes)
+UNIFORM_NATS = math.log(259)
+# a train step on the card against the CPU: the loss's relative error
+# against the CPU's f32; each gradient leaf's error norm, against an f64
+# step on the CPU, within STEP_F32_MARGIN times the CPU f32 step's own or
+# within STEP_REL of the leaf's norm (f32 sums in other orders: a fault,
+# or TF32's 10-bit products, reads far past either)
+STEP_REL = 1e-4
+STEP_F32_MARGIN = 3.0
+# |delta ln ppl| of the kernels against their plain versions (phases 5,
+# 10-12), and of the w4-g128 model against its float parameters
+PPL_KERNEL_BAR = 0.01
+W4_FLOAT_BAR = 0.25
+# §6's rows, by the kernel a launch counts under
+SECTION6_ROW = {"int4_matmul_fused": 1, "int4_matmul": 2, "dense_gemv": 3,
+                "attention_step": 4, "attention_step_kv4": 5,
+                "prefill_attention": 6, "batched_decode_attention": 7,
+                "down_qkv": 8, "ffn_chain": 9, "mono_layer": 10}
+
+
+def corpus_run(tmp):
+    """build_corpus --max-mb CORPUS_MB from this machine's installed
+    packages; (the corpus directory, valid.txt's documents)."""
+    from llama_cu_awq_torch.tools import build_corpus
+
+    corpus = os.path.join(tmp, "corpus")
+    t0 = time.time()
+    build_corpus.main(["--out", corpus, "--max-mb", str(CORPUS_MB)])
+    seconds = time.time() - t0
+    docs = {}
+    for split in ("train", "valid"):
+        with open(os.path.join(corpus, f"{split}.txt"),
+                  encoding="utf-8") as f:
+            docs[split] = f.read().split(build_corpus.SEP)
+    print(json.dumps({
+        "e2e": "build_corpus", "max_mb": CORPUS_MB, "seconds": seconds,
+        "packages": [os.path.basename(r)
+                     for r in build_corpus.package_roots()],
+        **{f"{s}_docs": len(d) for s, d in docs.items()},
+        **{f"{s}_mb": sum(len(x.encode()) for x in d) / 1e6
+           for s, d in docs.items()}}), flush=True)
+    if len(docs["valid"]) < 2:
+        raise AssertionError(f"build_corpus: {len(docs['valid'])} valid "
+                             f"documents")
+    return corpus, docs["valid"]
+
+
+def train_run(torch, corpus, tok_path, out, launches):
+    """train_tiny at its full widths with 4 heads of 128 and TRAIN_STEPS
+    steps, gated: every logged loss finite, the last valid loss below the
+    first and below UNIFORM_NATS. Returns run()'s record."""
+    from llama_cu_awq_torch.tools import train_tiny
+
+    argv = ["--corpus", corpus, "--out", out, "--tokenizer", tok_path,
+            "--heads", "4", "--kv-heads", "4", "--steps", str(TRAIN_STEPS)]
+    args = train_tiny.build_argparser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rec = run_path(torch, "train_tiny", lambda: train_tiny.run(argv),
+                   launches)
+    wall = time.time() - t0
+    cfg, step_ms = rec["cfg"], rec["step_ms"]
+    ms = statistics.median(step_ms[10:])
+    tokens = args.batch * args.seq
+    # the products of a step: 6 flops a weight a token (forward and both
+    # backward products) for every matrix but the embedding, and the
+    # scores and their values: 6 * 2 * T * T * dim a sequence a layer
+    matrix_params = rec["n_params"] - cfg.vocab_size * cfg.dim - (
+        2 * cfg.n_layers + 1) * cfg.dim
+    flops = 6 * tokens * matrix_params + 12 * args.batch * cfg.n_layers \
+        * args.seq * args.seq * cfg.dim
+    log = rec["log"]
+    print(json.dumps({
+        "e2e": "train_tiny", "device": rec["device"],
+        "config": {"dim": cfg.dim, "hidden": cfg.hidden_dim,
+                   "layers": cfg.n_layers, "heads": cfg.n_heads,
+                   "kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab_size},
+        "params": rec["n_params"], "train_tokens": rec["train_tokens"],
+        "valid_tokens": rec["valid_tokens"], "steps": TRAIN_STEPS,
+        "batch": args.batch, "seq": args.seq, "lr": args.lr,
+        "step_ms_median_after_10": ms, "step_ms_min": min(step_ms[10:]),
+        "step_ms_max": max(step_ms[10:]), "first_step_ms": step_ms[0],
+        "train_tokens_per_s": tokens / (ms / 1e3),
+        "model_tflop_per_s": flops / (ms / 1e3) / 1e12,
+        "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+        "wall_s": wall, "log": log,
+        "kernels_launched": launches["train_tiny"]["kernels"]}),
+        flush=True)
+    losses = [r[k] for r in log for k in ("train_loss", "valid_loss")]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_tiny: non-finite loss in {log}")
+    first, last = log[0]["valid_loss"], log[-1]["valid_loss"]
+    if not (last < first and last < UNIFORM_NATS):
+        raise AssertionError(f"train_tiny: valid loss {first} -> {last} "
+                             f"(uniform {UNIFORM_NATS})")
+    if any(launches["train_tiny"]["kernels"].values()):
+        raise AssertionError("train_tiny launched an inference kernel")
+    return rec
+
+
+def train_step_check(torch, rec, valid_ids):
+    """One train step's loss and gradients (and the gradients after the
+    global-norm clip) from the trained params on a batch of 4 valid
+    sequences, on the card and on the CPU in f32, each held to an f64
+    step on the CPU (STEP_REL, STEP_F32_MARGIN)."""
+    import numpy as np
+
+    from llama_cu_awq_torch.tools import train_tiny as tt
+
+    cfg = rec["cfg"]
+    host = tt.params_to_numpy(rec["params"])
+    rng = np.random.default_rng(0)
+    span = 257
+    starts = rng.integers(0, len(valid_ids) - span, size=4)
+    batch = torch.from_numpy(np.stack([valid_ids[s:s + span]
+                                       for s in starts]))
+    res = {}
+    for way, dev, f64 in (("cuda", "cuda", False), ("cpu", "cpu", False),
+                          ("cpu_f64", "cpu", True)):
+        t0 = time.time()
+        params = tt.params_from_numpy(host, dev)
+        if f64:
+            for leaf in tt.leaves(params):
+                leaf.data = leaf.data.double()
+        loss, grads = tt.loss_and_grads(params, batch.to(dev), cfg)
+        clipped = tt.clip_by_global_norm(grads)
+        res[way] = (float(loss), [g.cpu().double() for g in grads],
+                    [g.cpu().double() for g in clipped], time.time() - t0)
+    names = tt.leaf_names(cfg.n_layers)
+
+    def errors(way, i, ref="cpu_f64"):
+        """Each leaf's error norm against ref's, over the leaf's norm."""
+        return {n: float((a - b).norm() / b.norm()) for n, a, b in
+                zip(names, res[way][i], res[ref][i])}
+
+    bad, worst = [], {}
+    for i, what in ((1, "grads"), (2, "clipped")):
+        card, cpu = errors("cuda", i), errors("cpu", i)
+        bad += [(what, n, card[n], cpu[n]) for n in names
+                if card[n] > max(STEP_F32_MARGIN * cpu[n], STEP_REL)]
+        n = max(card, key=card.get)
+        worst[what] = {"leaf": n, "cuda_rel": card[n], "cpu_rel": cpu[n],
+                       "max_cuda_vs_cpu_rel": max(
+                           errors("cuda", i, "cpu").values())}
+    loss_rel = abs(res["cuda"][0] / res["cpu"][0] - 1)
+    print(json.dumps({
+        "check": "train_step_cuda_vs_cpu", "batch": [4, span - 1],
+        "loss_cuda": res["cuda"][0], "loss_cpu": res["cpu"][0],
+        "loss_cpu_f64": res["cpu_f64"][0], "loss_rel": loss_rel,
+        "worst_leaf_vs_f64": worst, "outside": bad,
+        "tolerance": {"loss_rel": STEP_REL, "leaf": [STEP_F32_MARGIN,
+                                                     STEP_REL]},
+        "seconds": {w: r[3] for w, r in res.items()},
+        "why": "plain f32 on the card and the CPU (no TF32), the same sums "
+               "in other orders (the embedding's scatter in the card's), "
+               "each against an f64 step"}), flush=True)
+    if loss_rel > STEP_REL or bad:
+        raise AssertionError(f"train step: loss rel {loss_rel}; leaves "
+                             f"outside the bar: {bad}")
+
+
+def quiet_cli(argv):
+    """The CLI's main(argv) in this process; (exit code, its stdout)."""
+    import io
+
+    from llama_cu_awq_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def generate_ids(torch, eng, prompt, steps):
+    """engine.generate's tokens for prompt ids over `steps` (-n): the
+    prompt's prefill, then the decode loop (speculative when the engine's
+    spec is on), stopping at EOS. Returns (tokens, hit_eos)."""
+    eng.reset()
+    n_pref = min(len(prompt), steps)
+    if n_pref > 1:
+        eng._prefill(prompt[:n_pref - 1])
+    token = torch.tensor([prompt[n_pref - 1]], dtype=torch.int32,
+                         device="cuda")
+    return eng._decode_auto(token, steps - n_pref + 1)
+
+
+def printed_text(tok, prompt, gen, hit_eos):
+    """What generate prints for prompt ids and generated ids: the echoed
+    prompt, then every generated piece but the last (all at EOS)."""
+    return tok_text(tok, prompt[:1], prompt[1:]) + tok_text(
+        tok, prompt, gen if hit_eos else gen[:-1])
+
+
+def trained_generate(torch, bin_path, tok_path, ckpt, params, prompt_path,
+                     launches):
+    """64 greedy tokens through the CLI, plain and --spec ngram, each held
+    to the same engine's tokens on the same weights; both streams replayed
+    through plain T=1 decode (replay_check)."""
+    from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+
+    cfg = ckpt.config
+    tok = Tokenizer(tok_path, cfg.vocab_size)
+    with open(prompt_path) as f:
+        prompt = tok.encode(f.read(), bos=True, eos=False)
+    steps = len(prompt) + GEN_TOKENS - 1
+    res = {}
+    for spec in (None, "ngram"):
+        name = "trained_spec" if spec else "trained_generate"
+        argv = [bin_path, "-z", tok_path, "-t", "0.0", "-s", "1", "-n",
+                str(steps), "-f", prompt_path] + (["--spec", spec]
+                                                  if spec else [])
+        t0 = time.time()
+        rc, out = run_path(torch, name, lambda: quiet_cli(argv), launches)
+        wall = time.time() - t0
+        eng = InferenceEngine(params, cfg, tok, temperature=0.0, seed=1,
+                              spec=spec, max_seq=cfg.seq_len)
+        gen, hit = generate_ids(torch, eng, prompt, steps)
+        tps = next(float(ln.split()[2].rstrip(".")) for ln in
+                   out.splitlines() if ln.startswith("achieved tok/s: "))
+        st = dict(eng.spec_stats) if spec else None
+        if spec:
+            want = (f"spec: {st['verifies']} verifies, {st['accepted']}/"
+                    f"{st['proposed']} proposals accepted")
+            if want not in out:
+                raise AssertionError(f"{name}: the CLI's spec line differs "
+                                     f"from {want!r}: {out[-400:]}")
+        if rc != 0 or printed_text(tok, prompt, gen, hit) not in out:
+            raise AssertionError(f"{name}: rc {rc}; the CLI printed "
+                                 f"another stream: {out[-400:]}")
+        res[name] = dict(gen=gen, hit_eos=hit, tok_per_s_cli=tps,
+                         wall_s=wall, stats=st)
+        del eng
+    base, spec_gen = res["trained_generate"]["gen"], res["trained_spec"]["gen"]
+    st = res["trained_spec"]["stats"]
+    print(json.dumps({
+        "e2e": "trained_generate", "prompt_tokens": len(prompt),
+        "generated": {k: len(v["gen"]) for k, v in res.items()},
+        "hit_eos": {k: v["hit_eos"] for k, v in res.items()},
+        "tok_per_s_cli": {k: v["tok_per_s_cli"] for k, v in res.items()},
+        "cli_wall_s": {k: v["wall_s"] for k, v in res.items()},
+        "spec_stats": st, "acceptance_rate": (
+            st["accepted"] / st["proposed"] if st["proposed"] else 0.0),
+        "spec_equal_to_plain": spec_gen == base,
+        "text": tok_text(tok, prompt, base)[:300]}), flush=True)
+    if not base or not all(0 <= t < cfg.vocab_size for t in base):
+        raise AssertionError(f"trained_generate: bad stream {base}")
+    replay_check(torch, params, cfg, prompt, base, base, cfg.seq_len)
+    replay_check(torch, params, cfg, prompt, spec_gen, base, cfg.seq_len)
+    return st
+
+
+def geomean_line(out):
+    """(sequences, geomean perplexity) from the CLI's perplexity output."""
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("Geomean perplexity on "))
+    return int(line.split()[3]), float(line.rsplit(" ", 1)[1])
+
+
+def float_ln_ppl(torch, rec, tok, docs):
+    """The float model's ln perplexity of each document through
+    train_tiny's forward_loss, with the perplexity harness's protocol:
+    BOS first, at most seq_len - 1 scored tokens."""
+    from llama_cu_awq_torch.tokenizer import BOS_TOKEN
+    from llama_cu_awq_torch.tools.train_tiny import forward_loss
+
+    cfg = rec["cfg"]
+    out = []
+    with torch.no_grad():
+        for d in docs:
+            ids = tok.encode(d, bos=False, eos=False)[:cfg.seq_len - 1]
+            if ids:
+                x = torch.tensor([[BOS_TOKEN] + ids], device="cuda")
+                out.append(float(forward_loss(rec["params"], x, cfg)))
+    return out
+
+
+def trained_perplexity(torch, bin_path, tok_path, text_path, docs, rec,
+                       cpu_run, launches):
+    """The CLI's perplexity of the first PPL_DOCS documents on the card
+    (the kernels) against --device cpu (the plain versions, cpu_run, a
+    process started beside it), and against the float model's."""
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+
+    t0 = time.time()
+    rc, out = run_path(torch, "trained_perplexity", lambda: quiet_cli(
+        [bin_path, "-z", tok_path, "-m", "perplexity", "-q", text_path,
+         "-s", "1"]), launches)
+    card_s = time.time() - t0
+    out_cpu, err_cpu = cpu_run.communicate(timeout=600)
+    if rc != 0 or cpu_run.returncode != 0:
+        raise AssertionError(f"perplexity: rc {rc} / "
+                             f"{cpu_run.returncode}: {err_cpu[-2000:]}")
+    n, geo = geomean_line(out)
+    n_cpu, geo_cpu = geomean_line(out_cpu)
+    tok = Tokenizer(tok_path, rec["cfg"].vocab_size)
+    flt = float_ln_ppl(torch, rec, tok, docs)
+    ln_float = sum(flt) / len(flt)
+    d_kernel = abs(math.log(geo) - math.log(geo_cpu))
+    d_float = abs(math.log(geo) - ln_float)
+    print(json.dumps({
+        "e2e": "trained_perplexity", "documents": len(docs),
+        "sequences": n, "sequences_cpu": n_cpu,
+        "tokens": [len(tok.encode(d, bos=False, eos=False)) for d in docs],
+        "geomean_ppl_kernels": geo, "geomean_ppl_plain_cpu": geo_cpu,
+        "ln_ppl_kernels": math.log(geo), "ln_ppl_float": ln_float,
+        "ln_ppl_float_per_doc": flt,
+        "abs_d_ln_ppl_kernels_vs_plain": d_kernel,
+        "abs_d_ln_ppl_w4_vs_float": d_float,
+        "tolerances": [PPL_KERNEL_BAR, W4_FLOAT_BAR], "card_s": card_s,
+        "kernels_launched": launches["trained_perplexity"]["kernels"]}),
+        flush=True)
+    if n != len(flt) or n_cpu != n:
+        raise AssertionError(f"perplexity: {n} / {n_cpu} / {len(flt)} "
+                             f"sequences")
+    if not (d_kernel <= PPL_KERNEL_BAR and d_float <= W4_FLOAT_BAR):
+        raise AssertionError(f"perplexity: |d ln ppl| {d_kernel} against "
+                             f"plain, {d_float} against float")
+
+
+def trained_ppl_matrix(torch, bin_path, tok_path, text_path, launches):
+    """tools.ppl_matrix --seqs MATRIX_SEQS on the trained model through the
+    tool's own functions, each row under the launch counters: every row
+    finite, each fused_step row within PPL_KERNEL_BAR of its cache's
+    einsum row and launching attention_step (head_dim 128)."""
+    from llama_cu_awq_torch.tools import ppl_matrix as pm
+
+    t0 = time.time()
+    base, cfg, tok = pm.load(bin_path, tok_path, "cuda")
+    with open(text_path) as f:
+        text = f.read()
+    seqs = min(MATRIX_SEQS, len(text.split("<|endoftext|>")))
+    rows, secs = [], {}
+    for label, kw, bits in pm.MATRIX:
+        name = "trained_ppl_" + label.replace(" ", "_").replace(",", "")
+        t1 = time.time()
+        rows.append(run_path(torch, name, lambda: pm.score_row(
+            base, cfg, tok, text, MATRIX_SEQS, label, kw, bits, "cuda"),
+            launches))
+        secs[label] = time.time() - t1
+        torch.cuda.empty_cache()
+    by = {r["config"]: r for r in rows}
+    d_ln = {f: abs(math.log(by[f]["geomean_ppl"])
+                   - math.log(by[e]["geomean_ppl"])) for e, f in PPL_PAIRS}
+    fused = {f: launches["trained_ppl_" + f.replace(" ", "_").replace(
+        ",", "")]["kernels"][k] for f, k in (
+            ("bf16 KV, fused_step", "attention_step"),
+            ("int8 KV, fused_step", "attention_step"),
+            ("int4 KV, fused_step", "attention_step_kv4"))}
+    print(json.dumps({
+        "e2e": "trained_ppl_matrix", "sequences": MATRIX_SEQS,
+        "rows": rows, "table": pm.table(rows), "seconds_per_row": secs,
+        "seconds": time.time() - t0,
+        "abs_d_ln_ppl_fused_step_vs_einsum": d_ln,
+        "fused_step_attention_launches": fused}), flush=True)
+    if len(rows) != len(pm.MATRIX) or not all(
+            math.isfinite(r["geomean_ppl"]) and r["sequences"] == seqs
+            for r in rows):
+        raise AssertionError(f"trained ppl_matrix: {rows}")
+    if not all(v <= PPL_KERNEL_BAR for v in d_ln.values()):
+        raise AssertionError(f"trained ppl_matrix: fused_step rows off: "
+                             f"{d_ln}")
+    if not all(fused.values()):
+        raise AssertionError(f"trained ppl_matrix: fused_step rows ran no "
+                             f"attention kernel: {fused}")
+
+
+def trainer_phase(torch):
+    """Phase 13 (see the module docstring): build_corpus, train_tiny on the
+    card, the step against the CPU, pack_weights, then the trained model
+    through the CLI and the ppl matrix. Returns the launches of its
+    runs."""
+    import shutil
+
+    from llama_cu_awq_torch.io.checkpoint import load_checkpoint
+    from llama_cu_awq_torch.models import params_from_checkpoint
+    from llama_cu_awq_torch.tokenizer import Tokenizer
+    from llama_cu_awq_torch.tools import train_tiny
+    from llama_cu_awq_torch.tools.make_test_model import write_byte_tokenizer
+
+    t0 = time.time()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    launches: dict[str, dict] = {}
+    secs = {}
+    procs = []
+
+    def python_m(*args, threads=None):
+        env = dict(os.environ)
+        if threads:
+            env["OMP_NUM_THREADS"] = str(threads)
+        p = subprocess.Popen([sys.executable, "-m", *args], cwd=repo,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, env=env)
+        procs.append(p)
+        return p
+
+    try:
+        corpus, valid_docs = corpus_run(tmp)
+        secs["corpus"] = time.time() - t0
+        tok_path = os.path.join(tmp, "tok.bin")
+        write_byte_tokenizer(tok_path, 32000)
+        out = os.path.join(tmp, "tiny")
+        t1 = time.time()
+        rec = train_run(torch, corpus, tok_path, out, launches)
+        secs["train"] = time.time() - t1
+        bin_path = os.path.join(out, "model.bin")
+        pack = python_m("llama_cu_awq_torch.tools.pack_weights",
+                        os.path.join(out, "awq", "config.json"),
+                        os.path.join(out, "awq"), bin_path, "1")
+        t1 = time.time()
+        tok = Tokenizer(tok_path, rec["cfg"].vocab_size)
+        train_step_check(torch, rec, train_tiny.load_tokens(corpus, "valid",
+                                                            tok))
+        secs["step_check"] = time.time() - t1
+        _, err = pack.communicate(timeout=600)
+        if pack.returncode != 0:
+            raise AssertionError(f"pack_weights: {err[-2000:]}")
+        docs = valid_docs[:PPL_DOCS]
+        text_path = os.path.join(tmp, "valid_docs.txt")
+        with open(text_path, "w", encoding="utf-8") as f:
+            f.write("<|endoftext|>".join(docs))
+        prompt_path = os.path.join(tmp, "prompt.txt")
+        with open(prompt_path, "w", encoding="utf-8") as f:
+            f.write(valid_docs[0][:PROMPT_CHARS])
+        # the plain versions' perplexity on the CPU, beside the card runs
+        # up to the perplexity's
+        cpu_run = python_m("llama_cu_awq_torch", bin_path, "-z", tok_path,
+                           "-m", "perplexity", "-q", text_path, "--device",
+                           "cpu", "-s", "1", threads=6)
+        ckpt = load_checkpoint(bin_path)
+        params = params_from_checkpoint(ckpt, device="cuda")
+        t1 = time.time()
+        trained_generate(torch, bin_path, tok_path, ckpt, params,
+                         prompt_path, launches)
+        secs["generate"] = time.time() - t1
+        t1 = time.time()
+        trained_ppl_matrix(torch, bin_path, tok_path, text_path, launches)
+        secs["ppl_matrix"] = time.time() - t1
+        t1 = time.time()
+        trained_perplexity(torch, bin_path, tok_path, text_path, docs, rec,
+                           cpu_run, launches)
+        secs["perplexity"] = time.time() - t1
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    per_row: dict[int, int] = {}
+    for run in launches.values():
+        for k, n in run["kernels"].items():
+            if n:
+                per_row[SECTION6_ROW[k]] = per_row.get(SECTION6_ROW[k], 0) + n
+    print(json.dumps({"phase": "trainer", "seconds": time.time() - t0,
+                      "seconds_by_step": secs,
+                      "launches_per_section6_row": dict(sorted(
+                          per_row.items())),
+                      "runs": sorted(launches)}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4257,6 +4752,7 @@ def main() -> int:
     timed(served_head_cost, torch, params, LLAMA2_7B)
     timed(tp_phase, torch, rows, launches)
     launches.update(timed(dp_tp_phase, torch, params))
+    launches.update(timed(trainer_phase, torch))
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

@@ -31,12 +31,19 @@ belongs in the key. The rules:
   ops.cuda's counters and added again at every replay (add_launches), so
   LAUNCHES and VARIANT_LAUNCHES read as if each kernel had been launched
   from Python;
+- the cyclic garbage collector is off while any capture runs
+  (`collector_off`): a collection inside a capture may free an old
+  engine's graphs, and destroying a graph is a call a capture does not
+  allow (it invalidates the capture);
 - nothing here catches an error: a body that cannot be captured raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import threading
 import time
 from typing import Callable
 
@@ -59,6 +66,30 @@ def record_launches(fn: Callable[[], object]) -> tuple[object, Launches]:
     add_launches({k: -n for k, n in kernels.items()},
                  {k: -n for k, n in variants.items()})
     return out, (kernels, variants)
+
+
+# captures in progress in this process, over every thread (serving runs
+# one engine thread per replica): the collector is process-wide
+_CAPTURING = {"count": 0, "was_enabled": False}
+_CAPTURING_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def collector_off():
+    """The cyclic garbage collector off from the first capture in progress
+    to the end of the last, then as it was before."""
+    with _CAPTURING_LOCK:
+        if _CAPTURING["count"] == 0:
+            _CAPTURING["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _CAPTURING["count"] += 1
+    try:
+        yield
+    finally:
+        with _CAPTURING_LOCK:
+            _CAPTURING["count"] -= 1
+            if _CAPTURING["count"] == 0 and _CAPTURING["was_enabled"]:
+                gc.enable()
 
 
 @dataclasses.dataclass
@@ -111,8 +142,9 @@ class GraphSet:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
+        with collector_off(), torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream,
+                capture_error_mode="thread_local"):
             _, launches = record_launches(body)
         torch.cuda.synchronize(self.device)
         return Graph(graph, launches, time.perf_counter() - t0,

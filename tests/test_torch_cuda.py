@@ -1047,6 +1047,46 @@ def test_graph_prefill_and_perplexity_match_eager(gen, quantized):
                      temperature=0.0, max_seq=512)
 
 
+def test_capture_survives_a_collection_of_old_graphs(gen, monkeypatch):
+    """An old engine's graphs held only by a garbage cycle made as a
+    capture begins, and the collector set to run at every allocation: the
+    capture must not collect them (destroying a graph inside a capture
+    invalidates it; engine/graphs.py collector_off), and they go at the
+    first collection after."""
+    import gc
+    import weakref
+
+    params = params_from_checkpoint(random_checkpoint(_CFG, seed=4))
+    old = InferenceEngine(params, _CFG, None, temperature=0.0)
+    want, _, _ = old.generate_benchmark([1, 5, 9], 24)
+    doomed = list(old._graphs.graphs.values())
+    old._graphs.graphs.clear()
+    del old
+    assert doomed
+    refs = [weakref.ref(g) for g in doomed]
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(self, *args, **kwargs):
+        begin(self, *args, **kwargs)
+        if doomed:  # the first capture: a young cycle holds them alone
+            box = [doomed.copy()]
+            box.append(box)
+            doomed.clear()
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin",
+                        capture_begin)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        eng = InferenceEngine(params, _CFG, None, temperature=0.0)
+        got, _, _ = eng.generate_benchmark([1, 5, 9], 24)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert got == want
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+
 def test_capture_needs_the_split_scratch_sized(gen):
     """A GraphSet whose capture stream has no split scratch refuses to
     capture a fused_step forward (the scratch may not grow during a
@@ -1550,3 +1590,158 @@ def test_tp_forward_on_card_matches_single_device(gen, tmp_path, case):
                                rtol=5e-3, atol=5e-3)
     kernel = "attention_step" if mode == "steps" else "prefill_attention"
     assert calls.get(kernel, 0) >= cfg.n_layers
+
+
+# the trained model of tools/train_tiny (chip_smoke.py phase 13): dim 512,
+# hidden 1536 (4 groups of 128 in n_in for qkv, o and gate_up, 12 for
+# down), 4 heads of 128, the Llama-2 vocab
+_TRAINED = ModelConfig(dim=512, hidden_dim=1536, n_layers=2, n_heads=4,
+                       n_kv_heads=4, vocab_size=32000, seq_len=2048)
+
+
+@pytest.mark.parametrize("m", [1, 8, 128])
+def test_trained_model_shapes_match_plain(gen, m):
+    """Each w4 projection of the trained model (qkv and gate_up with their
+    rmsnorm prologue, o with its residual, down with SwiGLU and its
+    residual) and each of its heads (bf16 and int8 rows through
+    dense_gemm, the w4 head through int4_matmul) at m = 1 (decode), 8
+    (spec verify blocks) and 128 (perplexity blocks: the GEMM, whose
+    split rule keeps one split over these 4 and 12 groups), against the
+    plain versions: the int4 bar, and f32 sum order for the dense head."""
+    from llama_cu_awq_torch.ops.cuda.int4_matmul import gemm_splits, route
+
+    dim, hid, V = _TRAINED.dim, _TRAINED.hidden_dim, _TRAINED.vocab_size
+    projections = [(dim, 3 * dim, "prescale"), (dim, dim, "residual"),
+                   (dim, 2 * hid, "prescale"), (hid, dim, "silu")]
+    reset_launches()
+    for n_in, n_out, variant in projections:
+        assert gemm_splits(n_in, n_out) == 1
+        qt = _qtensor(gen, n_in, n_out)
+        x = _randn(gen, m, n_in)
+        kw = _fused_kwargs(gen, variant, m, n_in, n_out)
+        out, ss = int4_matmul_fused(x, qt, **kw)
+        ref, ss_ref = int4_matmul_fused(x, qt, plain=True, **kw)
+        _close(out, ref, **INT4)
+        if ss_ref is not None:
+            _close(ss, ss_ref, **INT4)
+    w = (_randn(gen, V, dim, dtype=torch.float32) * 0.05).bfloat16()
+    q8 = quantize_dense_int8(w)
+    x = _randn(gen, m, dim)
+    for args in ((w,), (q8.w8, q8.scale)):
+        _close(dense_gemv(x, *args), dense_gemv(x, *args, plain=True),
+               rtol=1e-3, atol=1e-4)
+    head = _qtensor(gen, dim, V)
+    _close(int4_matmul(x, head), int4_matmul(x, head, plain=True), **INT4)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int4_matmul_fused"] == 4
+    assert LAUNCHES["dense_gemv"] == 2 and LAUNCHES["int4_matmul"] == 1
+    assert all(k.split("/")[1] == route(m) for k in VARIANT_LAUNCHES
+               if k.startswith("int4_matmul"))
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+def test_trained_model_attention_matches_plain(gen, fmt):
+    """The trained model's 4 heads of 128 over the CLI's 2048-row cache:
+    attention_step over each cache format at positions 0, 700 and 2047
+    (the ppl matrix's fused_step rows), and prefill_attention over a
+    128-token block at positions 0 and 1024 over the bf16 and int8 caches
+    (perplexity), against the plain versions."""
+    H = n_kv = _TRAINED.n_heads
+    D, S, B = _TRAINED.head_dim, _TRAINED.seq_len, 3
+    pos = torch.tensor([0, 700, S - 1], dtype=torch.int32, device="cuda")
+    cos2, sinm = rope_rows(pos, D, _TRAINED.rope_theta)
+    qkv = _randn(gen, B, (H + 2 * n_kv) * D)
+    width = D // 2 if fmt == "int4" else D
+    if fmt == "bf16":
+        kc, vc = _randn(gen, B, S, n_kv, D), _randn(gen, B, S, n_kv, D)
+        ks = vs = None
+    else:
+        lo, hi = (-128, 128) if fmt == "int4" else (-127, 128)
+        kc, vc = (torch.randint(lo, hi, (B, S, n_kv, width),
+                                dtype=torch.int8, device="cuda",
+                                generator=gen) for _ in range(2))
+        ks, vs = (torch.rand(B, S, n_kv, device="cuda", generator=gen)
+                  * 0.02 for _ in range(2))
+    bits = 4 if fmt == "int4" else 8
+    args = (qkv, kc, vc, pos, cos2, sinm, ks, vs)
+    got = attention_step(*args, n_heads=H, kv_bits=bits)
+    want = attention_step(*args, n_heads=H, kv_bits=bits, plain=True)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], **INT4)
+    for g, w in zip(got[1:], want[1:]):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert torch.equal(g, w)
+    if fmt == "int4":
+        return
+    q = _randn(gen, 2, 128, H, D)
+    bpos = torch.tensor([0, 1024], dtype=torch.int32, device="cuda")
+    blk = (q, kc[:2], vc[:2], bpos,
+           None if ks is None else ks[:2], None if vs is None else vs[:2])
+    reset_launches()
+    got = prefill_attention(*blk, attn_len=S)
+    want = prefill_attention(*blk, attn_len=S, plain=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["prefill_attention"] == 1
+    _close(got, want, **INT4)
+
+
+@pytest.mark.parametrize("T", [1, 8, 128])
+def test_trained_config_forward_on_card_matches_cpu(gen, T):
+    """The trained model's configuration (2 of its 8 layers, random
+    weights) through forward on the card against the CPU: one decode
+    step through attention_step, an 8-token block (the GEMV at m=8,
+    plain attention) and a 128-token block (the GEMM and
+    prefill_attention), after a 128-token prompt; the JAX package's bar
+    for logits of two paths (tests/test_fused_path.py:51-52)."""
+    ckpt = random_checkpoint(_TRAINED, seed=15)
+    prompt = [1 + (37 * i) % 255 for i in range(128)]
+    block = [3 + (11 * i) % 255 for i in range(T)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params_from_checkpoint(ckpt, device=dev)
+        c = init_kv_cache(_TRAINED, 1, 512, device=dev)
+        forward(p, _TRAINED, torch.tensor([prompt], device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), c,
+                no_logits=True)
+        reset_launches()
+        logits, _ = forward(p, _TRAINED, torch.tensor([block], device=dev),
+                            torch.tensor([128], dtype=torch.int32,
+                                         device=dev), c,
+                            attn_impl="fused_step", logits_all=True)
+        out[dev] = logits.float().cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=2e-2, atol=2e-2)
+    assert LAUNCHES["int4_matmul_fused"] == 4 * _TRAINED.n_layers
+    assert LAUNCHES["dense_gemv"] == 1
+    assert LAUNCHES["attention_step"] == (_TRAINED.n_layers if T == 1
+                                          else 0)
+    assert LAUNCHES["prefill_attention"] == (_TRAINED.n_layers if T == 128
+                                             else 0)
+
+
+def test_train_step_on_card_matches_cpu(gen):
+    """One train step of tools/train_tiny from the same params and batch
+    on the card and on the CPU, plain f32 on both (no TF32): the loss
+    within rel 1e-4, and each gradient leaf, and each leaf after the
+    global-norm clip, within rel 1e-4 of its norm (the same f32 sums in
+    other orders; the embedding's scatter adds in the card's order)."""
+    from llama_cu_awq_torch.tools import train_tiny as tt
+
+    cfg = ModelConfig(dim=128, hidden_dim=384, n_layers=2, n_heads=4,
+                      n_kv_heads=2, vocab_size=512, seq_len=64)
+    g = torch.Generator()
+    g.manual_seed(0)
+    host = tt.params_to_numpy(tt.init_params(cfg, g))
+    tokens = torch.randint(0, 512, (4, 65), generator=g, dtype=torch.int32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for dev in ("cpu", "cuda"):
+        loss, grads = tt.loss_and_grads(tt.params_from_numpy(host, dev),
+                                        tokens.to(dev), cfg)
+        res[dev] = (float(loss), [x.cpu() for x in grads],
+                    [x.cpu() for x in tt.clip_by_global_norm(grads, 0.01)])
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-4)
+    for i in (1, 2):
+        for name, a, b in zip(tt.leaf_names(cfg.n_layers), res["cuda"][i],
+                              res["cpu"][i]):
+            assert float((a - b).norm()) <= 1e-4 * float(b.norm()), name

@@ -41,7 +41,8 @@ import torch
 
 from llama_cu_awq_torch.cli import main as t_main
 from llama_cu_awq_torch.engine import InferenceEngine as TEngine
-from llama_cu_awq_torch.engine.graphs import Graph, GraphSet, record_launches
+from llama_cu_awq_torch.engine.graphs import (Graph, GraphSet,
+                                             collector_off, record_launches)
 from llama_cu_awq_torch.models import llama as tl
 from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
                                          add_launches, count, reset_launches)
@@ -317,6 +318,45 @@ def test_record_launches_takes_back_what_the_body_counted():
                         "dense_gemv/bf16/m1": 1}
     assert LAUNCHES["int4_matmul_fused"] == 0 and LAUNCHES["dense_gemv"] == 1
     assert VARIANT_LAUNCHES == {"dense_gemv/bf16/m1": 1}
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_collector_off_while_any_capture_runs(enabled):
+    """Captures on two threads overlap: the collector stays off from the
+    first one's start to the last one's end, then is as it was."""
+    import gc
+    import threading
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        first_in, release = threading.Event(), threading.Event()
+        seen = {}
+
+        def first():
+            with collector_off():
+                first_in.set()
+                release.wait(timeout=30)
+                seen["first_end"] = gc.isenabled()
+
+        t = threading.Thread(target=first)
+        t.start()
+        assert first_in.wait(timeout=30)
+        with collector_off():
+            seen["second"] = gc.isenabled()
+        seen["after_second"] = gc.isenabled()
+        release.set()
+        t.join(timeout=30)
+        assert not t.is_alive()
+        assert seen == {"second": False, "after_second": False,
+                        "first_end": False}
+        assert gc.isenabled() == enabled
+        with pytest.raises(RuntimeError):
+            with collector_off():
+                raise RuntimeError("a capture that fails")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
 
 
 def test_replays_count_as_launches():
