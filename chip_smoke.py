@@ -204,13 +204,36 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      first document, plain and --spec ngram, each held to an engine's
      tokens on the same weights and replayed through plain decode
      (replay_check; the acceptance rate on real text); tools/ppl_matrix's
-     8 rows on valid.txt's first 4 documents through its own functions
+     8 rows on valid.txt's first 2 documents through its own functions
      (finite; each fused_step row within 0.01 of its einsum row and
      launching its attention kernel); and the perplexity of the first 8
      documents (|delta ln ppl| <= 0.01 against --device cpu, run as its
      own process beside the card runs; within 0.25 of the float model's
      ln ppl through train_tiny's forward_loss); each run under the launch
      counters, with the launches per kernel table row over the phase.
+ 14. (run last) the bench, run as a user runs it: `python -m
+     llama_cu_awq_torch.bench` as its own process at Llama-2 7B's full
+     widths and 32 layers on seed-0 weights: (a) the default decode run
+     (plain, spec in a child process and a 3-repeat plain re-bracket; the
+     spec stream equal to the plain one or replayed within 0.1), (b)
+     --mode prefill of a
+     1920-token prompt, (c) --mode batch at its defaults (16 slots, 32
+     requests, three streams replayed), (d) --mode batch with 8 slots,
+     16 requests and 1000-token prompts every 4th, (e) 256 fused_step
+     decode steps after a 1024-token prompt, (f) 32 steps over the int4
+     cache after 1920 tokens, (g) the int8 lm_head's plain leg, (h)
+     --profile of (a)'s plain leg cut to 64 steps, then
+     tools/trace_summary --families on its trace, (i) --tp 2 over gloo on
+     cuda:0 (the path, not a TP speed) and (j) tools/bench_scaling at
+     tiny (tp 1, and tp 2 over gloo on cuda:0, each point through the
+     bench's batch mode and its replay gate). Each exits 0; each result
+     line's keys and metric name
+     equal the repository's bench.py's for the same flags (BENCH_RUNS,
+     its TPU-tuned defaults left out); each run's timed legs launched
+     the kernels of their path (the bench's "launches" lines on stderr);
+     (a), (b) and (c) are printed beside this script's own readings of
+     the same workloads (e2e generate_benchmark, prefill, batch_engine),
+     which are not a gate: host clocks move between processes.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm, torch._weight_int8pack_mm; the
@@ -4229,7 +4252,7 @@ def dp_tp_phase(torch, params):
 TRAIN_STEPS = 300  # the JAX tool's default is 3000: the phase's one cut
 CORPUS_MB = 2      # build_corpus --max-mb
 PPL_DOCS = 8       # valid.txt's first documents, scored by the CLI
-MATRIX_SEQS = 4    # tools.ppl_matrix --seqs
+MATRIX_SEQS = 2    # tools.ppl_matrix --seqs; 2 keeps the script in its limit
 GEN_TOKENS = 64    # greedy tokens a generate run
 PROMPT_CHARS = 400  # the prompt: the head of valid.txt's first document
 # a model that learned nothing scores ln 259 nats a token: uniform over the
@@ -4695,6 +4718,230 @@ def trainer_phase(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the bench, run as a user runs it
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline")
+DUAL_KEYS = BENCH_KEYS + ("decode_tok_s_plain", "decode_tok_s_spec",
+                          "plain_rebracket", "window_drift",
+                          "spec_acceptance", "spec_workload")
+DECODE_7B = "decode_tok_s_7b_w4g128_b1"
+BENCH_PROFILE = "{profile}"  # the run's trace directory, made by the phase
+# (tag, flags, the repository's bench.py's metric names and keys for the
+# same flags without its TPU-tuned defaults (tests/test_torch_bench.py
+# holds the two benches equal on the CPU; a default decode run's headline
+# is its faster leg's name), the kernels its timed legs must launch, the
+# workload of this script's own reading beside it)
+BENCH_RUNS = (
+    ("a_default", [], (DECODE_7B, DECODE_7B + "_spec7"), DUAL_KEYS,
+     ("int4_matmul_fused", "dense_gemv"), "generate_benchmark"),
+    ("b_prefill", ["--mode", "prefill", "--prompt-len", "1920",
+                   "--max-seq", "2048"],
+     ("prefill_tok_s_7b_w4g128_p1920",), BENCH_KEYS,
+     ("int4_matmul_fused", "prefill_attention", "dense_gemv"), "prefill"),
+    ("c_batch", ["--mode", "batch", "--repeats", "1"],
+     ("batch_tok_s_7b_w4g128_s16_r32",), BENCH_KEYS,
+     ("int4_matmul_fused", "dense_gemv"), "batch_engine"),
+    ("d_admit_long", ["--mode", "batch", "--slots", "8", "--requests", "16",
+                      "--admit-long", "1000", "--max-seq", "2048",
+                      "--repeats", "1"],
+     ("batch_tok_s_7b_w4g128_s8_r16_admL1000",), BENCH_KEYS,
+     ("int4_matmul_fused", "dense_gemv", "prefill_attention",
+      "attention_step"), None),
+    ("e_depth", ["--decode-steps", "256", "--prompt-len", "1024",
+                 "--max-seq", "2048", "--attn-impl", "fused_step",
+                 "--repeats", "3"],
+     (DECODE_7B + "_ctx1024",), BENCH_KEYS,
+     ("int4_matmul_fused", "dense_gemv", "attention_step",
+      "prefill_attention"), None),
+    ("f_kv4", ["--kv-bits", "4", "--decode-steps", "32", "--prompt-len",
+               "1920", "--max-seq", "2048", "--repeats", "3"],
+     (DECODE_7B + "_kv4_ctx1920",), BENCH_KEYS,
+     ("int4_matmul_fused", "dense_gemv", "attention_step_kv4"), None),
+    ("g_lm_head_int8", ["--lm-head-bits", "8", "--spec", "none",
+                        "--repeats", "1"],
+     (DECODE_7B + "_lmh8",), BENCH_KEYS, ("int4_matmul_fused", "dense_gemv"),
+     None),
+    ("h_profile", ["--spec", "none", "--steps", "64", "--repeats", "1",
+                   "--profile", BENCH_PROFILE],
+     (DECODE_7B,), BENCH_KEYS, ("int4_matmul_fused", "dense_gemv"), None),
+    ("i_tp2", ["--tp", "2", "--spec", "none", "--steps", "32", "--repeats",
+               "1"],
+     (DECODE_7B + "_tp2",), BENCH_KEYS, ("int4_matmul_fused", "dense_gemv"),
+     None),
+)
+BENCH_SCALING_RUNS = (
+    ("j_scaling_tiny", ["--config", "tiny", "--tps", "1,2", "--slots", "4",
+                        "--requests", "8", "--steps", "16", "--repeats",
+                        "1"],
+     ["scaling_tok_s_tiny_tp1", "scaling_tok_s_tiny_tp2",
+      "scaling_efficiency_tiny_tp2"]),
+)
+
+
+class E2eLines:
+    """sys.stdout's stand-in: passes everything on and keeps the "e2e"
+    lines this script prints, for phase 14 to print beside the bench's
+    readings of the same workloads."""
+
+    def __init__(self, out):
+        self.out = out
+        self.lines: dict[str, dict] = {}
+        self._part = ""
+
+    def write(self, text):
+        self._part += text
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            if line.startswith('{"e2e"'):
+                rec = json.loads(line)
+                self.lines.setdefault(rec["e2e"], rec)
+        return self.out.write(text)
+
+    def __getattr__(self, name):
+        return getattr(self.out, name)
+
+
+def python_m(module, argv, timeout):
+    """`python -m module argv` from the repository's root, in a session
+    of its own (a --tp run's ranks are its children): (exit code, stdout,
+    stderr, seconds). A run that passes `timeout` is killed with its
+    children and raises."""
+    import signal
+
+    t0 = time.time()
+    p = subprocess.Popen([sys.executable, "-m", module, *argv],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError(f"{module} {argv}: killed after {timeout} s")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    return p.returncode, out, err, time.time() - t0
+
+
+def bench_earlier(e2e, workload):
+    """This script's own reading of a workload the bench runs too."""
+    rec = e2e.get(workload)
+    if rec is None:
+        return None
+    keys = {"generate_benchmark": ("tok_per_s", "steps", "max_seq"),
+            "prefill": ("time_to_first_token_s", "prefill_tok_per_s",
+                        "prompt_tokens"),
+            "batch_engine": ("tok_per_s_graph", "slots", "requests",
+                             "max_new")}[workload]
+    return {"e2e": workload, **{k: rec.get(k) for k in keys}}
+
+
+def bench_run(tag, flags, names, keys, kernels, workload, e2e, tmp,
+              per_row, variants):
+    """One bench run (see BENCH_RUNS): its result line's keys and metric,
+    the launches of its timed legs, its gates' log lines."""
+    argv = [a.replace(BENCH_PROFILE, os.path.join(tmp, tag)) for a in flags]
+    rc, out, err, secs = python_m("llama_cu_awq_torch.bench", argv, 900)
+    if rc != 0:
+        raise AssertionError(f"bench {tag} {argv}: exit {rc}\n{err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    legs = {}
+    for ln in err.splitlines():
+        if ln.startswith("launches "):
+            rec = json.loads(ln[len("launches "):])
+            legs[rec["leg"]] = rec
+    gates = [ln for ln in err.splitlines()
+             if ln.startswith(("spec gate", "batch gate", "[spec] spec "
+                               "acceptance", "spec acceptance", "--tp"))]
+    launched: dict[str, int] = {}
+    for rec in legs.values():
+        for k, n in rec["kernels"].items():
+            launched[k] = launched.get(k, 0) + n
+            per_row[SECTION6_ROW[k]] = per_row.get(SECTION6_ROW[k], 0) + n
+        variants[f"{tag}/{rec['leg']}"] = {
+            "runs": rec["runs"], "tokens_per_run": rec["tokens_per_run"],
+            "variants": rec["variants"]}
+    print(json.dumps({
+        "bench": tag, "argv": argv, "seconds": secs, "result": res,
+        "legs": {leg: {"runs": r["runs"], "tokens_per_run":
+                       r["tokens_per_run"], "kernels": r["kernels"],
+                       "graph_pool_bytes": r.get("graph_pool_bytes")}
+                 for leg, r in legs.items()},
+        "gates": gates,
+        "earlier_reading": (bench_earlier(e2e, workload) if workload
+                            else None)}), flush=True)
+    if set(res) != set(keys) or res["metric"] not in names:
+        raise AssertionError(f"bench {tag}: keys {sorted(res)} and metric "
+                             f"{res['metric']}, the repository's bench.py "
+                             f"gives {sorted(keys)} and one of {names}")
+    values = [res[k] for k in keys if k in ("value", "decode_tok_s_plain",
+                                            "decode_tok_s_spec",
+                                            "plain_rebracket")]
+    if not all(isinstance(v, (int, float)) and math.isfinite(v) and v > 0
+               for v in values):
+        raise AssertionError(f"bench {tag}: {res}")
+    missing = [k for k in kernels if not launched.get(k)]
+    if missing:
+        raise AssertionError(f"bench {tag}: its timed legs never launched "
+                             f"{missing}: {launched}")
+    if tag == "g_lm_head_int8" and not any(
+            "int8" in v for rec in legs.values() for v in rec["variants"]
+            if v.startswith("dense_gemv/")):
+        raise AssertionError("bench g_lm_head_int8: no int8 head launched")
+    return res
+
+
+def bench_phase(torch, e2e):
+    """Phase 14 (see the module docstring): the bench and its two tools as
+    their own processes."""
+    import shutil
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+    per_row: dict[int, int] = {}
+    variants: dict[str, dict] = {}
+    secs = {}
+    try:
+        for tag, flags, names, keys, kernels, workload in BENCH_RUNS:
+            t1 = time.time()
+            bench_run(tag, flags, names, keys, kernels, workload, e2e, tmp,
+                      per_row, variants)
+            secs[tag] = time.time() - t1
+        rc, out, err, s = python_m(
+            "llama_cu_awq_torch.tools.trace_summary",
+            [os.path.join(tmp, "h_profile"), "--families", "--top", "12"],
+            300)
+        secs["h_trace_summary"] = s
+        print(json.dumps({"bench": "h_trace_summary", "seconds": s,
+                          "summary": out.splitlines()[:40]}), flush=True)
+        if rc != 0 or not out.startswith("device busy:"):
+            raise AssertionError(f"trace_summary: exit {rc}\n{out[-2000:]}"
+                                 f"\n{err[-2000:]}")
+        for tag, argv, metrics in BENCH_SCALING_RUNS:
+            rc, out, err, s = python_m(
+                "llama_cu_awq_torch.tools.bench_scaling", argv, 900)
+            secs[tag] = s
+            lines = [json.loads(ln) for ln in out.splitlines()
+                     if ln.startswith("{")]
+            print(json.dumps({"bench": tag, "argv": argv, "seconds": s,
+                              "lines": lines}), flush=True)
+            if rc != 0 or [ln["metric"] for ln in lines] != metrics:
+                raise AssertionError(f"bench_scaling {argv}: exit {rc}, "
+                                     f"{lines}\n{err[-3000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"phase": "bench", "seconds": time.time() - t0,
+                      "seconds_by_run": secs,
+                      "launches_per_section6_row": dict(sorted(
+                          per_row.items())),
+                      "variants_by_leg": variants}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4712,6 +4959,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    e2e = E2eLines(sys.stdout)
+    sys.stdout = e2e
     card = card_line()
     print(card, flush=True)
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4753,6 +5002,7 @@ def main() -> int:
     timed(tp_phase, torch, rows, launches)
     launches.update(timed(dp_tp_phase, torch, params))
     launches.update(timed(trainer_phase, torch))
+    timed(bench_phase, torch, e2e.lines)
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

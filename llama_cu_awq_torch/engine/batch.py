@@ -297,6 +297,11 @@ class BatchEngine:
         self._reseed = False  # the next chunk starts from the staged carry
         self._sent_t = time.monotonic()  # the leader's last _send
         self._next_id = 0
+        # None, or a dict the caller set: request id -> {position: the
+        # attention window of the decode chunk that stepped it there}
+        # (a spec block's positions are not recorded). A replay of a
+        # request that takes these windows meets its rounding.
+        self.window_log: dict[int, dict[int, int]] | None = None
         self.cache = self._init_cache()
         self._init_step_state(capture)
         self._reset_state()
@@ -1005,6 +1010,11 @@ class BatchEngine:
         # all-greedy chunks skip the per-row sampler (it sorts (S, vocab)
         # every step)
         sampled = bool((self.slot_temp[active] > 0.0).any())
+        if self.window_log is not None:
+            for s in active:
+                p0 = int(self.pos[s])
+                self.window_log.setdefault(self._slot_req[s].id, {}).update(
+                    dict.fromkeys(range(p0, p0 + k), attn_len))
         self._run(("chunk", sampled), 1, attn_len, functools.partial(
             self._chunk_body, attn_len, sampled), k)
         # owners at dispatch: a slot freed while this chunk is in flight

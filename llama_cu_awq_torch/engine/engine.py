@@ -563,13 +563,20 @@ class InferenceEngine:
             last = emitted[-1]
         return generated, False
 
-    def generate_benchmark(self, prompt_tokens: list[int], steps: int):
+    def generate_benchmark(self, prompt_tokens: list[int], steps: int,
+                           untimed_prefill: bool = False):
         """Timed generation without per-chunk host syncs or text decoding:
         prompt + device-chained decode chunks, one host read at the end.
         Returns (tokens, seconds, tok_per_s) with the reference's
-        timed-token accounting (llama2_q4.cu:486-489)."""
+        timed-token accounting (llama2_q4.cu:486-489): steps - 1 tokens.
+
+        untimed_prefill: the prompt runs before the clock starts (the card
+        synchronized after it), and the timed tokens are the decode
+        tokens alone, len(tokens): decode tok/s at depth (the JAX
+        engine's, engine.py:749-801)."""
         self.reset()
-        if self.device.type == "cuda":
+        sync = self.device.type == "cuda"
+        if sync:
             torch.cuda.synchronize()
         start = time.time()
         n_pref = min(len(prompt_tokens), steps)
@@ -577,23 +584,27 @@ class InferenceEngine:
             self._prefill(prompt_tokens[:n_pref - 1])
         token = torch.tensor([prompt_tokens[n_pref - 1]], dtype=torch.int32,
                              device=self.device)
+        if untimed_prefill:
+            if sync:
+                torch.cuda.synchronize()
+            start = time.time()
         if self.spec:
             # the same accounting: the loop emits steps - n_pref + 1 tokens
             tokens, _ = self._decode_auto(token, steps - n_pref + 1,
                                           stop_at_eos=False)
-            dt = time.time() - start
-            return tokens, dt, (steps - 1) / dt
-        outs = []
-        remaining = steps - n_pref + 1
-        self._tok.copy_(token.view(1, 1))
-        while remaining > 0 and self.pos < self.max_seq:
-            k = min(self.chunk_size, remaining, self.max_seq - self.pos)
-            outs.append(self._decode_chunk(k).clone())
-            self.pos += k
-            remaining -= k
-        tokens = torch.cat(outs).tolist()
+        else:
+            outs = []
+            remaining = steps - n_pref + 1
+            self._tok.copy_(token.view(1, 1))
+            while remaining > 0 and self.pos < self.max_seq:
+                k = min(self.chunk_size, remaining, self.max_seq - self.pos)
+                outs.append(self._decode_chunk(k).clone())
+                self.pos += k
+                remaining -= k
+            tokens = torch.cat(outs).tolist()
         dt = time.time() - start
-        return tokens, dt, (steps - 1) / dt
+        timed = len(tokens) if untimed_prefill else steps - 1
+        return tokens, dt, timed / dt
 
     # ------------------------------------------------------------------
     # chat mode (llama2_q4.cu:507-601)

@@ -1,8 +1,8 @@
 #!/bin/bash
 # Real-model end to end on the port: train a small float Llama on real
 # text, export it as an original-format AWQ dump, pack it with the port's
-# pack_weights, then generate, speculative decoding, perplexity and the
-# perplexity matrix through the port's engine and kernels. The steps of
+# pack_weights, then generate, speculative decoding, perplexity, the
+# bench and the perplexity matrix through the port's engine and kernels. The steps of
 # tools/real_model_e2e.sh, with the port's modules in place of the JAX
 # package's and of the native packer.
 #
@@ -58,8 +58,11 @@ python -m llama_cu_awq_torch "$OUT/model.bin" -z "$TOK" -m perplexity \
 
 grep -h "Geomean perplexity" "$OUT/ppl_kernels.txt" "$OUT/ppl_plain.txt"
 
-# 5. (left out) the JAX script's decode throughput on the real checkpoint
-# through bench.py waits for the port's own bench.
+# 5. decode throughput on the real checkpoint: loader, tokenizer, kernels
+# and sampler at speed; the default run reports plain and spec tok/s with
+# the acceptance on a real prompt
+python -m llama_cu_awq_torch.bench --model "$OUT/model.bin" -z "$TOK" \
+    --steps 128 --repeats 3 | tee "$OUT/bench_decode_real.json"
 
 # 6. the perplexity matrix over every quantization lever, scored stepwise
 # through the decode path (one forward a token)

@@ -1745,3 +1745,21 @@ def test_train_step_on_card_matches_cpu(gen):
         for name, a, b in zip(tt.leaf_names(cfg.n_layers), res["cuda"][i],
                               res["cpu"][i]):
             assert float((a - b).norm()) <= 1e-4 * float(b.norm()), name
+
+
+def test_bench_tiny_on_card(gen):
+    """The bench's default decode run (plain, spec, re-bracket) at tiny on
+    the card: bench.py's keys, and the re-bracket's timed runs launched
+    the w4 GEMV and the lm_head."""
+    from llama_cu_awq_torch import bench
+
+    res = bench.run(["--config", "tiny", "--steps", "24", "--repeats", "1"])
+    spec_keys = {"spec_acceptance", "spec_workload"}  # where it proposed
+    assert set(res) - spec_keys == {
+        "metric", "value", "unit", "vs_baseline", "decode_tok_s_plain",
+        "decode_tok_s_spec", "plain_rebracket", "window_drift"}
+    assert len(spec_keys & set(res)) in (0, 2)
+    assert res["metric"] in ("decode_tok_s_tiny_w4g128_b1",
+                             "decode_tok_s_tiny_w4g128_b1_spec7")
+    assert res["decode_tok_s_plain"] > 0 and res["decode_tok_s_spec"] > 0
+    assert LAUNCHES["int4_matmul_fused"] > 0 and LAUNCHES["dense_gemv"] > 0
