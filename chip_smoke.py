@@ -23,7 +23,8 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      (the tile kernel dense_gemm.cu) at m=1, m=8 (the serving step) and
      m=128 (a prefill block), bf16 and int8; decode attention (the split
      kernels) at position 1500 and at B=8 over positions 960-1100; the
-     w4 GEMV at m=1 and m=8 (the serving step), and each row of an m=8
+     w4 GEMV at m=1, m=8 (the serving step) and m=16 (the bench's 16
+     slots, launched by phase 14's run (c)), and each row of an m=8
      call of the GEMV, down_qkv and ffn_chain held bit for bit to the
      m=1 call on that row;
   4. end to end: synthetic 7B w4-g128 weights on the card, 256 greedy
@@ -158,14 +159,25 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      tagged tp2) while rank 1 waits; then the TP forward at T=1 (position
      1500, fused_step) and on a 128-token block (position 1024) against
      the single-device forward on the same weights and cache (2 % of the
-     largest logit); a TP InferenceEngine (fused_step, capture=False):
-     32 greedy steps from an 8-token prompt, the ranks' streams equal,
-     each token replayed through the single-device forward within that
-     tolerance of its top logit, and 8 steps again with every collective
-     timed between synchronizations; the perplexity of 255 ids beside
-     the single-device engine's (|delta ln ppl| <= 0.01); a TP
-     BatchEngine (rank 0 serves 4 greedy requests on 4 slots, rank 1
-     follows) replayed the same way. Two ranks on one card with gloo
+     largest logit); a TP InferenceEngine (fused_step) made with
+     capture=True, its CUDA graphs split at the collectives
+     (engine/graphs.py), and one made with capture=False: 32 greedy
+     steps from an 8-token prompt, the graph engine once untimed (the
+     captures), then each way timed, the ranks' streams equal, the
+     captured streams and whole caches equal to the eager ones bit for
+     bit on both ranks, each token replayed through the single-device
+     forward within that tolerance of its top logit; per way, an 8-step
+     decode window twice: under torch.profiler (device operations and
+     the host's launch calls a token), and with every collective between
+     synchronizations (graph segments replayed, collectives and kernel
+     launches a token; ms a token as collective ms and the rest); the
+     graphs (segments a key, capture
+     seconds, pool bytes); the perplexity of 255 ids each way (equal bit
+     for bit) beside the single-device engine's (|delta ln ppl| <=
+     0.01); a TP BatchEngine (rank 0 serves 4 greedy requests on 4
+     slots, rank 1 follows) made each way: streams and caches equal bit
+     for bit, each stream replayed the same way. Each rank's readings
+     are gathered and printed by rank 0. Two ranks on one card with gloo
      through the host measure no tensor-parallel speed.
  12. (run last) `serve --dp 2 --tp 2` and the ppl matrix tool. Phase 4's
      seed-0 weights are written to a 7B `.bin` (full width, 32 layers)
@@ -173,7 +185,8 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      tokenizer at vocab 32000. serve.run_replicas, the server's own
      replica builder, runs 2 replicas of 2 ranks with every rank on
      cuda:0 over gloo (3 processes: this one holds shard 0 of both
-     replicas and serves): 2 slots a replica, max_seq 512, spec="ngram";
+     replicas and serves), every engine on CUDA graphs split at the
+     collectives: 2 slots a replica, max_seq 512, spec="ngram";
      8 concurrent completions of 16 tokens, 4 of them streamed, prompts
      of 20-200 tokens, queued before the engine threads start (4 a
      replica); each reply held to the token ids its request was routed,
@@ -224,9 +237,10 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      cache after 1920 tokens, (g) the int8 lm_head's plain leg, (h)
      --profile of (a)'s plain leg cut to 64 steps, then
      tools/trace_summary --families on its trace, (i) --tp 2 over gloo on
-     cuda:0 (the path, not a TP speed) and (j) tools/bench_scaling at
-     tiny (tp 1, and tp 2 over gloo on cuda:0, each point through the
-     bench's batch mode and its replay gate). Each exits 0; each result
+     cuda:0 (the path on split graphs, not a TP speed) and (j)
+     tools/bench_scaling at tiny (tp 1, and tp 2 over gloo on cuda:0 on
+     split graphs, each point through the bench's batch mode and its
+     replay gate). Each exits 0; each result
      line's keys and metric name
      equal the repository's bench.py's for the same flags (BENCH_RUNS,
      its TPU-tuned defaults left out); each run's timed legs launched
@@ -464,7 +478,9 @@ def kernel_phase(torch, timer, rows):
 
     # --- int4_matmul_fused, the four projections of a 7B layer, at a
     # decode step (m=1, the GEMV), a serving step of 8 slots (m=8, the
-    # GEMV) and a prefill block (m=128, the GEMM) ---
+    # GEMV), one of the bench's 16 slots (m=16, the GEMV's two 8-row
+    # passes; their launches are bench (c)'s, phase 14) and a prefill
+    # block (m=128, the GEMM) ---
     cases = [
         ("qkv_prescale", dim, 3 * dim, "prescale"),
         ("o_residual_ss", dim, dim, "residual"),
@@ -472,6 +488,7 @@ def kernel_phase(torch, timer, rows):
         ("down_silu_residual_ss", hid, dim, "silu"),
     ]
     for m, prefix, path in ((1, "", "main"), (8, "m8_", "batch_engine"),
+                            (16, "m16_", "bench_c_batch"),
                             (128, "gemm_", "prefill")):
         for tag, n_in, n_out, kind in cases:
             tag = prefix + tag
@@ -3785,110 +3802,236 @@ def tp_replay(torch, cfg, full, label, prompt, stream, attn_impl):
     return max(gaps), min(tols)
 
 
-def tp_engine_runs(torch, cfg, full, params, tp, launches):
-    """A TP InferenceEngine: 32 greedy steps (tok/s, the ranks' agreement,
-    the single-device replay), 8 more with the collectives timed, and the
-    perplexity of 255 ids beside the single-device engine's."""
-    from llama_cu_awq_torch.engine import InferenceEngine
-    from llama_cu_awq_torch.engine.perplexity import token_perplexity
-    from llama_cu_awq_torch.models import llama as tl
+def tp_gather(tp, obj) -> list:
+    """obj from every rank of the group, in rank order (rank 1's output
+    goes nowhere, so rank 0 prints both)."""
+    import torch.distributed as dist
 
-    prompt = list(range(5, 13))
-    eng = InferenceEngine(params, cfg, None, temperature=0.0, seed=1234,
-                          max_seq=2048, attn_impl="fused_step", tp=tp,
-                          capture=False)
-    eng.generate_benchmark(prompt, 12)  # warm-up
-    steps = 32 + len(prompt) - 1
-    toks, dt, tps = run_path(torch, "tp2_engine",
-                             lambda: eng.generate_benchmark(prompt, steps),
-                             launches)
-    disagree = tp_agree(torch, tp, toks)
-    # the collectives alone, each between synchronizations, over 8 decode
-    # steps after the prompt
-    spent = {"calls": 0, "s": 0.0}
+    out = [None] * tp.size
+    dist.all_gather_object(out, obj, group=tp.group)
+    return out
 
-    def timed(fn):
-        def call(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent["s"] += time.perf_counter() - t0
-            spent["calls"] += 1
-            return out
-        return call
+
+def split_graphs(eng) -> dict:
+    """A TP engine's graphs, split at the collectives: how many, the
+    segments of each key (kind/T/window), capture seconds and pool bytes
+    summed."""
+    graphs = eng._graphs.graphs
+
+    def kind(k):
+        return k if isinstance(k, str) else "_".join(map(str, k))
+
+    return {"graphs": len(graphs),
+            "segments_by_key": {f"{kind(k[0])}/T{k[1]}/w{k[2]}": g.segments
+                                for k, g in graphs.items()},
+            "capture_s": sum(g.capture_seconds for g in graphs.values()),
+            "pool_bytes": sum(g.pool_bytes for g in graphs.values())}
+
+
+def tp_decode_window(torch, eng, prompt, n=8, sync=False, trace=False):
+    """n decode steps after the prompt's prefill: ms a token; graph
+    segments replayed, collectives run and kernel launches counted, a
+    token; with sync, the collectives timed each between two
+    synchronizations (parallel/mesh.py sync_timing), so ms a token splits
+    into collective ms and the rest; with trace, the device operations
+    and the host's launch calls (kernels, graphs, copies) a token from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_cu_awq_torch.engine.graphs import REPLAYS
+    from llama_cu_awq_torch.ops.cuda import LAUNCHES, reset_launches
+    from llama_cu_awq_torch.parallel.mesh import (COLLECTIVE_SECONDS,
+                                                  COLLECTIVES,
+                                                  reset_collectives,
+                                                  sync_timing)
 
     eng.reset()
     eng._prefill(prompt[:-1])
-    saved = tl.all_reduce_sum, tl.all_gather_last
-    tl.all_reduce_sum, tl.all_gather_last = map(timed, saved)
-    try:
-        eng._decode_tokens(torch.tensor([prompt[-1]], dtype=torch.int32,
-                                        device="cuda"), 8,
-                           stop_at_eos=False)
-    finally:
-        tl.all_reduce_sum, tl.all_gather_last = saved
+    torch.cuda.synchronize()
+    reset_collectives()
+    reset_launches()
+    r0 = dict(REPLAYS)
+    ctx = contextlib.ExitStack()
+    if sync:
+        ctx.enter_context(sync_timing())
+    prof = (ctx.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]))
+            if trace else None)
+    t0 = time.perf_counter()
+    with ctx:
+        toks, _ = eng._decode_tokens(
+            torch.tensor([prompt[-1]], dtype=torch.int32, device="cuda"), n,
+            stop_at_eos=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    res = {"ms_per_token": wall * 1e3 / n,
+           "segment_replays_per_token": (REPLAYS["segments"]
+                                         - r0["segments"]) / n,
+           "collectives_per_token": sum(COLLECTIVES.values()) / n,
+           "kernel_launches_per_token": sum(LAUNCHES.values()) / n,
+           "tokens": toks}
+    if sync:
+        coll = sum(COLLECTIVE_SECONDS.values()) * 1e3 / n
+        res.update(collective_ms_per_token=coll,
+                   rest_ms_per_token=res["ms_per_token"] - coll)
+    if trace:
+        events = prof.events()
+        res["device_ops_per_token"] = sum(
+            e.device_type == DeviceType.CUDA for e in events) / n
+        res["host_launch_calls_per_token"] = sum(
+            e.device_type == DeviceType.CPU and e.name.startswith(
+                ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync", "cuLaunchKernel"))
+            for e in events) / n
+    return res
+
+
+def tp_engine_runs(torch, cfg, full, params, tp, launches):
+    """A TP InferenceEngine made with capture=True (its graphs split at
+    the collectives) and one made with capture=False, on the same shard:
+    32 greedy steps after an 8-token prompt, the graph engine once
+    untimed (its captures), then each way timed (tok/s; streams, and the
+    whole caches after, equal bit for bit on every rank; the
+    single-device replay); an 8-step decode window each way, traced
+    (device operations, host launch calls) and synchronized (replays,
+    collectives and launches a token; ms a token split into collective
+    ms and the rest); the perplexity of 255 ids each way (equal bit for
+    bit) beside the single-device engine's."""
+    from llama_cu_awq_torch.engine import InferenceEngine
+    from llama_cu_awq_torch.engine.perplexity import token_perplexity
+
+    prompt = list(range(5, 13))
+    steps = 32 + len(prompt) - 1
+    engs = {way: InferenceEngine(params, cfg, None, temperature=0.0,
+                                 seed=1234, max_seq=2048,
+                                 attn_impl="fused_step", tp=tp,
+                                 capture=way == "graph")
+            for way in ("graph", "eager")}
+    warm = engs["graph"].generate_benchmark(prompt, steps)[0]  # captures
+    timed = {}
+    for way in ("eager", "graph"):
+        name = "tp2_engine" + ("" if way == "graph" else "_eager")
+        timed[way] = run_path(
+            torch, name, lambda: engs[way].generate_benchmark(prompt, steps),
+            launches)
+    toks = timed["graph"][0]
+    mine = {"streams_equal": warm == toks == timed["eager"][0],
+            "caches_equal": caches_equal(torch, engs["graph"],
+                                         engs["eager"]),
+            "graphs": split_graphs(engs["graph"]), "windows": {}}
+    for way, e in engs.items():
+        mine["windows"][way] = {
+            **tp_decode_window(torch, e, prompt, trace=True),
+            **tp_decode_window(torch, e, prompt, sync=True)}
+    w = mine["windows"]
+    mine["window_tokens_equal"] = w["graph"].pop("tokens") == w[
+        "eager"].pop("tokens")
     ids = [1] + [3 + (7919 * i) % 31990 for i in range(254)]
     ppl = run_path(torch, "tp2_perplexity",
-                   lambda: token_perplexity(eng, ids), launches)
-    if full is None:
-        return
-    single = InferenceEngine(full, cfg, None, temperature=0.0,
-                             max_seq=2048)
-    ppl_1 = token_perplexity(single, ids)
-    del single
-    gap, tol = tp_replay(torch, cfg, full, "engine", prompt, toks,
-                         "fused_step")
-    d_ln = abs(math.log(ppl) - math.log(ppl_1))
-    print(json.dumps({
-        "e2e": "tp2_engine", "model": "llama2-7b", "ranks": tp.size,
-        "backend": tp.backend, "steps": len(toks), "tok_per_s": tps,
-        "seconds": dt, "ranks_disagree": disagree,
-        "replay_max_gap": gap, "replay_tolerance": tol,
-        "collectives_per_token": spent["calls"] / 8,
-        "collective_ms_per_token": spent["s"] * 1e3 / 8,
-        "perplexity_tp": ppl, "perplexity_single": ppl_1,
-        "abs_d_ln_ppl": d_ln, "first_tokens": toks[:8],
-        "note": "2 ranks sharing one card, gloo through the host: not a "
-                "TP speed"}), flush=True)
+                   lambda: token_perplexity(engs["graph"], ids), launches)
+    ppl_eager = token_perplexity(engs["eager"], ids)
+    mine["perplexity_equal"] = ppl == ppl_eager
+    mine["caches_equal_after_perplexity"] = caches_equal(
+        torch, engs["graph"], engs["eager"])
+    ranks = tp_gather(tp, mine)
+    disagree = tp_agree(torch, tp, toks)
+    del engs
+    equal = all(r[k] for r in ranks for k in (
+        "streams_equal", "caches_equal", "window_tokens_equal",
+        "perplexity_equal", "caches_equal_after_perplexity"))
+    if full is not None:
+        single = InferenceEngine(full, cfg, None, temperature=0.0,
+                                 max_seq=2048)
+        ppl_1 = token_perplexity(single, ids)
+        del single
+        gap, tol = tp_replay(torch, cfg, full, "engine", prompt, toks,
+                             "fused_step")
+        d_ln = abs(math.log(ppl) - math.log(ppl_1))
+        print(json.dumps({
+            "e2e": "tp2_engine", "model": "llama2-7b", "ranks": tp.size,
+            "backend": tp.backend, "steps": len(toks),
+            "tok_per_s": timed["graph"][2], "seconds": timed["graph"][1],
+            "tok_per_s_eager": timed["eager"][2],
+            "seconds_eager": timed["eager"][1],
+            "captured_equals_eager_bit_for_bit": equal,
+            "ranks_disagree": disagree, "replay_max_gap": gap,
+            "replay_tolerance": tol,
+            "perplexity_tp": ppl, "perplexity_tp_eager": ppl_eager,
+            "perplexity_single": ppl_1, "abs_d_ln_ppl": d_ln,
+            "first_tokens": toks[:8], "by_rank": ranks,
+            "note": "2 ranks sharing one card, gloo through the host: not "
+                    "a TP speed"}), flush=True)
+    if not equal:
+        raise AssertionError(f"tp2 engine: captured and eager differ: "
+                             f"{ranks}")
     if disagree or len(toks) != 32:
         raise AssertionError(f"tp2 engine: {len(toks)} tokens, ranks "
                              f"disagree by {disagree}")
-    if not d_ln <= 0.01:
+    if launches["tp2_engine"] != launches["tp2_engine_eager"]:
+        raise AssertionError("tp2 engine: graph and eager launch counts "
+                             "differ")
+    if full is not None and not d_ln <= 0.01:
         raise AssertionError(f"tp2 perplexity: |d ln ppl| = {d_ln}")
 
 
 def tp_batch_run(torch, cfg, full, params, tp, launches):
-    """A TP BatchEngine: rank 0 serves 4 greedy requests on 4 slots (two
-    prompts long enough for block prefill) and rank 1 follows; each
-    stream replayed through the single-device forward."""
+    """A TP BatchEngine made with capture=True and one made with
+    capture=False: rank 0 serves 4 greedy requests on 4 slots (two
+    prompts long enough for block prefill) and rank 1 follows; streams
+    and whole caches equal bit for bit on every rank, each stream
+    replayed through the single-device forward."""
     from llama_cu_awq_torch.engine import BatchEngine
 
-    be = BatchEngine(params, cfg, None, n_slots=4, max_seq=512,
-                     chunk_size=8, spec=None, tp=tp, capture=False)
-    if tp.rank:
-        be.follow()
-        return
     prompts = [[1] + [3 + (104729 * (i + 131 * j)) % 31990
                       for i in range(n - 1)]
                for j, n in enumerate((20, 40, 100, 200))]
-    try:
-        rids = [be.submit(p, max_new=16) for p in prompts]
-        out = run_path(torch, "tp2_batch", be.run, launches)
-        st = be.stats()
-    finally:
-        be.stop_followers()
-    gaps = [tp_replay(torch, cfg, full, f"batch request {i}", p, out[r],
+    engs, outs = {}, {}
+    for way in ("graph", "eager"):
+        be = engs[way] = BatchEngine(params, cfg, None, n_slots=4,
+                                     max_seq=512, chunk_size=8, spec=None,
+                                     tp=tp, capture=way == "graph")
+        if tp.rank:
+            be.follow()
+            continue
+        try:
+            rids = [be.submit(p, max_new=16) for p in prompts]
+            name = "tp2_batch" + ("" if way == "graph" else "_eager")
+            out = run_path(torch, name, be.run, launches)
+            outs[way] = ([out[r] for r in rids], be.stats())
+        finally:
+            be.stop_followers()
+    mine = {"caches_equal": caches_equal(torch, engs["graph"],
+                                         engs["eager"]),
+            "graphs": split_graphs(engs["graph"])}
+    ranks = tp_gather(tp, mine)
+    del engs
+    if tp.rank:
+        if not all(r["caches_equal"] for r in ranks):
+            raise AssertionError("tp2 batch: captured and eager differ")
+        return
+    streams, st = outs["graph"]
+    equal = (streams == outs["eager"][0]
+             and all(r["caches_equal"] for r in ranks))
+    gaps = [tp_replay(torch, cfg, full, f"batch request {i}", p, streams[i],
                       "auto")[0]
-            for i, (p, r) in enumerate(zip(prompts, rids))]
+            for i, p in enumerate(prompts)]
     print(json.dumps({
         "e2e": "tp2_batch_engine", "model": "llama2-7b", "ranks": tp.size,
         "slots": 4, "requests": 4, "max_new": 16,
-        "tok_per_s": st["tok_per_s"], "finished": st["finished"],
-        "replay_max_gap": max(gaps),
-        "note": "2 ranks sharing one card, gloo through the host: not a "
-                "TP speed"}), flush=True)
-    if st["finished"] != 4 or not all(out[r] for r in rids):
+        "tok_per_s": st["tok_per_s"],
+        "tok_per_s_eager": outs["eager"][1]["tok_per_s"],
+        "finished": st["finished"],
+        "captured_equals_eager_bit_for_bit": equal,
+        "replay_max_gap": max(gaps), "by_rank": ranks,
+        "note": "the graph run includes its captures; 2 ranks sharing one "
+                "card, gloo through the host: not a TP speed"}), flush=True)
+    if not equal:
+        raise AssertionError("tp2 batch: captured and eager differ")
+    if launches["tp2_batch"] != launches["tp2_batch_eager"]:
+        raise AssertionError("tp2 batch: graph and eager launch counts "
+                             "differ")
+    if st["finished"] != 4 or not all(streams):
         raise AssertionError(f"tp2 batch: {st}")
 
 
@@ -4858,10 +5001,13 @@ def bench_run(tag, flags, names, keys, kernels, workload, e2e, tmp,
              if ln.startswith(("spec gate", "batch gate", "[spec] spec "
                                "acceptance", "spec acceptance", "--tp"))]
     launched: dict[str, int] = {}
+    by_variant: dict[str, int] = {}
     for rec in legs.values():
         for k, n in rec["kernels"].items():
             launched[k] = launched.get(k, 0) + n
             per_row[SECTION6_ROW[k]] = per_row.get(SECTION6_ROW[k], 0) + n
+        for k, n in rec["variants"].items():
+            by_variant[k] = by_variant.get(k, 0) + n
         variants[f"{tag}/{rec['leg']}"] = {
             "runs": rec["runs"], "tokens_per_run": rec["tokens_per_run"],
             "variants": rec["variants"]}
@@ -4892,12 +5038,13 @@ def bench_run(tag, flags, names, keys, kernels, workload, e2e, tmp,
             "int8" in v for rec in legs.values() for v in rec["variants"]
             if v.startswith("dense_gemv/")):
         raise AssertionError("bench g_lm_head_int8: no int8 head launched")
-    return res
+    return {"kernels": launched, "variants": by_variant}
 
 
 def bench_phase(torch, e2e):
     """Phase 14 (see the module docstring): the bench and its two tools as
-    their own processes."""
+    their own processes. Returns each bench run's launches of its timed
+    legs, as bench_<tag>."""
     import shutil
 
     t0 = time.time()
@@ -4906,11 +5053,13 @@ def bench_phase(torch, e2e):
     per_row: dict[int, int] = {}
     variants: dict[str, dict] = {}
     secs = {}
+    launches = {}
     try:
         for tag, flags, names, keys, kernels, workload in BENCH_RUNS:
             t1 = time.time()
-            bench_run(tag, flags, names, keys, kernels, workload, e2e, tmp,
-                      per_row, variants)
+            launches[f"bench_{tag}"] = bench_run(
+                tag, flags, names, keys, kernels, workload, e2e, tmp,
+                per_row, variants)
             secs[tag] = time.time() - t1
         rc, out, err, s = python_m(
             "llama_cu_awq_torch.tools.trace_summary",
@@ -4940,6 +5089,7 @@ def bench_phase(torch, e2e):
                       "launches_per_section6_row": dict(sorted(
                           per_row.items())),
                       "variants_by_leg": variants}), flush=True)
+    return launches
 
 
 def main() -> int:
@@ -5002,7 +5152,7 @@ def main() -> int:
     timed(tp_phase, torch, rows, launches)
     launches.update(timed(dp_tp_phase, torch, params))
     launches.update(timed(trainer_phase, torch))
-    timed(bench_phase, torch, e2e.lines)
+    launches.update(timed(bench_phase, torch, e2e.lines))
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

@@ -39,9 +39,10 @@ configuration's exact shapes, or a packed checkpoint with --model BIN
 rank 0 and prints): over nccl where N cards are visible, one each;
 otherwise over gloo with every rank on cuda:0, whose collectives go
 through the host, so the number is no TP speed (the log says so). TP
-engines run eagerly (capture=False). --profile DIR traces run 0 with
-utils/profiling.py profile_trace and prints tools/trace_summary.py's
-summary of DIR/trace.json to stderr.
+engines run on CUDA graphs split at the collectives (engine/graphs.py);
+the gates' replay engine runs eagerly, as at tp 1. --profile DIR traces
+run 0 with utils/profiling.py profile_trace and prints
+tools/trace_summary.py's summary of DIR/trace.json to stderr.
 
 Gates (a failed gate exits non-zero and prints no result line):
 - every timed run of a greedy leg returns the warm-up's tokens;
@@ -454,7 +455,7 @@ def decode_leg(s: Setup, spec: str | None, repeats: int, name: str,
         s.params, s.cfg, None, attn_impl=args.attn_impl,
         kv_quant=s.kv_quant(), max_seq=s.max_seq, temperature=0.0,
         seed=1234, chunk_size=args.chunk_size, spec=spec,
-        spec_k=args.spec_k, device=s.device, capture=s.tp is None, tp=s.tp)
+        spec_k=args.spec_k, device=s.device, tp=s.tp)
     prompt = decode_prompt(s)
     untimed = bool(args.decode_steps)
     if untimed:
@@ -623,7 +624,7 @@ def bench_prefill(s: Setup) -> dict:
     eng = InferenceEngine(s.params, s.cfg, None, attn_impl=args.attn_impl,
                           max_seq=s.max_seq, temperature=0.0, seed=1234,
                           chunk_size=args.chunk_size, device=s.device,
-                          capture=s.tp is None, tp=s.tp)
+                          tp=s.tp)
     n = min(args.prompt_len, s.max_seq - 2)
     prompt = [5 + i % 500 for i in range(n)]
 
@@ -718,8 +719,7 @@ def bench_batch(s: Setup) -> dict | None:
                       max_seq=s.max_seq, kv_quant=s.kv_quant(),
                       attn_impl=args.attn_impl, temperature=0.0,
                       chunk_size=args.chunk_size, spec=spec,
-                      spec_k=args.spec_k, device=s.device,
-                      capture=s.tp is None, tp=s.tp)
+                      spec_k=args.spec_k, device=s.device, tp=s.tp)
     best, out, windows = 0.0, None, {}
     if s.leader:
         def one_run():

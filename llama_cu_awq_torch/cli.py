@@ -28,8 +28,9 @@ process is rank 0, and it starts ranks 1..N-1 itself, one process each
 rank r computes on cuda:r and the ranks join over nccl; with --device cpu
 they join over gloo. Every rank reads the checkpoint and builds its own
 shard, and runs the same program; only rank 0 prints (and, in chat mode,
-reads the terminal, broadcasting each line to the others). The steps run
-eagerly (no CUDA graphs). As in the JAX CLI, --lm-head-bits is ignored
+reads the terminal, broadcasting each line to the others). On the card
+each rank's steps run on CUDA graphs split at the collectives
+(engine/graphs.py). As in the JAX CLI, --lm-head-bits is ignored
 with --tp, and the embed and head are stored in act_dtype (bf16 by
 default).
 """
@@ -213,7 +214,7 @@ def _rank(args, prompt, ckpt, rank: int = 0, n: int = 1,
             temperature=args.temperature, topp=args.topp, seed=args.seed,
             spec=args.spec, spec_k=args.spec_k,
             max_seq=args.max_seq or ckpt.config.seq_len, device=device,
-            act_dtype=act_dtype, tp=tp, capture=tp is None)
+            act_dtype=act_dtype, tp=tp)
 
         if args.profile and rank == 0:
             from llama_cu_awq_torch.utils.profiling import profile_trace

@@ -62,8 +62,11 @@ staged input buffer and broadcasts the whole buffer over the group. Ranks
 1 and up run follow(): receive the buffer, run the same body on it, until
 the leader's stop_followers(). Every body reads only that buffer and
 static state, so the ranks run the same program; the collectives inside
-forward pair up in order. Under tp the bodies run eagerly (capture=False,
-as the InferenceEngine's).
+forward pair up in order. Every rank runs the bodies through its own
+graphs, split at the collectives (engine/graphs.py): a key's first run
+is eager on every rank, its capture runs no collective, and its replays
+run them between the segments. The broadcast of the staged buffer runs
+outside the bodies, before each.
 """
 
 from __future__ import annotations
@@ -241,14 +244,8 @@ class BatchEngine:
         fp16 or f32) is the activations' and the unquantized cache's type,
         as the JAX engine's (batch.py:141, 234-242). tp: this rank's
         TPGroup (see the module docstring); every rank makes its engine
-        with the same arguments, rank 0 serves and the others follow().
-        capture=True with a group of more than one rank raises
-        ValueError: a gloo collective cannot be captured in a graph."""
-        if tp is not None and tp.size > 1 and capture:
-            raise ValueError(
-                "capture=True with tensor parallelism: the steps run eagerly "
-                "(a gloo collective cannot be captured in a CUDA graph); "
-                "pass capture=False")
+        with the same arguments, rank 0 serves and the others follow();
+        their graphs are split at the collectives (engine/graphs.py)."""
         self.tp = tp if tp is not None and tp.size > 1 else None
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
@@ -349,8 +346,8 @@ class BatchEngine:
         self._graphs = None
         if capture and dev.type == "cuda":
             self._graphs = GraphSet(dev, lambda: reserve_split_scratch(
-                dev, S, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                cfg.head_dim, self.max_seq))
+                dev, S, cfg.n_kv_heads // self._tp_size,
+                cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, self.max_seq))
 
     def _fetch(self, t: torch.Tensor):
         """Start copying a dispatched result, a view of a static output

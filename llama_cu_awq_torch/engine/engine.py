@@ -143,14 +143,9 @@ class InferenceEngine:
         with the rank's shard of the params (parallel/tp.py): the cache
         holds the rank's kv heads, and every rank runs this same program
         on the same gathered logits with the same seed, so every rank
-        draws the same tokens. Its steps run eagerly: a gloo collective
-        cannot be captured in a CUDA graph, so capture=True with a group
-        of more than one rank raises ValueError."""
-        if tp is not None and tp.size > 1 and capture:
-            raise ValueError(
-                "capture=True with tensor parallelism: the steps run eagerly "
-                "(a gloo collective cannot be captured in a CUDA graph); "
-                "pass capture=False")
+        draws the same tokens. Its step graphs are split at the
+        collectives (engine/graphs.py): every rank captures and replays
+        the same keys in the same order."""
         self.tp = tp
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
@@ -210,8 +205,8 @@ class InferenceEngine:
         self._graphs = None
         if capture and dev.type == "cuda":
             self._graphs = GraphSet(dev, lambda: reserve_split_scratch(
-                dev, 1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                cfg.head_dim, self.max_seq))
+                dev, 1, cfg.n_kv_heads // self._tp_size,
+                cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, self.max_seq))
 
     def _init_cache(self):
         if self.tp is None:

@@ -18,19 +18,38 @@ belongs in the key. The rules:
 - the first call of a key runs the body eagerly on the current stream (a
   real step, counted by the wrappers as ever), then captures it on the
   set's own stream; a capture runs nothing;
+- under tensor parallelism the capture splits at the collectives (the
+  JAX TP step is one compiled program, collectives included,
+  llama_cu_awq_tpu/engine/engine.py:166-178, 265-326): a collective the
+  body calls (parallel/mesh.py all_reduce_sum, all_gather_last) ends the
+  segment being captured, is recorded as a step that runs it on the very
+  tensors it was given, and the next segment's capture begins in the
+  same pool. A replay runs segment 0, collective 0, segment 1, ... on
+  the current stream, the segments back to back: a T=1 step of a model
+  of L layers is 2L + 2 segments around 2L all-reduces and the logits'
+  gather. A body with no collective is one segment. The tensors a
+  collective holds stay allocated as long as the graph, and every other
+  tensor that crosses a split is alive in the capture when the next
+  segment's allocations are made, so no segment reuses memory another
+  still reads. Every rank takes the same keys in the same order (the
+  keys depend only on the plan, the window and T, which the ranks
+  compute alike): the first call's collectives run live, a capture runs
+  none, and the replays' pair up;
 - the graphs of a set share one memory pool, where a body's temporaries
   live at fixed addresses. Every result a caller reads is copied into a
   static buffer inside the body, never read from the pool, so the graphs
-  may replay in any order, one at a time on one stream;
+  may replay in any order, one at a time on one stream (the segments of
+  one graph always back to back, in the order they were captured);
 - the split attention kernels' scratch is kept per stream
   (ops/cuda/attention_step.split_scratch) and may not grow during a
   capture; `reserve` sizes it on the capture stream, for the largest
-  batch and window, before the first capture, and a capture that would
-  grow it raises;
+  batch and window and the rank's heads, before the first capture, and a
+  capture that would grow it raises;
 - the launches a body counts while it is captured are taken back from
-  ops.cuda's counters and added again at every replay (add_launches), so
-  LAUNCHES and VARIANT_LAUNCHES read as if each kernel had been launched
-  from Python;
+  ops.cuda's counters and added again at every replay of its segment
+  (add_launches), so LAUNCHES and VARIANT_LAUNCHES read as if each
+  kernel had been launched from Python; REPLAYS counts the graphs and
+  segments replayed;
 - the cyclic garbage collector is off while any capture runs
   (`collector_off`): a collection inside a capture may free an old
   engine's graphs, and destroying a graph is a call a capture does not
@@ -51,8 +70,23 @@ import torch
 
 from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
                                          add_launches)
+from llama_cu_awq_torch.parallel.mesh import split_at_collectives
 
 Launches = tuple[dict[str, int], dict[str, int]]
+
+# graphs replayed, and the segments they replayed
+REPLAYS = {"graphs": 0, "segments": 0}
+
+
+def _take_back(k0: dict, v0: dict) -> Launches:
+    """The launches counted since the counters read (k0, v0), taken back
+    from the counters."""
+    kernels = {k: n - k0[k] for k, n in LAUNCHES.items() if n != k0[k]}
+    variants = {k: n - v0.get(k, 0) for k, n in VARIANT_LAUNCHES.items()
+                if n != v0.get(k, 0)}
+    add_launches({k: -n for k, n in kernels.items()},
+                 {k: -n for k, n in variants.items()})
+    return kernels, variants
 
 
 def record_launches(fn: Callable[[], object]) -> tuple[object, Launches]:
@@ -60,18 +94,17 @@ def record_launches(fn: Callable[[], object]) -> tuple[object, Launches]:
     and per variant, with the counters left as they were before."""
     k0, v0 = dict(LAUNCHES), dict(VARIANT_LAUNCHES)
     out = fn()
-    kernels = {k: n - k0[k] for k, n in LAUNCHES.items() if n != k0[k]}
-    variants = {k: n - v0.get(k, 0) for k, n in VARIANT_LAUNCHES.items()
-                if n != v0.get(k, 0)}
-    add_launches({k: -n for k, n in kernels.items()},
-                 {k: -n for k, n in variants.items()})
-    return out, (kernels, variants)
+    return out, _take_back(k0, v0)
 
 
 # captures in progress in this process, over every thread (serving runs
 # one engine thread per replica): the collector is process-wide
 _CAPTURING = {"count": 0, "was_enabled": False}
 _CAPTURING_LOCK = threading.Lock()
+# one GraphSet.capture at a time in this process: its synchronize and
+# empty_cache must not meet another thread's capture under way (a
+# capture waits for no other rank, so this lock cannot deadlock a group)
+_ONE_CAPTURE = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -94,18 +127,32 @@ def collector_off():
 
 @dataclasses.dataclass
 class Graph:
-    """One captured body, the launches each replay stands for, and what
-    capturing it cost: seconds on the host clock and the bytes the shared
-    pool grew by."""
+    """One captured body: its first segment and the launches a replay of
+    it stands for, what capturing the body cost (seconds on the host
+    clock and the bytes the shared pool grew by), and after the first
+    segment, each collective the body called with the segment captured
+    after it."""
 
     graph: object  # torch.cuda.CUDAGraph
     launches: Launches
     capture_seconds: float
     pool_bytes: int
+    # (the collective, the next segment, its launches)
+    splits: list = dataclasses.field(default_factory=list)
+
+    @property
+    def segments(self) -> int:
+        return 1 + len(self.splits)
 
     def replay(self) -> None:
         self.graph.replay()
         add_launches(*self.launches)
+        for collective, graph, launches in self.splits:
+            collective()
+            graph.replay()
+            add_launches(*launches)
+        REPLAYS["graphs"] += 1
+        REPLAYS["segments"] += 1 + len(self.splits)
 
 
 class GraphSet:
@@ -136,16 +183,59 @@ class GraphSet:
             g.replay()
 
     def capture(self, body: Callable[[], None]) -> Graph:
-        """A graph of body()'s launches, on this set's stream and pool."""
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
+        """A graph of body()'s launches, on this set's stream and pool,
+        split at its collectives: one synchronize and one reading of the
+        pool a key, whatever its segments."""
+        with _ONE_CAPTURE:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            with torch.cuda.stream(self.stream):
+                g = self.split_capture(body)
+            torch.cuda.synchronize(self.device)
+            g.capture_seconds = time.perf_counter() - t0
+            g.pool_bytes = (torch.cuda.memory_reserved(self.device)
+                            - reserved)
+        return g
+
+    def begin_segment(self):
+        """A CUDA graph capturing on the current stream into the pool
+        (capture_end() ends it)."""
         graph = torch.cuda.CUDAGraph()
-        with collector_off(), torch.cuda.graph(
-                graph, pool=self.pool, stream=self.stream,
-                capture_error_mode="thread_local"):
-            _, launches = record_launches(body)
-        torch.cuda.synchronize(self.device)
-        return Graph(graph, launches, time.perf_counter() - t0,
-                     torch.cuda.memory_reserved(self.device) - reserved)
+        graph.capture_begin(pool=self.pool,
+                            capture_error_mode="thread_local")
+        return graph
+
+    def split_capture(self, body: Callable[[], None]) -> Graph:
+        """body() captured as segments split at the collectives it calls
+        from this thread (see the module docstring)."""
+        done = []  # (the collective before it or None, segment, launches)
+        cur = {"before": None, "graph": None, "counts": None}
+
+        def begin(before):
+            cur["before"] = before
+            cur["graph"] = self.begin_segment()
+            cur["counts"] = dict(LAUNCHES), dict(VARIANT_LAUNCHES)
+
+        def end():
+            cur["graph"].capture_end()
+            done.append((cur["before"], cur["graph"],
+                         _take_back(*cur["counts"])))
+
+        def split(collective):
+            end()
+            begin(collective)
+
+        with collector_off(), split_at_collectives(split):
+            begin(None)
+            try:
+                body()
+            except BaseException:
+                # the body's error, not the unfinished capture's
+                with contextlib.suppress(RuntimeError):
+                    cur["graph"].capture_end()
+                raise
+            end()
+        (_, first, launches), rest = done[0], done[1:]
+        return Graph(first, launches, 0.0, 0, rest)

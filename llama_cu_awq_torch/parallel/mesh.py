@@ -13,11 +13,25 @@ the device it computes on.
 instead: N replicas of M ranks whose rank 0 is one and the same process,
 the server, which holds shard 0 of every replica (the JAX server holds
 every replica in one process too, llama_cu_awq_tpu/serve.py:621-651).
+
+Every collective of the TP forward goes through all_reduce_sum or
+all_gather_last. While a thread has `split_at_collectives(split)` open
+(engine/graphs.py, capturing a step's CUDA graph), a collective that
+thread calls does not run: it hands split() a function that runs it on
+the very tensors it was given, and the graph replays that function
+between the segments it captured before and after the call. Every
+other thread's collectives, and all of them outside a capture, run at
+once. COLLECTIVES counts the collectives run, by kind, and
+COLLECTIVE_SECONDS the host seconds they took.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
+import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -139,20 +153,94 @@ def make_replica_groups(dp: int, tp: int, devices=None) -> dict:
     return out
 
 
+# the collectives run, by kind, and the host seconds they took (a gloo
+# collective on CUDA tensors waits for the work queued before it, so its
+# seconds hold that wait unless `sync_timing` is on)
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+COLLECTIVE_SECONDS = {"all_reduce": 0.0, "all_gather": 0.0}
+_TIMING = {"sync": False}
+_SPLIT = threading.local()
+
+
+def reset_collectives() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0
+        COLLECTIVE_SECONDS[k] = 0.0
+
+
+@contextlib.contextmanager
+def sync_timing():
+    """A measurement's switch: each collective synchronizes its device
+    before and after, so COLLECTIVE_SECONDS holds the collectives' own
+    time (it stalls the host at every collective)."""
+    _TIMING["sync"] = True
+    try:
+        yield
+    finally:
+        _TIMING["sync"] = False
+
+
+@contextlib.contextmanager
+def split_at_collectives(split: Callable[[Callable[[], None]], None]):
+    """While open, a collective called from this thread does not run:
+    split(run) receives a function that runs it (see the module
+    docstring)."""
+    prev = getattr(_SPLIT, "split", None)
+    _SPLIT.split = split
+    try:
+        yield
+    finally:
+        _SPLIT.split = prev
+
+
+def _collective(kind: str, run: Callable[[], None],
+                device: torch.device) -> None:
+    """run() now, counted and timed, or handed to this thread's split."""
+
+    def counted():
+        if _TIMING["sync"] and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        run()
+        if _TIMING["sync"] and device.type == "cuda":
+            torch.cuda.synchronize(device)
+        COLLECTIVES[kind] += 1
+        COLLECTIVE_SECONDS[kind] += time.perf_counter() - t0
+
+    split = getattr(_SPLIT, "split", None)
+    if split is None:
+        counted()
+    else:
+        split(counted)
+
+
+# Both collectives are synchronous calls (async_op=False): when one
+# returns, the next work queued on the current stream is ordered after
+# its result, under gloo (which copies a CUDA tensor to the host, reduces
+# there, copies back and makes the current stream wait for that copy) and
+# under nccl (whose stream the current stream waits for). A graph's next
+# segment, replayed on the current stream, reads the result so.
+
 def all_reduce_sum(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
     """x summed over the group, in place (the JAX forward's psum). Every
     rank receives the same bits."""
     if tp.size > 1:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=tp.group)
+        _collective("all_reduce", lambda: dist.all_reduce(
+            x, op=dist.ReduceOp.SUM, group=tp.group), x.device)
     return x
 
 
 def all_gather_last(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
     """The ranks' x side by side along the last dim, in rank order (the
     JAX forward's tiled all_gather of the vocab-sharded logits). gloo
-    takes CUDA tensors here too (checked on the H100: PERF.md §6)."""
+    takes CUDA tensors here too (checked on the H100: PERF.md §6). Under
+    a split capture `parts` and the contiguous x are made in the segment
+    before the gather and the cat in the one after, and the gather holds
+    both."""
     if tp.size == 1:
         return x
     parts = [torch.empty_like(x) for _ in range(tp.size)]
-    dist.all_gather(parts, x.contiguous(), group=tp.group)
+    xc = x.contiguous()
+    _collective("all_gather", lambda: dist.all_gather(
+        parts, xc, group=tp.group), x.device)
     return torch.cat(parts, dim=-1)

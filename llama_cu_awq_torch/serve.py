@@ -38,7 +38,8 @@ replica (parallel/mesh.py make_replica_groups); it starts the other
 N*(M-1) ranks itself (parallel/multihost.py run_ranks), each of which
 builds its shard and follows its replica's dispatches. With --device cuda
 replica r's shard c runs on cuda:r*M + c over nccl (N*M cards), with
---device cpu over gloo. TP engines run eagerly (no CUDA graphs).
+--device cpu over gloo. TP engines run on CUDA graphs split at the
+collectives (engine/graphs.py), on every rank.
 """
 
 from __future__ import annotations
@@ -703,8 +704,7 @@ def _engine(args, ckpt, tokenizer, device, seed: int = 0, params=None,
         kv_quant=(4 if args.kv_bits == 4 else args.kv_quant),
         spec=None if args.spec == "none" else args.spec,
         spec_k=args.spec_k, prefix_cache_size=args.prefix_cache,
-        chunk_size=args.chunk_size, device=device, tp=tp,
-        capture=tp is None)
+        chunk_size=args.chunk_size, device=device, tp=tp)
 
 
 def _replica_engines(args, ckpt, tokenizer, rank: int, init: str,

@@ -16,9 +16,9 @@ Each width is one point, measured by the bench's own batch mode
 the tool's --config shapes in place of the bench's): BatchEngine over
 synthetic weights (seed 0) serving --requests greedy requests on --slots,
 the best of --repeats runs after a warm-up, then three requests replayed
-against plain decode (the bench's batch gate). The tp=1 point runs on
-CUDA graphs; a tp=N point runs N ranks (the bench's run_ranks: this
-process is rank 0) eagerly, since a TP engine does not capture. The
+against plain decode (the bench's batch gate). Every point runs on CUDA
+graphs; a tp=N point runs N ranks (the bench's run_ranks: this process
+is rank 0), their graphs split at the collectives (engine/graphs.py). The
 collectives follow the bench's rule (tp_backend): nccl with rank r on
 cuda:r where N cards are visible, else gloo with every rank on cuda:0,
 whose collectives pass through the host: such a point checks the path,

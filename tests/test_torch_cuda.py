@@ -1592,6 +1592,35 @@ def test_tp_forward_on_card_matches_single_device(gen, tmp_path, case):
     assert calls.get(kernel, 0) >= cfg.n_layers
 
 
+def test_tp_graphs_match_eager_on_card(gen, tmp_path):
+    """Two ranks sharing the card over gloo (tests/torch_tp_ranks.py
+    graphs_job): a TP InferenceEngine (decode, forced prompt steps, prompt
+    blocks, perplexity, the spec verify) and a TP BatchEngine (chunks,
+    slot prefill blocks, spec blocks, the follower's follow() loop) made
+    with capture=True, whose graphs split at the collectives, equal the
+    same engines made with capture=False bit for bit on both ranks:
+    streams and whole caches. A T=1 key with the head is 2 * n_layers + 2
+    segments (2 all-reduces a layer and the logits' gather), a prefill
+    block without it 2 * n_layers + 1."""
+    from llama_cu_awq_torch.io.checkpoint import save_checkpoint
+    import torch_tp_ranks as ranks
+
+    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=2,
+                      n_kv_heads=2, vocab_size=512, seq_len=256)
+    path = str(tmp_path / "tp.bin")
+    save_checkpoint(path, random_checkpoint(cfg, seed=5))
+    job = dict(kind="graphs", name="graphs", device="cuda")
+    res = ranks.spawn_ranks(2, tmp_path, path, [job])["graphs"]
+    for name in ("engine", "engine_spec", "batch", "batch_spec"):
+        assert res[name]["equal"], name
+    assert all(res["engine"]["streams"]) and all(res["batch"]["streams"][0])
+    seg = res["segments"]
+    L = cfg.n_layers
+    assert seg["engine/decode/T1"] == seg["batch/chunk/T1"] == 2 * L + 2
+    assert seg["batch/prefill/T128"] == 2 * L + 1
+    assert seg["engine_spec/verify/T5"] == 2 * L + 2
+
+
 # the trained model of tools/train_tiny (chip_smoke.py phase 13): dim 512,
 # hidden 1536 (4 groups of 128 in n_in for qkv, o and gate_up, 12 for
 # down), 4 heads of 128, the Llama-2 vocab

@@ -41,11 +41,10 @@ import torch
 
 from llama_cu_awq_torch.cli import main as t_main
 from llama_cu_awq_torch.engine import InferenceEngine as TEngine
-from llama_cu_awq_torch.engine.graphs import (Graph, GraphSet,
-                                             collector_off, record_launches)
+from llama_cu_awq_torch.engine.graphs import collector_off, record_launches
 from llama_cu_awq_torch.models import llama as tl
-from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
-                                         add_launches, count, reset_launches)
+from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES, count,
+                                         reset_launches)
 from llama_cu_awq_torch.tokenizer import EOS_TOKEN
 from llama_cu_awq_torch.tokenizer import Tokenizer as TTokenizer
 from llama_cu_awq_torch.utils.profiling import TRACE_FILE, profile_trace
@@ -56,6 +55,8 @@ from llama_cu_awq_tpu.models import llama as jl
 from llama_cu_awq_tpu.tokenizer import Tokenizer as JTokenizer
 from tests.test_tokenizer import write_toy_tokenizer
 from tests.test_torch_engine import _toy_vocab, _write_model
+from tests.torch_graph_standins import (_CountingSet, _SplitSet, _StaleSet,
+                                        check_split_job, split_job)
 
 # one intra-op thread per process: the suite runs in several worker
 # processes, and torch's default pool in each oversubscribes the cores
@@ -238,68 +239,6 @@ def test_scanned_prefill_matches_jax():
 # ---------------------------------------------------------------------------
 # the graphs' launch bookkeeping, without a card
 
-class _Replays:
-    """A stand-in for torch.cuda.CUDAGraph: counts its replays."""
-
-    def __init__(self):
-        self.n = 0
-
-    def replay(self):
-        self.n += 1
-
-
-class _CountingSet(GraphSet):
-    """GraphSet.run's bookkeeping with a stand-in capture (no stream, no
-    pool): the body runs under record_launches as it does inside
-    torch.cuda.graph, and the graph only counts its replays."""
-
-    def __init__(self):
-        self.graphs = {}
-
-    def capture(self, body):
-        _, launches = record_launches(body)
-        return Graph(_Replays(), launches, 0.0, 0)
-
-
-class _FirstBody:
-    """A stand-in for torch.cuda.CUDAGraph: every replay runs the body its
-    key was captured from, never the one the caller passes now, as a CUDA
-    graph replays the launches and arguments it recorded. What the body
-    counts is taken back: a replay launches nothing through the wrappers,
-    and Graph.replay adds the capture's launches."""
-
-    def __init__(self, body):
-        self.body = body
-        self.n = 0
-
-    def replay(self):
-        self.n += 1
-        record_launches(self.body)
-
-
-class _StaleSet(GraphSet):
-    """GraphSet.run over _FirstBody graphs, on the CPU: an engine body
-    that reads a tensor made for one call (a host snapshot, a position
-    computed on the host) replays that first call's values, as a graph
-    would, and the engine's streams part from the oracle's. A capture
-    counts the launches of the key's first, eager call."""
-
-    def __init__(self):
-        self.graphs = {}
-        self._first = ({}, {})
-
-    def run(self, key, body, n=1):
-        if key not in self.graphs and n > 0:
-            _, self._first = record_launches(body)
-            add_launches(*self._first)  # it ran eagerly: counted
-            self.graphs[key] = self.capture(body)
-            n -= 1
-        super().run(key, body, n)
-
-    def capture(self, body):
-        return Graph(_FirstBody(body), self._first, 0.0, 0)
-
-
 def test_record_launches_takes_back_what_the_body_counted():
     reset_launches()
     count("dense_gemv", "bf16/m1")
@@ -391,6 +330,86 @@ def test_replays_count_as_launches():
     assert len(gs.graphs) == 2 and len(calls) == 4
     assert LAUNCHES["attention_step"] == 9
     reset_launches()
+
+
+class _TwoRanks:
+    """torch.distributed's two collectives for a group of two ranks that
+    hold the same tensors, in one process: a sum doubles, a gather
+    repeats."""
+
+    ReduceOp = torch.distributed.ReduceOp
+
+    @staticmethod
+    def all_reduce(x, op=None, group=None):
+        x.mul_(2)
+
+    @staticmethod
+    def all_gather(parts, x, group=None):
+        for p in parts:
+            p.copy_(x)
+
+
+@pytest.fixture
+def two_ranks(monkeypatch):
+    """A TPGroup of two ranks on the CPU whose collectives are _TwoRanks'."""
+    from llama_cu_awq_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "dist", _TwoRanks)
+    return mesh.TPGroup(0, 2, None, "gloo", torch.device("cpu"), (0, 1))
+
+
+def test_split_capture_segments_and_collectives_in_order(two_ranks):
+    """A body with two all-reduces and a gather captures 4 segments
+    around 3 collective steps, in order: the segments' launches sum to the
+    eager call's, a replay runs segment, collective, segment, ... on the
+    tensors the body gave, and a collective on another thread during the
+    capture, or outside one, runs at once (see check_split_job). x starts
+    at 1 and doubles at each all-reduce run: twice eagerly, none in the
+    capture, twice in the replay."""
+    check_split_job(split_job(two_ranks), 16.0)
+    reset_launches()
+
+
+def test_body_without_collectives_is_one_segment():
+    """A single-device body (no collective) captures as one segment, and
+    its replays count its launches as before."""
+    reset_launches()
+
+    def body():
+        count("int4_matmul_fused", "gemv/qkv")
+        count("dense_gemv", "bf16/m1")
+
+    gs = _SplitSet()
+    gs.run(("step",), body, 3)
+    g = gs.graphs[("step",)]
+    assert g.segments == 1 and g.splits == []
+    assert gs.log == [("end", 0), ("segment", 0, gs.log[1][2]),
+                      ("segment", 0, gs.log[1][2])]
+    assert LAUNCHES["int4_matmul_fused"] == 3 and LAUNCHES["dense_gemv"] == 3
+    reset_launches()
+
+
+def test_failed_split_capture_raises_and_ends_the_split(two_ranks):
+    """A body that raises mid-capture: the body's error comes out, the
+    unfinished segment's capture is ended, no graph is kept, and the
+    thread's collectives run at once again."""
+    from llama_cu_awq_torch.parallel.mesh import all_reduce_sum
+
+    x = torch.ones(1)
+    calls = []
+
+    def body():
+        all_reduce_sum(x, two_ranks)
+        if calls:
+            raise RuntimeError("a body that cannot be captured")
+        calls.append(1)
+
+    gs = _SplitSet()
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        gs.run(("step",), body, 2)
+    assert gs.log == [("end", 0), ("end", 1)] and not gs.graphs
+    all_reduce_sum(x, two_ranks)
+    assert x.tolist() == [4.0]  # the eager call's and this one
 
 
 def test_graph_keys_hold_the_host_choices(monkeypatch):

@@ -72,6 +72,7 @@ from tests.test_torch_engine import _toy_vocab
 # tests/ is on sys.path (pytest's rootdir-less test directory): the
 # spawned ranks import the helper by this name
 import torch_tp_ranks as ranks  # noqa: E402  isort: skip
+from torch_graph_standins import check_split_job  # noqa: E402  isort: skip
 
 # one intra-op thread per process: the suite runs in several worker
 # processes, and torch's default pool in each oversubscribes the cores
@@ -161,6 +162,11 @@ def _jobs(tp, paths):
                         max_new=8,
                         kw=dict(n_slots=2, max_seq=256, chunk_size=4,
                                 temperature=0.0, spec="ngram", spec_k=4)))
+        # the same engines made with capture=True, their bodies replayed
+        # stale (torch_graph_standins._StaleSet), and the split capture
+        out += [dict(j, name=j["name"] + "_stale", stale=True)
+                for j in out if j["kind"] in ("engine", "batch")]
+        out.append(dict(kind="split", name="split"))
     else:
         out.append(dict(kind="mesh", name="mesh", tp=2, dp=2))
     return out
@@ -421,15 +427,26 @@ def test_row_shard_that_splits_a_group_raises():
         ttp._check_divisible(TP_CFG, 3)
 
 
-def test_capture_under_tp_raises():
-    """A gloo collective cannot be captured in a CUDA graph: both engines
-    refuse capture=True under a group of more than one rank."""
+def test_capture_under_tp_is_accepted():
+    """Both engines take capture=True (the default) under a group of more
+    than one rank, and on the CPU run eagerly, as every CPU engine does:
+    no graphs."""
     group = TPGroup(0, 2, None, "gloo", torch.device("cpu"), (0, 1))
     params = ttp.shard_params(tl.params_from_checkpoint(
         t_random(TP_CFG, seed=1), device="cpu"), TP_CFG, 2, 0)
     for cls in (InferenceEngine, BatchEngine):
-        with pytest.raises(ValueError, match="capture=True"):
-            cls(params, TP_CFG, None, device="cpu", tp=group)
+        eng = cls(params, TP_CFG, None, device="cpu", tp=group)
+        assert eng._graphs is None and eng._tp_size == 2
+
+
+def test_split_capture_over_gloo(runs):
+    """engine/graphs.py's split capture on each of 2 gloo ranks
+    (torch_graph_standins.split_job, rank 0's result): 4 segments around
+    two all-reduces and a gather, replayed in order on the tensors the
+    body gave; another thread's collective during the capture and one
+    outside it run at once. x starts at rank + 1 on each rank: 3 and 6
+    after the eager call's all-reduces, 12 and 24 after the replay's."""
+    check_split_job(runs[0][2]["split"], 24.0)
 
 
 # ---------------------------------------------------------------------------
@@ -483,6 +500,27 @@ def test_tp_engine_stream_matches_jax_and_single_device(runs):
                    temperature=0.0, max_seq=64, mesh=mesh)
     jeng._fwd = fwd
     assert jeng.generate_benchmark(ENGINE_PROMPT, 24)[0] == toks
+
+
+def test_tp_engine_replayed_stale_gives_the_same_stream(runs):
+    """The TP InferenceEngine of test_tp_engine_stream_matches_jax_and_
+    single_device, made with capture=True and its bodies replayed stale
+    (each key's first body, _StaleSet), gives the stream that test holds
+    to the JAX TP engine and the single-device engine: no TP body reads
+    a per-call host value."""
+    res = runs[0][2]
+    toks, disagree = res["engine_stale"]
+    assert disagree == 0 and toks == res["engine"][0]
+
+
+@pytest.mark.parametrize("name", ["batch", "batch_spec"])
+def test_tp_batch_engine_replayed_stale_gives_the_same_streams(runs, name):
+    """The TP BatchEngines of test_tp_batch_engine_matches_single_device
+    (forced chunks, block prefill, prefix-cache copies, spec blocks),
+    made with capture=True and replayed stale on both ranks, give the
+    streams that test holds to the single-device engine."""
+    res = runs[0][2]
+    assert res[name + "_stale"] == res[name] and all(res[name][0][0])
 
 
 def test_tp_batch_engine_matches_single_device(runs):

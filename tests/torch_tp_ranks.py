@@ -160,6 +160,17 @@ def _agree(tp, tokens: list[int]) -> int:
     return int((hi - lo).abs().sum())
 
 
+def _stale(eng, job) -> None:
+    """With job["stale"], the engine's bodies run through _StaleSet (each
+    key replays its first body, as a graph replays what it captured); an
+    engine made with capture=True on the CPU has no graphs of its own."""
+    if job.get("stale"):
+        from torch_graph_standins import _StaleSet
+
+        assert eng._graphs is None
+        eng._graphs = _StaleSet()
+
+
 def engine_job(job, ckpt, tp, rank):
     """A TP InferenceEngine's greedy stream, and the ranks' agreement."""
     from llama_cu_awq_torch.engine import InferenceEngine
@@ -170,8 +181,10 @@ def engine_job(job, ckpt, tp, rank):
                                        param_dtype=act)
     eng = InferenceEngine(params, ckpt.config, None, temperature=0.0,
                           max_seq=job["max_seq"], device="cpu",
-                          act_dtype=act, tp=tp, capture=False,
+                          act_dtype=act, tp=tp,
+                          capture=bool(job.get("stale")),
                           **job.get("kw", {}))
+    _stale(eng, job)
     toks, _, _ = eng.generate_benchmark(job["prompt"], job["steps"])
     return toks, _agree(tp, toks)
 
@@ -184,7 +197,8 @@ def batch_job(job, ckpt, tp, rank):
 
     params = tp_params_from_checkpoint(ckpt, tp.size, rank, device="cpu")
     be = BatchEngine(params, ckpt.config, None, device="cpu", tp=tp,
-                     capture=False, **job["kw"])
+                     capture=bool(job.get("stale")), **job["kw"])
+    _stale(be, job)
     if rank:
         be.follow()
         return None
@@ -202,6 +216,106 @@ def batch_job(job, ckpt, tp, rank):
         return streams, stats.get("prefix_cache")
     finally:
         be.stop_followers()
+
+
+def split_job_(job, ckpt, tp, rank):
+    """engine/graphs.py's split capture over this group's gloo
+    collectives (tests/torch_graph_standins.py split_job)."""
+    from torch_graph_standins import split_job
+
+    return split_job(tp)
+
+
+def _cache_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(
+        a.cache.k + a.cache.v + a.cache.k_scale + a.cache.v_scale,
+        b.cache.k + b.cache.v + b.cache.k_scale + b.cache.v_scale))
+
+
+def _all_ranks(tp, ok: bool) -> bool:
+    """ok on every rank of the group."""
+    import torch.distributed as dist
+
+    t = torch.tensor([int(ok)])
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=tp.group)
+    return bool(t.item())
+
+
+def graphs_job(job, ckpt, tp, rank):
+    """On the card: a TP InferenceEngine (greedy decode after a short and
+    a 140-token prompt, twice, then the perplexity of the longer prompt;
+    the spec verify with spec="ngram") and a TP BatchEngine (two rounds,
+    block prefill, and spec blocks), each made with capture=True and with
+    capture=False: the streams and whole caches equal bit for bit on every
+    rank. Returns the streams, the equalities, and the segments of each
+    graph key by its kind and T."""
+    from llama_cu_awq_torch.engine import BatchEngine, InferenceEngine
+    from llama_cu_awq_torch.engine.perplexity import token_perplexity
+    from llama_cu_awq_torch.parallel.tp import tp_params_from_checkpoint
+
+    cfg = ckpt.config
+    params = tp_params_from_checkpoint(ckpt, tp.size, rank, device="cuda")
+    long = [1] + [(3 * i) % 500 + 4 for i in range(139)]
+    res = {"segments": {}}
+
+    def segments(eng, name):
+        for k, g in eng._graphs.graphs.items():
+            kind = k[0] if isinstance(k[0], str) else k[0][0]
+            res["segments"][f"{name}/{kind}/T{k[1]}"] = g.segments
+
+    for spec in (None, "ngram"):
+        name = "engine" if spec is None else "engine_spec"
+        runs = {}
+        engs = {}
+        for capture in (True, False):
+            eng = InferenceEngine(params, cfg, None, temperature=0.0,
+                                  max_seq=256, attn_impl="fused_step",
+                                  spec=spec, spec_k=4, tp=tp,
+                                  capture=capture)
+            out = []
+            for _ in range(2):
+                for prompt in ([1, 7, 42, 3, 200, 99, 5, 17], long):
+                    eng.reset()
+                    out.append(eng.generate_benchmark(
+                        prompt, len(prompt) + 23)[0])
+            if spec is None:
+                out.append([token_perplexity(eng, long)])
+            runs[capture], engs[capture] = out, eng
+        assert engs[True]._graphs is not None and engs[False]._graphs is None
+        segments(engs[True], name)
+        res[name] = dict(streams=runs[True],
+                         equal=_all_ranks(tp, runs[True] == runs[False]
+                                          and _cache_equal(*engs.values())))
+        del engs
+    for spec in (None, "ngram"):
+        name = "batch" if spec is None else "batch_spec"
+        got = {}
+        engs = {}
+        for capture in (True, False):
+            be = BatchEngine(params, cfg, None, n_slots=2, max_seq=256,
+                             chunk_size=4, temperature=0.0, spec=spec,
+                             spec_k=4, tp=tp, capture=capture)
+            engs[capture] = be
+            if rank:
+                be.follow()
+                continue
+            try:
+                streams = []
+                for _ in range(2):
+                    be.reset()
+                    rids = [be.submit(p, max_new=8) for p in
+                            ([1, 5, 9, 11], long, [1, 300, 2, 77, 8, 8, 8])]
+                    out = be.run()
+                    streams.append([out[r] for r in rids])
+                got[capture] = streams
+            finally:
+                be.stop_followers()
+        segments(engs[True], name)
+        res[name] = dict(streams=got.get(True),
+                         equal=_all_ranks(tp, got.get(True) == got.get(False)
+                                          and _cache_equal(*engs.values())))
+        del engs
+    return res
 
 
 def mesh_job(job, ckpt, tp, rank):
@@ -226,7 +340,7 @@ def mesh_job(job, ckpt, tp, rank):
 
 
 JOBS = {"forward": forward_job, "engine": engine_job, "batch": batch_job,
-        "mesh": mesh_job}
+        "mesh": mesh_job, "split": split_job_, "graphs": graphs_job}
 
 
 def _rank_main(rank: int, n: int, init: str, path: str, jobs, out: str):
