@@ -65,7 +65,8 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      GEMV pair it replaces; 32 batch-1 decode steps at the 2048 bucket
      (fused_step, bf16 KV) with LLAMA_TPU_DOWN_QKV=1 and without it, in
      turns (equal streams, 31 chain launches a step); BatchEngine with 8
-     slots serving 16 greedy requests with prompts of 20 to 1000 tokens,
+     slots serving 16 greedy requests of 32 tokens with prompts of 20 to
+     1000 tokens,
      without and with the switch, on an engine that replays its chunk
      steps and slot-prefill blocks from CUDA graphs against one made with
      capture=False, in turns after the graph engine's untimed run
@@ -108,7 +109,7 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      count as before; this phase holds each against an engine made with
      capture=False, bit for bit (tokens and the whole cache) and launch
      for launch, in turns (eager, graph, graph, eager, after one untimed
-     run each way): the main path (256 greedy steps, and once sampled at
+     run each way): the main path (128 greedy steps, and once sampled at
      temperature 0.5, topp 0.6), fused_step over bf16 and int8 KV at the
      2048 bucket (64 steps after a 1024-token prompt) and the 1920-token
      prompt (time to first token); tok/s, TTFT, capture seconds and pool
@@ -161,7 +162,7 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      the single-device forward on the same weights and cache (2 % of the
      largest logit); a TP InferenceEngine (fused_step) made with
      capture=True, its CUDA graphs split at the collectives
-     (engine/graphs.py), and one made with capture=False: 32 greedy
+     (engine/graphs.py), and one made with capture=False: 16 greedy
      steps from an 8-token prompt, the graph engine once untimed (the
      captures), then each way timed, the ranks' streams equal, the
      captured streams and whole caches equal to the eager ones bit for
@@ -203,10 +204,10 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      --only "bf16 KV"` run once as a user runs it (beside the served
      run), its rows equal to these (e2e ppl_matrix_7b).
  13. (run last) the trainer, and a trained model through the kernels:
-     llama_cu_awq_torch/tools/build_corpus --max-mb 2 over the installed
+     llama_cu_awq_torch/tools/build_corpus --max-mb 1 over the installed
      packages' documentation; make_test_model's byte tokenizer at vocab 32000;
      tools/train_tiny at its full widths (dim 512, hidden 1536, 8 layers,
-     batch 32 x 256) with 4 heads of 128 for 300 steps (the JAX default
+     batch 32 x 256) with 4 heads of 128 for 150 steps (the JAX default
      is 3000: the phase's one cut) in plain f32 on the card (step ms,
      tokens/s, peak memory, the logged losses; every loss finite, the
      last valid loss below the first and below ln 259, uniform over the
@@ -217,9 +218,9 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      first document, plain and --spec ngram, each held to an engine's
      tokens on the same weights and replayed through plain decode
      (replay_check; the acceptance rate on real text); tools/ppl_matrix's
-     8 rows on valid.txt's first 2 documents through its own functions
+     8 rows on valid.txt's first document through its own functions
      (finite; each fused_step row within 0.01 of its einsum row and
-     launching its attention kernel); and the perplexity of the first 8
+     launching its attention kernel); and the perplexity of the first 3
      documents (|delta ln ppl| <= 0.01 against --device cpu, run as its
      own process beside the card runs; within 0.25 of the float model's
      ln ppl through train_tiny's forward_loss); each run under the launch
@@ -227,12 +228,13 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
  14. (run last) the bench, run as a user runs it: `python -m
      llama_cu_awq_torch.bench` as its own process at Llama-2 7B's full
      widths and 32 layers on seed-0 weights: (a) the default decode run
-     (plain, spec in a child process and a 3-repeat plain re-bracket; the
-     spec stream equal to the plain one or replayed within 0.1), (b)
-     --mode prefill of a
-     1920-token prompt, (c) --mode batch at its defaults (16 slots, 32
-     requests, three streams replayed), (d) --mode batch with 8 slots,
-     16 requests and 1000-token prompts every 4th, (e) 256 fused_step
+     at 1 repeat (plain, spec in a child process and a 3-repeat plain
+     re-bracket; the spec stream equal to the plain one or replayed
+     within 0.1), (b) --mode prefill of a
+     1920-token prompt, (c) --mode batch with 16 slots (its default), 32
+     requests (its default) of 64 steps (three streams replayed, the last
+     from a reused slot), (d) --mode batch with 8 slots, 16 requests of
+     64 steps and 1000-token prompts every 4th, (e) 256 fused_step
      decode steps after a 1024-token prompt, (f) 32 steps over the int4
      cache after 1920 tokens, (g) the int8 lm_head's plain leg, (h)
      --profile of (a)'s plain leg cut to 64 steps, then
@@ -248,6 +250,25 @@ Phases (any failure raises, so the script exits non-zero; none is caught):
      (a), (b) and (c) are printed beside this script's own readings of
      the same workloads (e2e generate_benchmark, prefill, batch_engine),
      which are not a gate: host clocks move between processes.
+ 15. (run last) data-parallel x tensor-parallel across processes: (a)
+     llama_cu_awq_torch/tools/multihost_worker --config 7b (full width,
+     32 layers, each rank's shard of phase 4's seed-0 weights) as 2 host
+     processes of 2 ranks each, all 4 on cuda:0 over gloo, joined
+     through a localhost coordinator as one world (dp 2 rows of tp 2):
+     a batch of 4 (2 slots a rank, its batch-sharded cache), 8
+     teacher-forced T=1 steps at window 32, the rows gathered over dp
+     after each step; both hosts' checksums equal, each rank's logits
+     within 2 % of the largest logit of the single-device forward on the
+     same weights and inputs in this process, 64 all-reduces, 1 logits
+     gather and 1 dp gather a step on every rank, each rank's launches
+     by kernel (e2e multihost_dp2_tp2: ms a step, not a dp or TP speed);
+     (b) tools/bench_scaling --nprocs 2 --tps 1,2 at 7B as 2 processes
+     meeting at a barrier before each width, each its own replica (tp 2:
+     2 ranks of its own on cuda:0), 2 slots, 2 requests of 8 steps, each
+     point through the bench's batch mode and its replay gate; then the
+     kernel rows of (a)'s shapes: the four w4 projections at m=2 on the
+     tp 2 shards and the 16000-row head at m=2, each against its plain
+     version.
 The kernel phase also times one PyTorch call that computes each row's
 product where there is one (library_ms): F.linear, F.scaled_dot_product_
 attention, torch._weight_int4pack_mm, torch._weight_int8pack_mm; the
@@ -2162,6 +2183,11 @@ def profile_batch_run(torch, engs):
             flush=True)
 
 
+# tokens a request of batch_engine_runs (64 before the depth cuts that
+# keep the script in its time limit)
+BATCH_MAX_NEW = 32
+
+
 def batch_engine_runs(torch, params, cfg, launches, chain_variant):
     """BatchEngine at 7B, graphs against capture=False (see the module
     docstring, phase 7): 16 greedy requests, then the profiles."""
@@ -2183,7 +2209,7 @@ def batch_engine_runs(torch, params, cfg, launches, chain_variant):
 
     def serve_all(be):
         be.reset()
-        rids = [be.submit(p, max_new=64) for p in prompts]
+        rids = [be.submit(p, max_new=BATCH_MAX_NEW) for p in prompts]
         out = be.run()
         return [out[r] for r in rids], be.stats()
 
@@ -2201,7 +2227,7 @@ def batch_engine_runs(torch, params, cfg, launches, chain_variant):
         print(json.dumps({
             "e2e": name, "model": "llama2-7b", "slots": 8, "max_seq": 2048,
             "chunk_size": 8, "requests": len(prompts),
-            "prompt_tokens": sum(lengths), "max_new": 64,
+            "prompt_tokens": sum(lengths), "max_new": BATCH_MAX_NEW,
             "down_qkv_switch": on,
             **{f"{k}_{way}": [r[1][k] for r in res[way]]
                for way in ("graph", "eager")
@@ -2771,6 +2797,11 @@ def chunk_against_steps(torch, eng, prompt, reps=5):
     del eng._graphs.graphs[chunk_key]
 
 
+# the graph phase's main-path depth: 128 of the main path's 256 steps,
+# since an eager 7B run of 256 steps takes about 8.5 s on an H100
+GRAPH_STEPS = 128
+
+
 def graph_phase(torch, params, launches):
     """The engine's CUDA graphs against eager launches at 7B (see the
     module docstring, phase 9)."""
@@ -2800,22 +2831,24 @@ def graph_phase(torch, params, launches):
             raise AssertionError(f"{name}: the graphs and eager launches "
                                  f"differ")
 
-    # --- the main path: 256 greedy steps, windows 128-512 ---
+    # --- the main path: GRAPH_STEPS greedy steps, windows 128-256 ---
     prompt = list(range(5, 13))
     engs = engines(max_seq=512)
     res = graph_turns(torch, "graph_main", engs,
-                      lambda e: e.generate_benchmark(prompt, 256)[::2],
+                      lambda e: e.generate_benchmark(prompt,
+                                                     GRAPH_STEPS)[::2],
                       launches)
-    report("graph_main", engs, res, "tok_per_s", steps=256, max_seq=512)
+    report("graph_main", engs, res, "tok_per_s", steps=GRAPH_STEPS,
+           max_seq=512)
     profile_decode(torch, engs["eager"], prompt, label="decode_chunk_eager")
     profile_decode(torch, engs["graph"], prompt, label="decode_chunk_graph")
     chunk_against_steps(torch, engs["graph"], prompt)
     del engs
     # sampled at the CLI's defaults
     engs = engines(max_seq=512, temperature=0.5, topp=0.6)
-    res = {way: [engs[way].generate_benchmark(prompt, 256)[::2]]
+    res = {way: [engs[way].generate_benchmark(prompt, GRAPH_STEPS)[::2]]
            for way in ("graph", "eager")}
-    report("graph_main_sampled", engs, res, "tok_per_s", steps=256,
+    report("graph_main_sampled", engs, res, "tok_per_s", steps=GRAPH_STEPS,
            temperature=0.5, topp=0.6)
     del engs
 
@@ -3493,6 +3526,7 @@ def served_head_cost(torch, params, cfg):
 
 
 TP_RANKS = 2
+TP_STEPS = 16  # the TP engines' greedy steps (32 before the depth cuts)
 
 
 def tp_phase(torch, rows, launches):
@@ -3573,11 +3607,14 @@ def tp_rank(rank: int, init: str, out: str) -> None:
         dist.destroy_process_group()
 
 
-def tp_int4_rows(torch, timer, rows, g):
+TP_INT4_MS = ((1, "", "tp2_engine"), (128, "gemm_", "tp2_perplexity"))
+
+
+def tp_int4_rows(torch, timer, rows, g, ms=TP_INT4_MS):
     """The four w4 projections at tp=2's per-shard shapes of 7B: qkv and
     gate_up with the rmsnorm prologue, o and down (SwiGLU prologue) as
-    the f32 partials with no epilogue that the ranks sum; m=1 (a decode
-    step) and m=128 (a block)."""
+    the f32 partials with no epilogue that the ranks sum; by default m=1
+    (a decode step) and m=128 (a block). ms: (m, tag prefix, path)."""
     from llama_cu_awq_torch.ops.cuda.int4_matmul import int4_matmul_fused
     from llama_cu_awq_torch.quant.qtensor import QTensor
 
@@ -3586,8 +3623,7 @@ def tp_int4_rows(torch, timer, rows, g):
              ("o_partial", dim // n, dim, "partial"),
              ("gate_up_prescale", dim, 2 * hid // n, "prescale"),
              ("down_silu_partial", hid // n, dim, "silu")]
-    for m, prefix, path in ((1, "", "tp2_engine"),
-                            (128, "gemm_", "tp2_perplexity")):
+    for m, prefix, path in ms:
         for tag, n_in, n_out, kind in cases:
             tag = f"tp2_{prefix}{tag}"
             qt = random_qtensor(torch, QTensor, n_in, n_out, g)
@@ -3627,22 +3663,15 @@ def tp_int4_rows(torch, timer, rows, g):
             rows.append(row)
 
 
-def tp_kernel_rows(torch, timer, rows):
-    """Every kernel of the TP path at its per-shard shapes (rank 0 alone
-    on the card): the w4 rows, the vocab-sharded head, attention_step and
-    prefill_attention over the rank's 16 heads."""
-    from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
-                                                            rope_rows)
+def tp_head_rows(torch, timer, rows, g, cases):
+    """The vocab-sharded lm_head (the rank's 16000 of 32000 rows, bf16)
+    through dense_gemv; cases: (tag, m, path)."""
     from llama_cu_awq_torch.ops.cuda.dense_gemv import dense_gemv
 
-    g = torch.Generator(device="cuda")
-    g.manual_seed(13)
-    tp_int4_rows(torch, timer, rows, g)
     dim, vocab = 4096, 32000 // TP_RANKS
     w = (torch.randn(vocab, dim, device="cuda", generator=g)
          * 0.02).bfloat16()
-    for tag, m, path in (("tp2_bf16", 1, "tp2_engine"),
-                         ("tp2_bf16_m128", 128, "tp2_perplexity")):
+    for tag, m, path in cases:
         x = torch.randn(m, dim, device="cuda", generator=g).bfloat16()
         out, variant = launched_variant(lambda: dense_gemv(x, w))
         ref = dense_gemv(x, w, plain=True)
@@ -3658,6 +3687,21 @@ def tp_kernel_rows(torch, timer, rows):
             plain_ms=timer(lambda: dense_gemv(x, w, plain=True)),
             bound_ms=b, bound_by=src,
             library_ms=timer(lambda: torch.nn.functional.linear(x, w))))
+
+
+def tp_kernel_rows(torch, timer, rows):
+    """Every kernel of the TP path at its per-shard shapes (rank 0 alone
+    on the card): the w4 rows, the vocab-sharded head, attention_step and
+    prefill_attention over the rank's 16 heads."""
+    from llama_cu_awq_torch.ops.cuda.attention_step import (attention_step,
+                                                            rope_rows)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    tp_int4_rows(torch, timer, rows, g)
+    tp_head_rows(torch, timer, rows, g, (("tp2_bf16", 1, "tp2_engine"),
+                                         ("tp2_bf16_m128", 128,
+                                          "tp2_perplexity")))
     # attention_step over the rank's 16 of 32 heads, window 2048, pos 1500
     S, D, H, pos_v = 2048, 128, 32 // TP_RANKS, 1500
     pos = torch.tensor([pos_v], dtype=torch.int32, device="cuda")
@@ -3890,7 +3934,7 @@ def tp_decode_window(torch, eng, prompt, n=8, sync=False, trace=False):
 def tp_engine_runs(torch, cfg, full, params, tp, launches):
     """A TP InferenceEngine made with capture=True (its graphs split at
     the collectives) and one made with capture=False, on the same shard:
-    32 greedy steps after an 8-token prompt, the graph engine once
+    TP_STEPS greedy steps after an 8-token prompt, the graph engine once
     untimed (its captures), then each way timed (tok/s; streams, and the
     whole caches after, equal bit for bit on every rank; the
     single-device replay); an 8-step decode window each way, traced
@@ -3902,7 +3946,7 @@ def tp_engine_runs(torch, cfg, full, params, tp, launches):
     from llama_cu_awq_torch.engine.perplexity import token_perplexity
 
     prompt = list(range(5, 13))
-    steps = 32 + len(prompt) - 1
+    steps = TP_STEPS + len(prompt) - 1
     engs = {way: InferenceEngine(params, cfg, None, temperature=0.0,
                                  seed=1234, max_seq=2048,
                                  attn_impl="fused_step", tp=tp,
@@ -3965,7 +4009,7 @@ def tp_engine_runs(torch, cfg, full, params, tp, launches):
     if not equal:
         raise AssertionError(f"tp2 engine: captured and eager differ: "
                              f"{ranks}")
-    if disagree or len(toks) != 32:
+    if disagree or len(toks) != TP_STEPS:
         raise AssertionError(f"tp2 engine: {len(toks)} tokens, ranks "
                              f"disagree by {disagree}")
     if launches["tp2_engine"] != launches["tp2_engine_eager"]:
@@ -4392,10 +4436,10 @@ def dp_tp_phase(torch, params):
 # phase 13: the trainer on real text, and the trained model through the
 # kernels
 
-TRAIN_STEPS = 300  # the JAX tool's default is 3000: the phase's one cut
-CORPUS_MB = 2      # build_corpus --max-mb
-PPL_DOCS = 8       # valid.txt's first documents, scored by the CLI
-MATRIX_SEQS = 2    # tools.ppl_matrix --seqs; 2 keeps the script in its limit
+TRAIN_STEPS = 150  # the JAX tool's default is 3000: the phase's one cut
+CORPUS_MB = 1      # build_corpus --max-mb
+PPL_DOCS = 3       # valid.txt's first documents, scored by the CLI
+MATRIX_SEQS = 1    # tools.ppl_matrix --seqs; 1 keeps the script in its limit
 GEN_TOKENS = 64    # greedy tokens a generate run
 PROMPT_CHARS = 400  # the prompt: the head of valid.txt's first document
 # a model that learned nothing scores ln 259 nats a token: uniform over the
@@ -4876,18 +4920,19 @@ BENCH_PROFILE = "{profile}"  # the run's trace directory, made by the phase
 # is its faster leg's name), the kernels its timed legs must launch, the
 # workload of this script's own reading beside it)
 BENCH_RUNS = (
-    ("a_default", [], (DECODE_7B, DECODE_7B + "_spec7"), DUAL_KEYS,
+    ("a_default", ["--repeats", "1"], (DECODE_7B, DECODE_7B + "_spec7"),
+     DUAL_KEYS,
      ("int4_matmul_fused", "dense_gemv"), "generate_benchmark"),
     ("b_prefill", ["--mode", "prefill", "--prompt-len", "1920",
                    "--max-seq", "2048"],
      ("prefill_tok_s_7b_w4g128_p1920",), BENCH_KEYS,
      ("int4_matmul_fused", "prefill_attention", "dense_gemv"), "prefill"),
-    ("c_batch", ["--mode", "batch", "--repeats", "1"],
+    ("c_batch", ["--mode", "batch", "--steps", "64", "--repeats", "1"],
      ("batch_tok_s_7b_w4g128_s16_r32",), BENCH_KEYS,
      ("int4_matmul_fused", "dense_gemv"), "batch_engine"),
     ("d_admit_long", ["--mode", "batch", "--slots", "8", "--requests", "16",
                       "--admit-long", "1000", "--max-seq", "2048",
-                      "--repeats", "1"],
+                      "--steps", "64", "--repeats", "1"],
      ("batch_tok_s_7b_w4g128_s8_r16_admL1000",), BENCH_KEYS,
      ("int4_matmul_fused", "dense_gemv", "prefill_attention",
       "attention_step"), None),
@@ -4945,29 +4990,52 @@ class E2eLines:
         return getattr(self.out, name)
 
 
-def python_m(module, argv, timeout):
-    """`python -m module argv` from the repository's root, in a session
-    of its own (a --tp run's ranks are its children): (exit code, stdout,
-    stderr, seconds). A run that passes `timeout` is killed with its
-    children and raises."""
+def host_processes(module, argvs, timeout):
+    """`python -m module argv` for each argv at once, each in a session of
+    its own (its spawned ranks are its children), its output to files so
+    no pipe fills: (exit code, stdout, stderr) each, and the seconds until
+    the last ended. A process that fails stops the wait, and every
+    process group still running then is killed; a run that passes
+    `timeout` raises."""
     import signal
 
     t0 = time.time()
-    p = subprocess.Popen([sys.executable, "-m", module, *argv],
-                         cwd=os.path.dirname(os.path.abspath(__file__)),
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                         text=True, start_new_session=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+             for _ in argvs]
+    procs = [subprocess.Popen([sys.executable, "-m", module, *argv],
+                              cwd=root, stdout=out, stderr=err, text=True,
+                              start_new_session=True)
+             for argv, (out, err) in zip(argvs, files)]
     try:
-        out, err = p.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(p.pid, signal.SIGKILL)
-        p.communicate()
-        raise AssertionError(f"{module} {argv}: killed after {timeout} s")
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs):
+                break
+            if time.time() - t0 > timeout:
+                raise AssertionError(f"{module} {argvs}: killed after "
+                                     f"{timeout} s")
+            time.sleep(0.2)
+        secs = time.time() - t0
     finally:
-        if p.poll() is None:
-            os.killpg(p.pid, signal.SIGKILL)
-            p.wait()
-    return p.returncode, out, err, time.time() - t0
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    outs = []
+    for p, (out, err) in zip(procs, files):
+        out.seek(0)
+        err.seek(0)
+        outs.append((p.returncode, out.read(), err.read()))
+        out.close()
+        err.close()
+    return outs, secs
+
+
+def python_m(module, argv, timeout):
+    """`python -m module argv` alone (host_processes): (exit code, stdout,
+    stderr, seconds)."""
+    (res,), secs = host_processes(module, [argv], timeout)
+    return (*res, secs)
 
 
 def bench_earlier(e2e, workload):
@@ -5092,6 +5160,195 @@ def bench_phase(torch, e2e):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data-parallel x tensor-parallel across processes
+
+MULTIHOST = (2, 2)  # host processes, ranks a host: dp 2 x tp 2, 4 ranks
+MULTIHOST_BATCH = 4
+MULTIHOST_STEPS = 8
+MULTIHOST_PATH = "multihost_dp2_tp2"
+MULTIHOST_NOTE = ("4 ranks sharing one card, gloo through the host: not a "
+                  "dp or TP speed")
+# tools/bench_scaling --nprocs 2 --tps 1,2 at 7B: 2 slots and 2 requests
+# (both replayed by the batch gate) of 8 steps, chunks of 4
+MULTIHOST_SCALING = ["--config", "7b", "--tps", "1,2", "--slots", "2",
+                     "--requests", "2", "--steps", "8", "--chunk-size", "4",
+                     "--repeats", "1"]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multihost_reference(torch, params, cfg):
+    """The single-device forward on the worker's weights (phase 4's seed-0
+    params, of which the ranks hold shards) and inputs: the global logits
+    (steps, B, V) on the card."""
+    from llama_cu_awq_torch.models import forward, init_kv_cache
+    from llama_cu_awq_torch.tools.multihost_worker import (WINDOW,
+                                                           build_model_inputs)
+
+    toks = torch.from_numpy(build_model_inputs(MULTIHOST_STEPS,
+                                               MULTIHOST_BATCH)).cuda()
+    cache = init_kv_cache(cfg, MULTIHOST_BATCH, WINDOW)
+    out = []
+    for i in range(MULTIHOST_STEPS):
+        logits, cache = forward(
+            params, cfg, toks[i][:, None],
+            torch.full((MULTIHOST_BATCH,), i, dtype=torch.int32,
+                       device="cuda"), cache, attn_len=WINDOW)
+        out.append(logits.float())
+    return torch.stack(out)
+
+
+def multihost_worker_run(torch, params, cfg, tmp, launches):
+    """(a) tools/multihost_worker at 7B as 2 host processes of 2 ranks on
+    cuda:0 over gloo, held to the single-device forward; the e2e line.
+    Returns the seconds the processes took."""
+    hosts, per_host = MULTIHOST
+    port = free_port()
+    argvs = [["--role", "worker", "--nprocs", str(hosts), "--pid", str(p),
+              "--tp", str(per_host), "--batch", str(MULTIHOST_BATCH),
+              "--steps", str(MULTIHOST_STEPS), "--config", "7b",
+              "--port", str(port), "--dump", tmp] for p in range(hosts)]
+    outs, secs = host_processes("llama_cu_awq_torch.tools.multihost_worker",
+                                argvs, 600)
+    for rc, out, err in outs:
+        if rc != 0 or "MULTIHOST OK" not in out:
+            raise AssertionError(f"multihost_worker: exit {rc}\n{out}\n"
+                                 f"{err[-3000:]}")
+    sums = [float(ln.split()[1]) for _, out, _ in outs
+            for ln in out.splitlines() if ln.startswith("CHECKSUM ")]
+    ref = multihost_reference(torch, params, cfg)
+    tol = logit_tolerance(ref)
+    b = MULTIHOST_BATCH // hosts
+    by_rank, kernels, variants = {}, {}, {}
+    for rank in range(hosts * per_host):
+        rec = torch.load(os.path.join(tmp, f"rank{rank}.pt"))
+        r = rec["dp_index"]
+        want = ref[:, r * b:(r + 1) * b].cpu()
+        got = rec["logits"]
+        steps_ms = [s * 1e3 for s in rec["step_s"]]
+        coll = rec["collectives"]
+        by_rank[rank] = {
+            "dp_index": r, "tp_rank": rec["tp_rank"],
+            "device": rec["device"], "backend": rec["backend"],
+            "max_abs_logit_diff": float((got - want).abs().max()),
+            "finite": bool(got.isfinite().all()),
+            "ms_per_step": statistics.median(steps_ms[1:]),
+            "first_step_ms": steps_ms[0],
+            "collectives_per_step": {k: n / MULTIHOST_STEPS
+                                     for k, n in coll.items()},
+            "collective_ms_per_step": {
+                k: t * 1e3 / MULTIHOST_STEPS
+                for k, t in rec["collective_s"].items()},
+            "launches": {k: n for k, n in rec["kernels"].items() if n}}
+        for k, n in rec["kernels"].items():
+            kernels[k] = kernels.get(k, 0) + n
+        for k, n in rec["variants"].items():
+            variants[k] = variants.get(k, 0) + n
+    launches[MULTIHOST_PATH] = dict(kernels=kernels, variants=variants)
+    print(json.dumps({"path": MULTIHOST_PATH, **launches[MULTIHOST_PATH]}),
+          flush=True)
+    want_sum = float(ref[-1].sum())
+    print(json.dumps({
+        "e2e": MULTIHOST_PATH, "model": "llama2-7b", "hosts": hosts,
+        "ranks_per_host": per_host, "batch": MULTIHOST_BATCH,
+        "steps": MULTIHOST_STEPS,
+        "ms_per_step": statistics.median(
+            v["ms_per_step"] for v in by_rank.values()),
+        "checksums": sums, "single_device_checksum": want_sum,
+        "max_abs_logit_diff": max(v["max_abs_logit_diff"]
+                                  for v in by_rank.values()),
+        "max_abs_logit": float(ref.abs().max()), "tolerance": tol,
+        "by_rank": by_rank, "processes_s": secs,
+        "note": MULTIHOST_NOTE}), flush=True)
+    n_layers = cfg.n_layers
+    for rank, v in by_rank.items():
+        per = v["collectives_per_step"]
+        if per != {"all_reduce": 2 * n_layers, "all_gather": 1,
+                   "dp_gather": 1}:
+            raise AssertionError(f"multihost rank {rank}: collectives a "
+                                 f"step {per}")
+        missing = [k for k in ("int4_matmul_fused", "dense_gemv")
+                   if not v["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"multihost rank {rank} never launched "
+                                 f"{missing}")
+        if not v["finite"] or v["max_abs_logit_diff"] > tol:
+            raise AssertionError(f"multihost rank {rank}: logits differ "
+                                 f"from the single-device forward by "
+                                 f"{v['max_abs_logit_diff']} > {tol}")
+    if len(sums) != hosts or max(sums) - min(sums) > 1e-3:
+        raise AssertionError(f"multihost: the hosts' checksums {sums}")
+    return secs
+
+
+def multihost_scaling_run():
+    """(b) tools/bench_scaling --nprocs 2 --tps 1,2 at 7B as 2 processes,
+    each its own replica (tp 2: 2 ranks of its own) on cuda:0: both
+    processes' lines, each width through the bench's batch gate. Returns
+    the seconds the processes took."""
+    hosts = MULTIHOST[0]
+    config = MULTIHOST_SCALING[MULTIHOST_SCALING.index("--config") + 1]
+    coord = f"127.0.0.1:{free_port()}"
+    argvs = [MULTIHOST_SCALING + ["--nprocs", str(hosts), "--pid", str(p),
+                                  "--coordinator", coord]
+             for p in range(hosts)]
+    outs, secs = host_processes("llama_cu_awq_torch.tools.bench_scaling",
+                                argvs, 600)
+    for pid, (rc, out, err) in enumerate(outs):
+        lines = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith("{")]
+        gates = [ln for ln in err.splitlines()
+                 if ln.startswith(("batch gate", "--tp"))]
+        print(json.dumps({"bench": f"multihost_scaling_{config}",
+                          "pid": pid,
+                          "argv": argvs[pid], "lines": lines,
+                          "gates": gates, "seconds": secs}), flush=True)
+        want = [f"scaling_tok_s_{config}_tp1_proc{pid}",
+                f"scaling_tok_s_{config}_tp2_proc{pid}",
+                f"scaling_efficiency_{config}_tp2"]
+        if rc != 0 or [ln["metric"] for ln in lines] != want or \
+                sum(g.startswith("batch gate") for g in gates) != 2:
+            raise AssertionError(f"bench_scaling --nprocs {hosts} pid {pid}:"
+                                 f" exit {rc}, {lines}\n{err[-3000:]}")
+    return secs
+
+
+def multihost_phase(torch, timer, rows, params, launches):
+    """Phase 15 (see the module docstring): (a) the worker, (b)
+    bench_scaling --nprocs 2, then the kernel rows of (a)'s m=2 shapes."""
+    import shutil
+
+    from llama_cu_awq_torch.config import LLAMA2_7B
+
+    t0 = time.time()
+    torch.cuda.empty_cache()  # the ranks share this process's card
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multihost_")
+    try:
+        t_worker = multihost_worker_run(torch, params, LLAMA2_7B, tmp,
+                                        launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t_scaling = multihost_scaling_run()
+    t1 = time.time()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    m = MULTIHOST_BATCH // MULTIHOST[0]
+    tp_int4_rows(torch, timer, rows, g,
+                 ms=((m, f"m{m}_", MULTIHOST_PATH),))
+    tp_head_rows(torch, timer, rows, g,
+                 ((f"tp2_bf16_m{m}", m, MULTIHOST_PATH),))
+    print(json.dumps({"phase": "multihost", "seconds": time.time() - t0,
+                      "worker_s": t_worker, "bench_scaling_s": t_scaling,
+                      "kernel_rows_s": time.time() - t1}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5153,6 +5410,7 @@ def main() -> int:
     launches.update(timed(dp_tp_phase, torch, params))
     launches.update(timed(trainer_phase, torch))
     launches.update(timed(bench_phase, torch, e2e.lines))
+    timed(multihost_phase, torch, timer, rows, params, launches)
     # each row's launches of its own variant on the run that carries it;
     # a check-only row (path None) reports what every run launched of its
     # variant, which is none

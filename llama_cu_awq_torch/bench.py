@@ -815,20 +815,28 @@ def run_mode(s: Setup) -> dict | None:
     return leg.result
 
 
-def tp_backend(args) -> str:
+def first_card(args) -> int:
+    """The card of a --tp run's rank 0: K of --device cuda:K (0 for cuda;
+    tools/bench_scaling.py gives each of its processes its own)."""
     import torch
 
-    if args.device == "cpu":
-        return "gloo"
-    return "nccl" if torch.cuda.device_count() >= args.tp else "gloo"
+    return torch.device(args.device).index or 0
+
+
+def tp_backend(args) -> str:
+    """nccl where --tp cards are visible from first_card, else gloo."""
+    from llama_cu_awq_torch.parallel.multihost import host_backend
+
+    return host_backend(args.device, args.tp, first_card(args))
 
 
 def rank_device(args, rank: int, backend: str):
-    import torch
+    """cuda:K+rank under nccl (K = first_card), cuda:K for every rank
+    under gloo, or the CPU."""
+    from llama_cu_awq_torch.parallel import multihost
 
-    if args.device == "cpu":
-        return torch.device("cpu")
-    return torch.device("cuda", rank if backend == "nccl" else 0)
+    return multihost.rank_device(rank, args.device, backend,
+                                 first_card(args))
 
 
 def run_rank(args, ckpt, rank: int, init: str, backend: str):
@@ -900,9 +908,10 @@ def run_args(args) -> dict:
     # refused here, before any rank starts
     _check_divisible(ckpt.config if ckpt else config_of(args), args.tp)
     backend = tp_backend(args)
-    if backend == "gloo" and args.device == "cuda":
-        log(f"--tp {args.tp}: {args.tp} ranks share cuda:0 over gloo "
-            f"(collectives through the host): this number is no TP speed")
+    if backend == "gloo" and args.device != "cpu":
+        log(f"--tp {args.tp}: {args.tp} ranks share cuda:{first_card(args)}"
+            f" over gloo (collectives through the host): this number is no "
+            f"TP speed")
     box = {}
 
     def leader(init):

@@ -15,7 +15,12 @@ the server, which holds shard 0 of every replica (the JAX server holds
 every replica in one process too, llama_cu_awq_tpu/serve.py:621-651).
 
 Every collective of the TP forward goes through all_reduce_sum or
-all_gather_last. While a thread has `split_at_collectives(split)` open
+all_gather_last. Under the batch-sharded forward (parallel/tp.py, given
+a Mesh) a rank computes its dp row's slots, local_rows takes
+them from the global batch every process holds, and all_gather_batch
+gathers the rows' results over the dp group: the caller's step, never a
+captured one (the JAX forward's out-spec P("dp", ...) leaves the global
+logits to the caller too). While a thread has `split_at_collectives(split)` open
 (engine/graphs.py, capturing a step's CUDA graph), a collective that
 thread calls does not run: it hands split() a function that runs it on
 the very tensors it was given, and the graph replays that function
@@ -156,8 +161,9 @@ def make_replica_groups(dp: int, tp: int, devices=None) -> dict:
 # the collectives run, by kind, and the host seconds they took (a gloo
 # collective on CUDA tensors waits for the work queued before it, so its
 # seconds hold that wait unless `sync_timing` is on)
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
-COLLECTIVE_SECONDS = {"all_reduce": 0.0, "all_gather": 0.0}
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "dp_gather": 0}
+COLLECTIVE_SECONDS = {"all_reduce": 0.0, "all_gather": 0.0,
+                      "dp_gather": 0.0}
 _TIMING = {"sync": False}
 _SPLIT = threading.local()
 
@@ -244,3 +250,34 @@ def all_gather_last(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
     _collective("all_gather", lambda: dist.all_gather(
         parts, xc, group=tp.group), x.device)
     return torch.cat(parts, dim=-1)
+
+
+def local_rows(x, mesh: Mesh):
+    """This rank's dp row of a global batch (the leading axis of a tensor
+    or an array that every process holds): rows dp_index * B / dp up to
+    (dp_index + 1) * B / dp. What the JAX put_global hands each process
+    of a batch sharded over P("dp", ...). Raises ValueError where dp does
+    not divide B."""
+    dp, n = mesh.ranks.shape[0], len(x)
+    if n % dp:
+        raise ValueError(f"a batch of {n} does not split over dp={dp} rows")
+    b = n // dp
+    return x[mesh.dp_index * b:(mesh.dp_index + 1) * b]
+
+
+def all_gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The dp rows' x stacked along the leading axis in dp_index order,
+    so rows come back in global slot order (every rank of a dp group
+    gives the same shape). Counted as "dp_gather"; never inside a split
+    capture, since a batch-sharded step leaves its gather to the
+    caller."""
+    if mesh.dp_group is None:
+        return x
+    if getattr(_SPLIT, "split", None) is not None:
+        raise RuntimeError("all_gather_batch inside a captured step: "
+                           "gather the rows after the step")
+    parts = [torch.empty_like(x) for _ in range(mesh.ranks.shape[0])]
+    xc = x.contiguous()
+    _collective("dp_gather", lambda: dist.all_gather(
+        parts, xc, group=mesh.dp_group), x.device)
+    return torch.cat(parts, dim=0)

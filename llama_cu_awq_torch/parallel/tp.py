@@ -11,7 +11,9 @@ layout is the JAX package's:
 - wo and w_down are row-parallel: rank d holds input rows
   d*n/tp:(d+1)*n/tp, whole 128-row groups with their own scales and zeros,
   and forward sums the ranks' partial outputs (all_reduce_sum);
-- the KV cache holds the rank's kv heads;
+- the KV cache holds the rank's kv heads, and given a (dp, tp) Mesh its
+  dp row's slots: the JAX batch_sharded=True forward, which shards the
+  batch over dp and the heads over tp;
 - the lm_head is vocab-sharded (rows d*V/tp:(d+1)*V/tp), and forward
   gathers the logits along the vocab (all_gather_last);
 - the embed and the norm weights are replicated.
@@ -34,8 +36,8 @@ from llama_cu_awq_torch.io.checkpoint import RawCheckpoint, RawQWeight
 from llama_cu_awq_torch.models.llama import (KVCache, LlamaLayer,
                                              LlamaParams, forward,
                                              init_kv_cache, synthetic_params)
-from llama_cu_awq_torch.parallel.mesh import (TPGroup, all_gather_last,
-                                              all_reduce_sum)
+from llama_cu_awq_torch.parallel.mesh import (Mesh, all_gather_last,
+                                              all_reduce_sum, local_rows)
 from llama_cu_awq_torch.quant.qtensor import QTensor
 
 __all__ = ["all_gather_last", "all_reduce_sum", "make_shard_forward",
@@ -187,31 +189,50 @@ def tp_synthetic_params(cfg: ModelConfig, tp: int, rank: int, seed: int = 0,
 # ---------------------------------------------------------------------------
 # cache and forward
 
-def tp_init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, tp: int,
+def tp_init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, tp,
                      dtype=torch.bfloat16, quantized: bool = False,
                      kv_bits: int = 8, device="cuda") -> KVCache:
     """A rank's KV cache: its n_kv_heads / tp heads, in every cache format
     (act_dtype rows, int8 codes, int4 codes two a byte; the scales by the
-    same heads)."""
-    _check_divisible(cfg, tp)
+    same heads). tp: the tp degree, or a Mesh, whose batch is sharded: the
+    rank of dp row r holds slots r*B/dp:(r+1)*B/dp of the global batch B
+    (the JAX cache's P("dp", None, "tp", None)); raises ValueError where
+    dp does not divide B."""
+    sharded = isinstance(tp, Mesh)
+    n = tp.tp_group.size if sharded else tp
+    _check_divisible(cfg, n)
+    if sharded:
+        batch = len(local_rows(range(batch), tp))
     return init_kv_cache(cfg, batch, max_seq, dtype=dtype,
                          quantized=quantized, kv_bits=kv_bits, device=device,
-                         n_kv_heads=cfg.n_kv_heads // tp)
+                         n_kv_heads=cfg.n_kv_heads // n)
 
 
-def make_shard_forward(cfg: ModelConfig, tp: TPGroup):
+def make_shard_forward(cfg: ModelConfig, tp):
     """models.llama.forward without the cfg argument, bound to this rank's
-    group: what the JAX function's shard_map wrapper is, for one rank."""
+    group: what the JAX function's shard_map wrapper is, for one rank.
+    Given a TPGroup, it runs the whole batch. Given a Mesh, it is the JAX
+    batch_sharded=True forward: it takes the global tokens (B, T) and
+    positions (B,) that every process holds, runs its dp row's slots
+    (mesh.local_rows) on its tp row against its batch-sharded cache and
+    returns that row's logits; all_gather_batch assembles the global
+    ones."""
+    sharded = isinstance(tp, Mesh)
+    group = tp.tp_group if sharded else tp
+
     def fwd(params, tokens, pos, cache, **kw):
-        return forward(params, cfg, tokens, pos, cache, tp=tp, **kw)
+        if sharded:
+            tokens, pos = local_rows(tokens, tp), local_rows(pos, tp)
+        return forward(params, cfg, tokens, pos, cache, tp=group, **kw)
 
     return fwd
 
 
-def make_tp_forward(cfg: ModelConfig, tp: TPGroup, *, attn_len: int,
+def make_tp_forward(cfg: ModelConfig, tp, *, attn_len: int,
                     act_dtype=torch.bfloat16, logits_all: bool = False):
     """The shard forward at a fixed window (standalone use; the engines
-    call forward with their TPGroup)."""
+    call forward with their TPGroup). tp: a TPGroup, or a Mesh for the
+    batch-sharded forward (make_shard_forward)."""
     sf = make_shard_forward(cfg, tp)
 
     def fn(params, tokens, pos, cache):
@@ -219,4 +240,3 @@ def make_tp_forward(cfg: ModelConfig, tp: TPGroup, *, attn_len: int,
                   act_dtype=act_dtype, logits_all=logits_all)
 
     return fn
-

@@ -20,7 +20,8 @@ against plain decode (the bench's batch gate). Every point runs on CUDA
 graphs; a tp=N point runs N ranks (the bench's run_ranks: this process
 is rank 0), their graphs split at the collectives (engine/graphs.py). The
 collectives follow the bench's rule (tp_backend): nccl with rank r on
-cuda:r where N cards are visible, else gloo with every rank on cuda:0,
+cuda:K+r where K+N cards are visible, else gloo with every rank on
+cuda:K (K = 0 in one process),
 whose collectives pass through the host: such a point checks the path,
 it is no TP speed, and the log says so. The JAX tool skips a width above
 its local devices instead; the port runs it, since the one-card run is
@@ -28,14 +29,31 @@ how the TP path is checked on one card.
 
 --smoke is --device cpu --config tiny --tps 1,2 over gloo, with 4 slots,
 8 requests of 16 steps, max_seq 64, chunks of 4 and one repeat.
---nprocs/--pid/--coordinator join the processes of several hosts through
-parallel/multihost.py init_multihost (--coordinator host:port): each
-process measures its own tp=1 point on its card (cuda:pid modulo the
-cards) at the same time, and its line carries _proc{pid}; TP widths
-within a multi-process run are not supported. The JAX tool's --virtual
-(a 1-2-4-8 sweep on 8 virtual CPU devices of one JAX process) has no
-counterpart: a PyTorch rank is a process, and ranks sharing one CPU's
-cores measure the host, not the sharding.
+
+Several hosts, one process each:
+
+    python -m llama_cu_awq_torch.tools.bench_scaling --config 13b \\
+        --tps 1,4 --slots 32 --nprocs 2 --pid $I --coordinator host0:29400
+
+Each process runs its own BatchEngine replica of every width over its
+host's ranks (a tp=M point: M local ranks, the bench's run_ranks, as a
+single-host point), so no rank crosses a host and the hosts' aggregate
+is the sum of their lines. The processes meet at a barrier before every
+width (parallel/multihost.py HostBarrier, a TCPStore at --coordinator,
+served by process 0), so their points run at the same time; each line
+carries _proc{pid}, and each efficiency line is beside that process's
+own tp=1 point. A point's ranks start at card (pid * M) mod the cards
+where they fit, else 0 (parallel/multihost.py host_cards), so processes
+that share a machine with enough cards take their own; the bench's rule
+then picks nccl or gloo from there. The JAX tool builds
+each width's mesh over jax.devices()[:tp], which after
+jax.distributed.initialize are process 0's devices on every process,
+where its docstring means each host's local chips (ROADMAP.md, known
+defects in the reference): the port takes the local ones.
+
+The JAX tool's --virtual (a 1-2-4-8 sweep on 8 virtual CPU devices of
+one JAX process) has no counterpart: a PyTorch rank is a process, and
+ranks sharing one CPU's cores measure the host, not the sharding.
 
 Prints one JSON line per measured point, then one efficiency line per
 width beside tp=1.
@@ -86,9 +104,9 @@ def bench_args(args, tp: int):
     targs.config = args.config
     targs.model_cfg = model_config(args.config)
     if args.nprocs > 1 and args.device == "cuda":
-        import torch
+        from llama_cu_awq_torch.parallel.multihost import host_cards
 
-        targs.device = f"cuda:{args.pid % torch.cuda.device_count()}"
+        targs.device = f"cuda:{host_cards(args.pid, tp)}"
     return targs
 
 
@@ -126,21 +144,18 @@ def main(argv=None) -> int:
         args.steps, args.max_seq, args.repeats = 16, 64, 1
         args.chunk_size = 4
     tps = [int(t) for t in args.tps.split(",")]
+    hosts = None
     if args.nprocs > 1:
-        if any(t > 1 for t in tps):
-            ap.error("TP widths within a multi-process run are not "
-                     "supported; run --tps 1 on each host")
-        import torch.distributed as dist
+        if not args.coordinator:
+            ap.error("--nprocs N takes --coordinator host:port")
+        from llama_cu_awq_torch.parallel.multihost import HostBarrier
 
-        from llama_cu_awq_torch.parallel import init_multihost
-
-        init_multihost(f"tcp://{args.coordinator}", args.nprocs, args.pid,
-                       backend="gloo")
+        hosts = HostBarrier(args.coordinator, args.nprocs, args.pid)
     results = {}
     for tp in tps:
         log(f"tp={tp} ...")
-        if args.nprocs > 1:
-            dist.barrier()
+        if hosts is not None:
+            hosts.wait(f"tp{tp}")
         tok_s = tb.run_args(bench_args(args, tp))["value"]
         results[tp] = tok_s
         print(json.dumps({
@@ -148,8 +163,8 @@ def main(argv=None) -> int:
                       + (f"_proc{args.pid}" if args.nprocs > 1 else ""),
             "value": tok_s, "unit": "tok/s",
             "devices": tp * args.nprocs}), flush=True)
-    if args.nprocs > 1:
-        dist.destroy_process_group()
+    if hosts is not None:
+        hosts.close()
     if 1 in results:
         for tp, v in sorted(results.items()):
             if tp == 1:

@@ -1621,6 +1621,50 @@ def test_tp_graphs_match_eager_on_card(gen, tmp_path):
     assert seg["engine_spec/verify/T5"] == 2 * L + 2
 
 
+def test_dp_tp_forward_on_card(gen, tmp_path):
+    """The batch-sharded TP forward (parallel/tp.py, given a Mesh)
+    on 4 ranks sharing the card over gloo as dp 2 x tp 2
+    (tests/torch_tp_ranks.py dp_forward_job): 4 T=1 steps of a batch of
+    4 at their own positions, the cache carried; each rank's logits are
+    its dp row's rows of the single-device forward's on the card
+    (tests/test_torch_tp.py's bar for TP against one device, 5e-3), and
+    the rows gathered over dp are the whole batch's."""
+    from llama_cu_awq_torch.io.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    import torch_tp_ranks as ranks
+
+    cfg = ModelConfig(dim=512, hidden_dim=1024, n_layers=2, n_heads=4,
+                      n_kv_heads=4, vocab_size=512, seq_len=128)
+    path = str(tmp_path / "dp_tp.bin")
+    save_checkpoint(path, random_checkpoint(cfg, seed=78))
+    tokens = [[3, 141, 59, 26], [500, 7, 42, 9], [11, 300, 2, 77],
+              [8, 64, 128, 5]]
+    offsets = [0, 2, 1, 3]
+    job = dict(kind="dp_forward", name="dp", device="cuda", act="float32",
+               cache="plain", max_seq=32, tokens=tokens, offsets=offsets,
+               tp=2, dp=2)
+    res = ranks.spawn_ranks(4, tmp_path, path, [job])["dp"]
+    params = params_from_checkpoint(load_checkpoint(path), device="cuda",
+                                    param_dtype=torch.float32)
+    cache = init_kv_cache(cfg, 4, 32, dtype=torch.float32, device="cuda")
+    want = []
+    for i, step in enumerate(tokens):
+        logits, cache = forward(
+            params, cfg, torch.tensor(step, device="cuda")[:, None],
+            torch.tensor(offsets, dtype=torch.int32, device="cuda") + i,
+            cache, attn_len=32, act_dtype=torch.float32)
+        want.append(logits.float().cpu())
+    want = torch.stack(want)
+    assert sorted((r["dp_index"], r["tp_rank"]) for r in res) == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    for r in res:
+        rows = slice(2 * r["dp_index"], 2 * r["dp_index"] + 2)
+        torch.testing.assert_close(torch.from_numpy(r["logits"]),
+                                   want[:, rows], rtol=5e-3, atol=5e-3)
+        torch.testing.assert_close(torch.from_numpy(r["gathered"]),
+                                   want[-1], rtol=5e-3, atol=5e-3)
+
+
 # the trained model of tools/train_tiny (chip_smoke.py phase 13): dim 512,
 # hidden 1536 (4 groups of 128 in n_in for qkv, o and gate_up, 12 for
 # down), 4 heads of 128, the Llama-2 vocab

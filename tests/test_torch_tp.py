@@ -199,15 +199,17 @@ def runs(tmp_path_factory):
 # ---------------------------------------------------------------------------
 # the JAX oracle
 
-def _jax_shard_forward(cfg, mesh):
+def _jax_shard_forward(cfg, mesh, batch_sharded=False):
     """make_shard_forward (llama_cu_awq_tpu/parallel/tp.py) with
-    fused=True and matmul_impl="dequant", jitted."""
+    fused=True and matmul_impl="dequant", jitted; batch_sharded as the
+    JAX function's (the batch over "dp")."""
     tp = mesh.shape["tp"]
+    b = "dp" if batch_sharded else None
     params_spec = jax.tree.map(
         lambda s: s.spec, jtp.tp_param_shardings(cfg, mesh),
         is_leaf=lambda x: isinstance(x, NamedSharding))
     n = cfg.n_layers
-    kv_spec, kvs_spec = P(None, None, "tp", None), P(None, None, "tp")
+    kv_spec, kvs_spec = P(b, None, "tp", None), P(b, None, "tp")
 
     @functools.partial(jax.jit, static_argnames=(
         "attn_len", "act_dtype", "matmul_impl", "attn_impl", "logits_all",
@@ -218,8 +220,8 @@ def _jax_shard_forward(cfg, mesh):
         specs = (jl.KVCache([kv_spec] * n, [kv_spec] * n, [kvs_spec] * n,
                             [kvs_spec] * n) if cache.quantized
                  else jl.KVCache([kv_spec] * n, [kv_spec] * n))
-        logits_spec = (None if no_logits else P(None, None, None)
-                       if logits_all else P(None, None))
+        logits_spec = (None if no_logits else P(b, None, None)
+                       if logits_all else P(b, None))
 
         def local(params, tokens, pos, cache):
             return jl.forward(params, cfg, tokens, pos, cache,
@@ -229,7 +231,7 @@ def _jax_shard_forward(cfg, mesh):
                               tp_axis="tp", tp_size=tp, fused=True)
 
         return jax.shard_map(
-            local, mesh=mesh, in_specs=(params_spec, P(None, None), P(None),
+            local, mesh=mesh, in_specs=(params_spec, P(b, None), P(b),
                                         specs),
             out_specs=(logits_spec, specs), check_vma=False)(
                 params, tokens, pos, cache)

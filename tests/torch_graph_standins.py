@@ -199,14 +199,15 @@ def check_split_job(res, x_replayed):
     # all-reduce in the eager call and in the capture; none of the
     # capture's own
     assert res["after_capture"]["collectives"] == {"all_reduce": 4,
-                                                   "all_gather": 1}
+                                                   "all_gather": 1,
+                                                   "dp_gather": 0}
     assert res["after_capture"]["y"] == [4.0, 4.0]
     b = res["before_replay"]
     assert res["replay_log"] == [
         ("segment", 0, b),
         ("segment", 1, {**b, "all_reduce": b["all_reduce"] + 1}),
         ("segment", 2, {**b, "all_reduce": b["all_reduce"] + 2}),
-        ("segment", 3, {"all_reduce": b["all_reduce"] + 2,
+        ("segment", 3, {**b, "all_reduce": b["all_reduce"] + 2,
                         "all_gather": b["all_gather"] + 1})]
     assert res["after_replay"]["x"] == [x_replayed] * 3
     assert res["outside"] == [2.0]

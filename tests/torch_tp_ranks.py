@@ -16,6 +16,7 @@ import functools
 import os
 import pickle
 
+import numpy as np
 import torch
 
 # a failing rank makes the others fail here rather than hang
@@ -339,8 +340,70 @@ def mesh_job(job, ckpt, tp, rank):
     return rows
 
 
+def _every_rank(obj) -> list:
+    """obj from every rank of the world, in rank order."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def dp_forward_job(job, ckpt, tp, rank):
+    """The batch-sharded TP forward over make_mesh(tp=job["tp"],
+    dp=job["dp"]) (parallel/tp.py, given the Mesh): job["steps"] T=1
+    steps of the global (B, 1) tokens at positions step + job["offsets"],
+    the cache carried. Returns every rank's (dp_index, tp_rank, its rows'
+    logits by step, its cache as numpy, the last step's logits gathered
+    over dp), on device (the CPU by default, where the job runs on the
+    card)."""
+    from llama_cu_awq_torch.parallel import all_gather_batch, make_mesh
+    from llama_cu_awq_torch.parallel.tp import (make_tp_forward,
+                                                tp_init_kv_cache,
+                                                tp_params_from_checkpoint)
+
+    cfg, act = ckpt.config, ACT[job["act"]]
+    dev = torch.device(job.get("device", "cpu"))
+    mesh = make_mesh(tp=job["tp"], dp=job["dp"], device=dev)
+    params = tp_params_from_checkpoint(ckpt, job["tp"], mesh.tp_group.rank,
+                                       device=dev, param_dtype=act)
+    cache = tp_init_kv_cache(cfg, len(job["offsets"]), job["max_seq"], mesh,
+                             dtype=act, device=dev, **CACHE[job["cache"]])
+    fwd = make_tp_forward(cfg, mesh, attn_len=job["max_seq"], act_dtype=act)
+    offsets = torch.tensor(job["offsets"], dtype=torch.int32)
+    rows = []
+    for i, step in enumerate(job["tokens"]):
+        logits, cache = fwd(params, torch.tensor(step, device=dev)[:, None],
+                            (offsets + i).to(dev), cache)
+        rows.append(logits.float().cpu().numpy())
+    gathered = all_gather_batch(logits, mesh).float().cpu().numpy()
+
+    def host(xs):
+        return [x.float().cpu().numpy() for x in xs]
+
+    return _every_rank(dict(
+        dp_index=mesh.dp_index, tp_rank=mesh.tp_group.rank,
+        logits=np.stack(rows), gathered=gathered,
+        cache=dict(k=host(cache.k), v=host(cache.v),
+                   k_scale=host(cache.k_scale), v_scale=host(cache.v_scale))))
+
+
+def dp_gather_job(job, ckpt, tp, rank):
+    """all_gather_batch over make_mesh(tp=2, dp=2): every rank gives two
+    rows that no other rank gives, so the gather must return its
+    column's rows in dp_index order."""
+    from llama_cu_awq_torch.parallel import all_gather_batch, make_mesh
+
+    mesh = make_mesh(tp=2, dp=2)
+    c, r = mesh.tp_group.rank, mesh.dp_index
+    x = 100 * r + 10 * c + torch.arange(6, dtype=torch.float32).reshape(2, 3)
+    return _every_rank(dict(dp_index=r, tp_rank=c, x=x.numpy(),
+                            gathered=all_gather_batch(x, mesh).numpy()))
+
+
 JOBS = {"forward": forward_job, "engine": engine_job, "batch": batch_job,
-        "mesh": mesh_job, "split": split_job_, "graphs": graphs_job}
+        "mesh": mesh_job, "split": split_job_, "graphs": graphs_job,
+        "dp_forward": dp_forward_job, "dp_gather": dp_gather_job}
 
 
 def _rank_main(rank: int, n: int, init: str, path: str, jobs, out: str):
