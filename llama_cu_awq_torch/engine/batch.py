@@ -30,6 +30,16 @@ The counterpart of llama_cu_awq_tpu/engine/batch.py. Design:
   slot cache's rows, never views of it). Its copies run eagerly, once an
   admission.
 
+Under a running profiler (utils/profiling.py) step() is the span
+batch.step, holding batch.admit, batch.prefill (a slot's block, staged
+and launched), batch.dispatch (a chunk's or spec block's inputs and
+launches), batch.wait (the host syncs) and batch.route (the tokens
+routed); run()'s rounds and serve.py's calls open the same phases. A
+chunk then counts the rows its attention_step launches read
+(_count_attention), and on the card CUDA events time each prefill block
+and each chunk's replays (_mark, _settle), read once a host sync has
+passed them, whether or not the profiler still runs then.
+
 The counterparts of the JAX engine's jitted _decode_chunk_fn (a scan),
 _prefill_slot_fn and _spec_block_fn are step bodies on device buffers of
 fixed address, as in engine/engine.py: _chunk_body (one step of a chunk:
@@ -95,6 +105,7 @@ from llama_cu_awq_torch.parallel.tp import tp_init_kv_cache
 from llama_cu_awq_torch.sampling import (XorshiftRNG, sample_token,
                                          sample_token_vec)
 from llama_cu_awq_torch.tokenizer import BOS_TOKEN, EOS_TOKEN
+from llama_cu_awq_torch.utils.profiling import add, count, enabled, span
 
 
 @dataclasses.dataclass
@@ -133,7 +144,7 @@ class _Inputs:
         n = sum(sizes.values())
         self._host = np.zeros(n, np.int32)
         self._dev = torch.zeros(n, dtype=torch.int32, device=device)
-        self._stage = _Stage(n, torch.int32, device, slots)
+        self._stage = _Stage(n, torch.int32, device, slots, "batch.wait")
         host, dev, off = {}, {}, 0
         for name, (shape, dtype) in fields.items():
             h = self._host[off:off + sizes[name]]
@@ -477,8 +488,68 @@ class BatchEngine:
         h.block[0, :T] = tokens
         h.block_pos[0] = pos
         self._in.push()
+        e0 = self._mark()
         self._run(("prefill", slot), T, attn_len, functools.partial(
             self._prefill_body, slot, attn_len, T))
+        self._timed_since(e0, "prefill", 1)
+
+    # -- tracing ------------------------------------------------------------
+
+    def _mark(self):
+        """While tracing on the card, a timing event recorded on the
+        current stream; else None."""
+        if self.device.type != "cuda" or not enabled():
+            return None
+        return self._event()
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def _timed_since(self, e0, phase: str, steps: int) -> None:
+        """Keep the launches queued since _mark() gave e0, as `steps`
+        steps of `phase`, until a sync has passed them (_settle)."""
+        if e0 is not None:
+            self._timed.append((phase, steps, e0, self._event()))
+
+    def _take_timed(self) -> list:
+        timed, self._timed = self._timed, []
+        return timed
+
+    @staticmethod
+    def _settle(timed: list) -> None:
+        """Add timed launches that a host sync has passed to the
+        counters: <phase>_device_ms, and prefill_blocks or decode_steps.
+        They were launched while tracing, so they count even where the
+        profiler stopped before this sync."""
+        for phase, steps, e0, e1 in timed:
+            add(f"{phase}_device_ms", e0.elapsed_time(e1))
+            add("prefill_blocks" if phase == "prefill" else "decode_steps",
+                steps)
+
+    def _count_attention(self, active: list[int], k: int,
+                         attn_len: int) -> None:
+        """A chunk's attention, while tracing: where forward's plan runs
+        the attention_step kernel, attention_steps += k and, for each step
+        j and slot s, the min(pos[s] + j, attn_len) cache rows one launch
+        reads, as attention_rows_active for the slots in `active` and
+        attention_rows_parked for the others (free, capped, or parked
+        mid-prefill); elsewhere attention_plain_steps += k. Host
+        arithmetic on the parked positions, before the chunk advances
+        them."""
+        if not plan(self.params, self.cfg, self.cache, self.n_slots, 1,
+                    attn_len, self.attn_impl, self._tp_size).fstep:
+            count("attention_plain_steps", k)
+            return
+        rows = np.minimum(self.pos[:, None].astype(np.int64)
+                          + np.arange(k), attn_len).sum(axis=1)
+        live = np.zeros(self.n_slots, bool)
+        live[active] = True
+        count("attention_steps", k)
+        count("attention_rows_active", int(rows[live].sum()))
+        count("attention_rows_parked", int(rows[~live].sum()))
 
     # -- tensor parallelism ----------------------------------------------
 
@@ -642,7 +713,8 @@ class BatchEngine:
         return {"out": self._fetch(self._spec_out), "inputs": inputs,
                 "owners": owners,
                 "n_forced": n_forced, "emitting": emitting,
-                "proposing": proposing, "start_pos": start_pos, "T": T}
+                "proposing": proposing, "start_pos": start_pos, "T": T,
+                "timed": self._take_timed()}
 
     def _process_spec_block(self, blk):
         """Fetch a block's outputs (the host sync, unless the caller
@@ -651,7 +723,13 @@ class BatchEngine:
         iff it equals the model's output at the previous position.
         Emissions are the outputs from the last forced position on: the
         accepted prefix plus the model's correction token."""
-        out = _host(blk["out"])  # (S, T)
+        with span("batch.wait"):
+            out = _host(blk["out"])  # (S, T)
+        self._settle(blk["timed"])
+        with span("batch.route"):
+            return self._route_spec_block(blk, out)
+
+    def _route_spec_block(self, blk, out: np.ndarray):
         T = blk["T"]
         results = []
         now = time.time()
@@ -766,7 +844,8 @@ class BatchEngine:
             self._reseed = True  # followers copy the carry too
             chunk = self._dispatch_chunk()
             return ("chunk", chunk) if chunk else None
-        return ("block", self._dispatch_spec_block(active, props))
+        with span("batch.dispatch"):
+            return ("block", self._dispatch_spec_block(active, props))
 
     def _step_spec(self):
         """One synchronous speculative round."""
@@ -811,6 +890,9 @@ class BatchEngine:
                            "accepted": 0, "throttled_rounds": 0}
         self._spec_recent: list[float] = []  # accept/slot of last blocks
         self._spec_cooldown = 0
+        # (phase, steps, start event, end event) launched while tracing on
+        # the card, not yet passed by a sync (_mark)
+        self._timed: list = []
 
     def submit(self, prompt: str | list[int], max_new: int = 0,
                temperature: float | None = None,
@@ -863,18 +945,19 @@ class BatchEngine:
         self._requests.pop(rid, None)
 
     def _admit(self):
-        for slot, rid in self.scheduler.admit():
-            req = self._requests[rid]
-            self._slot_req[slot] = req
-            self.slot_temp[slot] = req.temperature
-            self.slot_topp[slot] = req.topp
-            tokens = req.prompt
-            if len(tokens) <= self.FORCED_PROMPT_MAX:
-                self.pos[slot] = 0
-                self._pending[slot] = list(tokens)
-            else:
-                self._start_prefill(slot, req)
-            # the slot's carry stays stale: its first steps are forced
+        with span("batch.admit"):
+            for slot, rid in self.scheduler.admit():
+                req = self._requests[rid]
+                self._slot_req[slot] = req
+                self.slot_temp[slot] = req.temperature
+                self.slot_topp[slot] = req.topp
+                tokens = req.prompt
+                if len(tokens) <= self.FORCED_PROMPT_MAX:
+                    self.pos[slot] = 0
+                    self._pending[slot] = list(tokens)
+                else:
+                    self._start_prefill(slot, req)
+                # the slot's carry stays stale: its first steps are forced
 
     # -- interleaved block prefill --------------------------------------
     #
@@ -917,8 +1000,9 @@ class BatchEngine:
                 # a padded block would pass the cache's end
                 block, chunk = 1, body[pos:pos + 1]
             padded = chunk + [0] * (block - len(chunk))
-            self._prefill_slot(padded, pos, slot,
-                               self._bucket_for(pos + block))
+            with span("batch.prefill"):
+                self._prefill_slot(padded, pos, slot,
+                                   self._bucket_for(pos + block))
             job["pos"] = pos + len(chunk)
         if job["pos"] < len(body):
             return set()
@@ -962,6 +1046,10 @@ class BatchEngine:
         needs no host round trip to start."""
         self._admit()
         self._advance_prefill()
+        with span("batch.dispatch"):
+            return self._queue_chunk()
+
+    def _queue_chunk(self):
         # a slot already at the cache boundary (possible under lookahead:
         # the chunk in flight filled it, and processing that chunk retires
         # it) takes no step: it parks like a free slot and owns nothing
@@ -1004,6 +1092,8 @@ class BatchEngine:
         self._in.push()
         self._idx.zero_()
         attn_len = self._bucket_for(int(self.pos[active].max()) + k)
+        if enabled():
+            self._count_attention(active, k, attn_len)
         # all-greedy chunks skip the per-row sampler (it sorts (S, vocab)
         # every step)
         sampled = bool((self.slot_temp[active] > 0.0).any())
@@ -1012,19 +1102,28 @@ class BatchEngine:
                 p0 = int(self.pos[s])
                 self.window_log.setdefault(self._slot_req[s].id, {}).update(
                     dict.fromkeys(range(p0, p0 + k), attn_len))
+        e0 = self._mark()
         self._run(("chunk", sampled), 1, attn_len, functools.partial(
             self._chunk_body, attn_len, sampled), k)
+        self._timed_since(e0, "decode", k)
         # owners at dispatch: a slot freed while this chunk is in flight
         # has its tokens discarded at process time
         owners = {s: self._slot_req[s] for s in active}
         self.pos += k
         return {"toks": self._fetch(self._out[:k]), "k": k,
-                "owners": owners, "emit_from": emit_from}
+                "owners": owners, "emit_from": emit_from,
+                "timed": self._take_timed()}
 
     def _process_chunk(self, chunk) -> list[tuple[int, list[int], bool]]:
         """Fetch a dispatched chunk's tokens (the host sync) and route
         them: request outputs, EOS and budget retirement, slot frees."""
-        host = _host(chunk["toks"])  # (k, S)
+        with span("batch.wait"):
+            host = _host(chunk["toks"])  # (k, S)
+        self._settle(chunk["timed"])
+        with span("batch.route"):
+            return self._route_chunk(chunk, host)
+
+    def _route_chunk(self, chunk, host: np.ndarray):
         k = chunk["k"]
         results = []
         now = time.time()
@@ -1056,10 +1155,11 @@ class BatchEngine:
         """Admit and run one decode chunk (or speculative round),
         synchronously. Returns [(request_id, new_tokens, finished)] for
         every request that produced tokens or finished."""
-        if self.spec:
-            return self._step_spec() or []
-        chunk = self._dispatch_chunk()
-        return self._process_chunk(chunk) if chunk else []
+        with span("batch.step"):
+            if self.spec:
+                return self._step_spec() or []
+            chunk = self._dispatch_chunk()
+            return self._process_chunk(chunk) if chunk else []
 
     @property
     def pending(self) -> int:
@@ -1074,22 +1174,25 @@ class BatchEngine:
         if self.spec:
             rounds = 0
             while self.pending and rounds < max_chunks:
-                if self._step_spec() is None:
-                    break
+                with span("batch.step"):
+                    if self._step_spec() is None:
+                        break
                 rounds += 1
             return {rid: r.out for rid, r in self._requests.items()}
         chunks = 0
         in_flight = None
         while chunks < max_chunks:
-            nxt = self._dispatch_chunk() if self.pending else None
-            if in_flight is None and nxt is None:
-                break
-            if in_flight:
-                self._process_chunk(in_flight)
+            with span("batch.step"):
+                nxt = self._dispatch_chunk() if self.pending else None
+                if in_flight is None and nxt is None:
+                    break
+                if in_flight:
+                    self._process_chunk(in_flight)
             in_flight = nxt
             chunks += 1
         if in_flight:
-            self._process_chunk(in_flight)
+            with span("batch.step"):
+                self._process_chunk(in_flight)
         return {rid: r.out for rid, r in self._requests.items()}
 
     def stats(self) -> dict:

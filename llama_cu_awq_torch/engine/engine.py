@@ -29,6 +29,11 @@ run eagerly, and `capture=False` runs them so on the card. The host syncs
 once per chunk, where it reads the chunk's tokens. The xorshift coin
 stream and the reference's one-step print lag follow the JAX engine.
 
+Under a running profiler (utils/profiling.py) a request of generate or
+generate_benchmark is the span seq.request, holding seq.reset, seq.prompt
+(_prefill), seq.decode (a chunk's dispatch) and seq.wait (every host
+sync: a chunk's tokens, a staging slot, the card before the clock).
+
 Speculative decoding (spec="ngram", the JAX engine's prompt lookup):
 propose_ngram takes the spec_k tokens that followed the latest earlier
 occurrence of the history's trailing n-gram, one teacher-forced forward
@@ -58,6 +63,7 @@ from llama_cu_awq_torch.parallel.mesh import TPGroup
 from llama_cu_awq_torch.parallel.tp import tp_init_kv_cache
 from llama_cu_awq_torch.sampling import XorshiftRNG, sample_token
 from llama_cu_awq_torch.tokenizer import EOS_TOKEN, Tokenizer
+from llama_cu_awq_torch.utils.profiling import span
 
 # teacher-forced prefill block width (the JAX engine's PREFILL_BLOCK)
 PREFILL_BLOCK = 128
@@ -100,10 +106,13 @@ class _Stage:
     """Host values on their way to a device buffer: on the card through
     pinned memory and a copy that does not block the host. A slot is
     written again only after the copy that read it has run (an event), so
-    chunks chained without a host sync never see their inputs change."""
+    chunks chained without a host sync never see their inputs change.
+    `wait` names the span of that wait."""
 
-    def __init__(self, n: int, dtype, device: torch.device, slots: int):
+    def __init__(self, n: int, dtype, device: torch.device, slots: int,
+                 wait: str = "seq.wait"):
         pin = device.type == "cuda"
+        self.wait = wait
         self.host = [torch.zeros(n, dtype=dtype, pin_memory=pin)
                      for _ in range(slots)]
         self.done = [torch.cuda.Event() if pin else None
@@ -116,7 +125,8 @@ class _Stage:
         s = self.slot
         self.slot = (s + 1) % len(self.host)
         if self.done[s] is not None:
-            self.done[s].synchronize()
+            with span(self.wait):
+                self.done[s].synchronize()
         src = self.host[s][:len(values)]
         src.copy_(torch.as_tensor(values, dtype=src.dtype))
         dst[:len(values)].copy_(src, non_blocking=True)
@@ -306,20 +316,22 @@ class InferenceEngine:
         """k sampled steps from self.pos, the first fed from _tok, at the
         window of pos + k; draws k xorshift coins. Returns the (k,) tokens
         on the device, a view of _out valid until the next chunk."""
-        self._coin_stage.put([self.rng.random_f32() for _ in range(k)],
-                             self._coin_buf)
-        self._start()
-        attn_len = self._bucket_for(self.pos + k)
-        self._run("decode", 1, attn_len,
-                  functools.partial(self._decode_body, attn_len), k)
+        with span("seq.decode"):
+            self._coin_stage.put([self.rng.random_f32() for _ in range(k)],
+                                 self._coin_buf)
+            self._start()
+            attn_len = self._bucket_for(self.pos + k)
+            self._run("decode", 1, attn_len,
+                      functools.partial(self._decode_body, attn_len), k)
         return self._out[:k]
 
     def reset(self):
         # in place, where the JAX engine builds a new cache: the graphs
         # hold the cache's addresses
-        c = self.cache
-        for t in c.k + c.v + c.k_scale + c.v_scale:
-            t.zero_()
+        with span("seq.reset"):
+            c = self.cache
+            for t in c.k + c.v + c.k_scale + c.v_scale:
+                t.zero_()
         self.pos = 0
         self._hist = []
 
@@ -339,41 +351,45 @@ class InferenceEngine:
         on the device, or with collect_logits the (len(tokens), vocab) f32
         rows on the host, moved one block at a time.
         """
-        assert tokens
-        if self.pos + len(tokens) > self.max_seq:
-            raise ValueError(f"{len(tokens)} tokens at position {self.pos} "
-                             f"pass max_seq {self.max_seq}")
-        self._hist.extend(tokens)
-        # the prompt on the device, padded with 0 to a whole block
-        n_pad = -(-len(tokens) // PREFILL_BLOCK) * PREFILL_BLOCK
-        self._prompt_stage.put(tokens + [0] * (n_pad - len(tokens)),
-                               self._prompt_buf)
-        self._start()
-        if not collect_logits and len(tokens) < PREFILL_BLOCK // 2:
-            attn_len = self._bucket_for(self.pos + len(tokens))
-            self._run(("prompt", False), 1, attn_len, functools.partial(
-                self._prompt_body, attn_len, 1, False), len(tokens))
-            self.pos += len(tokens)
-            return None
-        rows, last, i = [], None, 0
-        while i < len(tokens):
-            n = min(PREFILL_BLOCK, len(tokens) - i)
-            block = 1 if n == 1 else PREFILL_BLOCK
-            if self.pos + block > self.max_seq:
-                block, n = 1, 1
-            # the lm_head runs on the prompt's last block only, or on every
-            # block for collect_logits (perplexity)
-            head = collect_logits or i + n == len(tokens)
-            attn_len = self._bucket_for(self.pos + block)
-            self._run(("prompt", head), block, attn_len, functools.partial(
-                self._prompt_body, attn_len, block, head))
-            if collect_logits:
-                rows.append(self._logits[:n].to("cpu", copy=True))
-            if head:
-                last = self._logits[n - 1].clone()
-            self.pos += n
-            i += n
-        return torch.cat(rows) if collect_logits else last
+        with span("seq.prompt"):
+            assert tokens
+            if self.pos + len(tokens) > self.max_seq:
+                raise ValueError(f"{len(tokens)} tokens at position "
+                                 f"{self.pos} pass max_seq {self.max_seq}")
+            self._hist.extend(tokens)
+            # the prompt on the device, padded with 0 to a whole block
+            n_pad = -(-len(tokens) // PREFILL_BLOCK) * PREFILL_BLOCK
+            self._prompt_stage.put(tokens + [0] * (n_pad - len(tokens)),
+                                   self._prompt_buf)
+            self._start()
+            if not collect_logits and len(tokens) < PREFILL_BLOCK // 2:
+                attn_len = self._bucket_for(self.pos + len(tokens))
+                self._run(("prompt", False), 1, attn_len,
+                          functools.partial(self._prompt_body, attn_len, 1,
+                                            False), len(tokens))
+                self.pos += len(tokens)
+                return None
+            rows, last, i = [], None, 0
+            while i < len(tokens):
+                n = min(PREFILL_BLOCK, len(tokens) - i)
+                block = 1 if n == 1 else PREFILL_BLOCK
+                if self.pos + block > self.max_seq:
+                    block, n = 1, 1
+                # the lm_head runs on the prompt's last block only, or on
+                # every block for collect_logits (perplexity)
+                head = collect_logits or i + n == len(tokens)
+                attn_len = self._bucket_for(self.pos + block)
+                self._run(("prompt", head), block, attn_len,
+                          functools.partial(self._prompt_body, attn_len,
+                                            block, head))
+                if collect_logits:
+                    with span("seq.wait"):
+                        rows.append(self._logits[:n].to("cpu", copy=True))
+                if head:
+                    last = self._logits[n - 1].clone()
+                self.pos += n
+                i += n
+            return torch.cat(rows) if collect_logits else last
 
     def _consume_coins(self, n: int):
         """One xorshift coin per teacher-forced step (sampler.h:45)."""
@@ -396,48 +412,50 @@ class InferenceEngine:
         if not prompt_tokens:
             raise ValueError("expected at least 1 prompt token")
         steps = self._clamp_steps(steps)
+        with span("seq.request"):
+            self.reset()
+            start = time.time()
+            n_pref = min(len(prompt_tokens), steps)
+            consumed = 0
+            if n_pref > 1:
+                self._prefill(prompt_tokens[:n_pref - 1])
+                self._consume_coins(n_pref - 1)
+                consumed = n_pref - 1
+            pieces = []
+            if echo:
+                # the reference echoes prompt tokens as it processes them
+                for i in range(1, n_pref):
+                    piece = tok.safe_piece(
+                        tok.decode(prompt_tokens[i - 1], prompt_tokens[i]))
+                    if on_piece:
+                        on_piece(piece)
+                    pieces.append(piece)
 
-        self.reset()
-        start = time.time()
-        n_pref = min(len(prompt_tokens), steps)
-        consumed = 0
-        if n_pref > 1:
-            self._prefill(prompt_tokens[:n_pref - 1])
-            self._consume_coins(n_pref - 1)
-            consumed = n_pref - 1
-        pieces = []
-        if echo:
-            # the reference echoes prompt tokens as it processes them
-            for i in range(1, n_pref):
-                piece = tok.safe_piece(
-                    tok.decode(prompt_tokens[i - 1], prompt_tokens[i]))
+            prev_token = prompt_tokens[n_pref - 1]
+            with span("seq.wait"):  # a copy from pageable memory syncs
+                token = torch.tensor([prev_token], dtype=torch.int32,
+                                     device=self.device)
+            generated, hit_eos = self._decode_auto(token, steps - n_pref + 1)
+
+            # the reference prints the token from the previous iteration, so
+            # the final generated token is never printed unless EOS stopped
+            # it
+            to_print = generated if hit_eos else generated[:-1]
+            n_gen = 0
+            for nxt in to_print:
+                piece = tok.safe_piece(tok.decode(prev_token, nxt))
                 if on_piece:
                     on_piece(piece)
                 pieces.append(piece)
+                n_gen += 1
+                prev_token = nxt
 
-        prev_token = prompt_tokens[n_pref - 1]
-        token = torch.tensor([prev_token], dtype=torch.int32,
-                             device=self.device)
-        generated, hit_eos = self._decode_auto(token, steps - n_pref + 1)
-
-        # the reference prints the token from the previous iteration, so the
-        # final generated token is never printed unless EOS stopped it
-        to_print = generated if hit_eos else generated[:-1]
-        n_gen = 0
-        for nxt in to_print:
-            piece = tok.safe_piece(tok.decode(prev_token, nxt))
-            if on_piece:
-                on_piece(piece)
-            pieces.append(piece)
-            n_gen += 1
-            prev_token = nxt
-
-        dt = time.time() - start
-        timed = consumed + len(generated) - 1
-        stats = {"tokens": timed, "seconds": dt,
-                 "tok_per_s": timed / dt if dt > 0 else float("inf"),
-                 "generated": n_gen}
-        return "".join(pieces), stats
+            dt = time.time() - start
+            timed = consumed + len(generated) - 1
+            stats = {"tokens": timed, "seconds": dt,
+                     "tok_per_s": timed / dt if dt > 0 else float("inf"),
+                     "generated": n_gen}
+            return "".join(pieces), stats
 
     def _decode_tokens(self, token: torch.Tensor, max_steps: int,
                        stop_at_eos: bool = True, on_token=None):
@@ -455,7 +473,9 @@ class InferenceEngine:
             k = min(self.chunk_size, max_steps - done,
                     self.max_seq - self.pos)
             snapshot = self.rng.state
-            host = self._decode_chunk(k).tolist()  # the host sync point
+            out = self._decode_chunk(k)
+            with span("seq.wait"):
+                host = out.tolist()  # the host sync point
             if stop_at_eos and EOS_TOKEN in host:
                 used = host.index(EOS_TOKEN) + 1
                 self.rng.state = snapshot  # one coin per executed step
@@ -501,7 +521,8 @@ class InferenceEngine:
         self._start()
         self._run("verify", T, attn_len,
                   functools.partial(self._verify_body, attn_len, T))
-        return self._out[:T].tolist()  # the host sync of a verify
+        with span("seq.wait"):
+            return self._out[:T].tolist()  # the host sync of a verify
 
     def _decode_tokens_spec(self, token: torch.Tensor, max_steps: int,
                             stop_at_eos: bool = True, on_token=None):
@@ -569,37 +590,43 @@ class InferenceEngine:
         synchronized after it), and the timed tokens are the decode
         tokens alone, len(tokens): decode tok/s at depth (the JAX
         engine's, engine.py:749-801)."""
-        self.reset()
-        sync = self.device.type == "cuda"
-        if sync:
-            torch.cuda.synchronize()
-        start = time.time()
-        n_pref = min(len(prompt_tokens), steps)
-        if n_pref > 1:
-            self._prefill(prompt_tokens[:n_pref - 1])
-        token = torch.tensor([prompt_tokens[n_pref - 1]], dtype=torch.int32,
-                             device=self.device)
-        if untimed_prefill:
+        with span("seq.request"):
+            self.reset()
+            sync = self.device.type == "cuda"
             if sync:
-                torch.cuda.synchronize()
+                with span("seq.wait"):
+                    torch.cuda.synchronize()
             start = time.time()
-        if self.spec:
-            # the same accounting: the loop emits steps - n_pref + 1 tokens
-            tokens, _ = self._decode_auto(token, steps - n_pref + 1,
-                                          stop_at_eos=False)
-        else:
-            outs = []
-            remaining = steps - n_pref + 1
-            self._tok.copy_(token.view(1, 1))
-            while remaining > 0 and self.pos < self.max_seq:
-                k = min(self.chunk_size, remaining, self.max_seq - self.pos)
-                outs.append(self._decode_chunk(k).clone())
-                self.pos += k
-                remaining -= k
-            tokens = torch.cat(outs).tolist()
-        dt = time.time() - start
-        timed = len(tokens) if untimed_prefill else steps - 1
-        return tokens, dt, timed / dt
+            n_pref = min(len(prompt_tokens), steps)
+            if n_pref > 1:
+                self._prefill(prompt_tokens[:n_pref - 1])
+            with span("seq.wait"):  # a copy from pageable memory syncs
+                token = torch.tensor([prompt_tokens[n_pref - 1]],
+                                     dtype=torch.int32, device=self.device)
+            if untimed_prefill:
+                if sync:
+                    with span("seq.wait"):
+                        torch.cuda.synchronize()
+                start = time.time()
+            if self.spec:
+                # the same accounting: the loop emits steps - n_pref + 1 tokens
+                tokens, _ = self._decode_auto(token, steps - n_pref + 1,
+                                              stop_at_eos=False)
+            else:
+                outs = []
+                remaining = steps - n_pref + 1
+                self._tok.copy_(token.view(1, 1))
+                while remaining > 0 and self.pos < self.max_seq:
+                    k = min(self.chunk_size, remaining,
+                            self.max_seq - self.pos)
+                    outs.append(self._decode_chunk(k).clone())
+                    self.pos += k
+                    remaining -= k
+                with span("seq.wait"):
+                    tokens = torch.cat(outs).tolist()
+            dt = time.time() - start
+            timed = len(tokens) if untimed_prefill else steps - 1
+            return tokens, dt, timed / dt
 
     # ------------------------------------------------------------------
     # chat mode (llama2_q4.cu:507-601)

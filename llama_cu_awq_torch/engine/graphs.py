@@ -49,7 +49,10 @@ belongs in the key. The rules:
   ops.cuda's counters and added again at every replay of its segment
   (add_launches), so LAUNCHES and VARIANT_LAUNCHES read as if each
   kernel had been launched from Python; REPLAYS counts the graphs and
-  segments replayed;
+  segments replayed, and CAPTURES the graphs captured and the seconds
+  their captures took (Graph.capture_seconds), always, since captures
+  happen in set-up; a capture is the span graph.capture of a trace
+  (utils/profiling.py);
 - the cyclic garbage collector is off while any capture runs
   (`collector_off`): a collection inside a capture may free an old
   engine's graphs, and destroying a graph is a call a capture does not
@@ -71,11 +74,14 @@ import torch
 from llama_cu_awq_torch.ops.cuda import (LAUNCHES, VARIANT_LAUNCHES,
                                          add_launches)
 from llama_cu_awq_torch.parallel.mesh import split_at_collectives
+from llama_cu_awq_torch.utils.profiling import span
 
 Launches = tuple[dict[str, int], dict[str, int]]
 
 # graphs replayed, and the segments they replayed
 REPLAYS = {"graphs": 0, "segments": 0}
+# graphs captured, and the seconds their captures took
+CAPTURES = {"graphs": 0, "seconds": 0.0}
 
 
 def _take_back(k0: dict, v0: dict) -> Launches:
@@ -186,7 +192,7 @@ class GraphSet:
         """A graph of body()'s launches, on this set's stream and pool,
         split at its collectives: one synchronize and one reading of the
         pool a key, whatever its segments."""
-        with _ONE_CAPTURE:
+        with span("graph.capture"), _ONE_CAPTURE:
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
@@ -197,6 +203,8 @@ class GraphSet:
             g.capture_seconds = time.perf_counter() - t0
             g.pool_bytes = (torch.cuda.memory_reserved(self.device)
                             - reserved)
+            CAPTURES["graphs"] += 1
+            CAPTURES["seconds"] += g.capture_seconds
         return g
 
     def begin_segment(self):

@@ -195,6 +195,7 @@ class ServingEngine:
         queued before chunk N's tokens are fetched and routed. The fetch
         waits for the device outside the replica lock."""
         from llama_cu_awq_torch.engine.batch import _host
+        from llama_cu_awq_torch.utils.profiling import span
 
         in_flight = None
         while True:
@@ -207,7 +208,8 @@ class ServingEngine:
                     r.work.wait(timeout=0.5)
                     continue
             if in_flight is not None:
-                in_flight["toks"] = _host(in_flight["toks"])  # unlocked
+                with span("batch.wait"):  # unlocked
+                    in_flight["toks"] = _host(in_flight["toks"])
                 self._route(r, self._process(r, in_flight))
             in_flight = nxt
         if in_flight is not None:
@@ -219,6 +221,7 @@ class ServingEngine:
         dispatch and the routing hold the replica lock; the wait for the
         device result does not, so submits never wait on compute."""
         from llama_cu_awq_torch.engine.batch import _host
+        from llama_cu_awq_torch.utils.profiling import span
 
         while True:
             with r.work:
@@ -232,11 +235,13 @@ class ServingEngine:
                     continue
             kind, payload = work
             if kind == "block":
-                payload["out"] = _host(payload["out"])  # unlocked
+                with span("batch.wait"):  # unlocked
+                    payload["out"] = _host(payload["out"])
                 with r.lock:
                     results = r.be._process_spec_block(payload)
             else:
-                payload["toks"] = _host(payload["toks"])  # unlocked
+                with span("batch.wait"):  # unlocked
+                    payload["toks"] = _host(payload["toks"])
                 results = self._process(r, payload)
             self._route(r, results)
 

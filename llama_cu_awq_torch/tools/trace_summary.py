@@ -15,16 +15,28 @@ of the card's operations, where the host had not queued the next one (as
 chip_smoke.py's profile_run counts them); the top operations by device
 time with their count and mean; with --families, the operations grouped
 by kernel name with template arguments, parameter lists and numeric
-suffixes taken off. --module keeps only the operations whose name holds
-SUBSTR (the xplane tool's filter on the enclosing XLA module; a CUDA
-trace has no modules, so it filters on the kernel name). A trace of a
-CPU run has no device operations: it says so, and shows the host's
-operations.
+suffixes taken off (the parameter list matched from the end, so that a
+kernel in an anonymous namespace keeps its name). --module keeps only the
+operations whose name holds SUBSTR (the xplane tool's filter on the
+enclosing XLA module; a CUDA trace has no modules, so it filters on the
+kernel name). A trace of a CPU run has no device operations: it says so,
+and shows the host's operations.
+
+Last, the program's spans (utils/profiling.py span: batch.*, seq.*,
+graph.capture, every user annotation of the trace), one row a name: how
+many, the host ms of their self time (a span less the spans inside it),
+and the card's idle ms inside them, each idle stretch counted once, in
+the innermost span that holds it (none on a trace without the card). The
+table places the idle on the host's clock; it does not say whether the
+host held the card there or the next operation was already queued, and a
+trace's card timestamps may drift from the host's by milliseconds over a
+few seconds, so read it as a rough placement.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import json
 import os
@@ -59,6 +71,21 @@ def load_events(path: str) -> list[dict]:
     return [e for e in events if e.get("ph") == "X" and "dur" in e]
 
 
+def _drop_params(s: str) -> str:
+    """s without the parenthesised list that ends it (the parameter
+    list), matched from the end, so that a name's own parentheses, as in
+    '(anonymous namespace)::k(int)', stay."""
+    s = s.rstrip()
+    if not s.endswith(")"):
+        return s
+    depth = 0
+    for i in range(len(s) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(s[i], 0)
+        if depth == 0:
+            return s[:i] if i else s
+    return s
+
+
 def family(name: str) -> str:
     """A kernel name without its template arguments, parameter list,
     return type and numeric suffixes: 'void ns::k<4, float>(int, ...)'
@@ -66,7 +93,7 @@ def family(name: str) -> str:
     s = name
     if s.startswith("void "):
         s = s[5:]
-    s = re.sub(r"\(.*\)\s*$", "", s)  # the parameter list
+    s = _drop_params(s)
     prev = None
     while prev != s:  # nested template arguments, innermost first
         prev = s
@@ -75,12 +102,81 @@ def family(name: str) -> str:
     return s or name
 
 
+class _Idle:
+    """The card's idle time inside any stretch of the trace: the union of
+    its operations, with prefix sums for lookups."""
+
+    def __init__(self, dev: list[dict]):
+        merged: list[list[float]] = []
+        for s, d in sorted((float(e["ts"]), float(e["dur"])) for e in dev):
+            if merged and s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], s + d)
+            else:
+                merged.append([s, s + d])
+        self.starts = [a for a, _ in merged]
+        self.ends = [b for _, b in merged]
+        self.before = [0.0]  # busy time of the intervals before index i
+        for a, b in merged:
+            self.before.append(self.before[-1] + b - a)
+
+    def _busy_to(self, t: float) -> float:
+        """Busy time before t."""
+        i = bisect.bisect_right(self.starts, t)
+        if i == 0:
+            return 0.0
+        return self.before[i - 1] + min(t, self.ends[i - 1]) \
+            - self.starts[i - 1]
+
+    def within(self, a: float, b: float) -> float:
+        return (b - a) - (self._busy_to(b) - self._busy_to(a))
+
+
+def span_table(events: list[dict], dev: list[dict]) -> dict:
+    """name -> {count, self_ms, idle_ms} over the trace's user
+    annotations, nested per thread; idle_ms None without device
+    operations."""
+    idle = _Idle(dev) if dev else None
+    by_tid: dict = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            a = float(e["ts"])
+            # longer first at one start, so that a parent precedes its child
+            by_tid[e.get("tid")].append((a, -(a + float(e["dur"])),
+                                         e["name"]))
+    table: dict = {}
+    for spans in by_tid.values():
+        spans.sort()
+        stack: list = []  # [name, start, end, child µs, child idle µs]
+
+        def close(sp):
+            name, a, b, kids, kid_idle = sp
+            row = table.setdefault(name, {"count": 0, "self_ms": 0.0,
+                                          "idle_ms": None if idle is None
+                                          else 0.0})
+            row["count"] += 1
+            row["self_ms"] += (b - a - kids) / 1e3
+            inside = idle.within(a, b) if idle is not None else 0.0
+            if idle is not None:
+                row["idle_ms"] += (inside - kid_idle) / 1e3
+            if stack:
+                stack[-1][3] += b - a
+                stack[-1][4] += inside
+
+        for a, neg_b, name in spans:
+            while stack and stack[-1][2] <= a:
+                close(stack.pop())
+            stack.append([name, a, -neg_b, 0.0, 0.0])
+        while stack:
+            close(stack.pop())
+    return table
+
+
 def summarize(path: str, top: int = 40, module: str | None = None,
               families: bool = False, out=None) -> dict:
     """Print the summary of the trace at path (a file or a directory) to
     out (default stdout) and return its numbers: device busy_ms, span_ms,
-    occupancy, gaps, gap_ms, largest_gap_ms, device_ops, and ops (name ->
-    [ms, count])."""
+    occupancy, gaps, gap_ms, largest_gap_ms, device_ops, ops (name ->
+    [ms, count]) and spans (span_table)."""
     out = out or sys.stdout
     events = load_events(path)
     dev = [e for e in events if e.get("cat") in DEVICE_CATS
@@ -107,6 +203,20 @@ def summarize(path: str, top: int = 40, module: str | None = None,
     def say(line=""):
         print(line, file=out, flush=True)
 
+    res["spans"] = span_table(events, dev)
+
+    def say_spans():
+        if not res["spans"]:
+            return
+        say("\n-- program spans: count, host self ms, device idle ms "
+            "inside (innermost span) --")
+        for name, row in sorted(res["spans"].items(),
+                                key=lambda kv: -kv[1]["self_ms"]):
+            idle = ("       n/a" if row["idle_ms"] is None
+                    else f"{row['idle_ms']:10.3f}")
+            say(f"{row['count']:8d} {row['self_ms']:10.3f} {idle}  "
+                f"{name[:80]}")
+
     if not dev:
         say("no device operations in the trace (a CPU run, or the card "
             "was not traced): device busy 0.00 ms"
@@ -121,6 +231,7 @@ def summarize(path: str, top: int = 40, module: str | None = None,
                                       key=lambda kv: -kv[1][0])[:top]:
             say(f"{us / 1e3:10.3f} ms {cnt:8d} x {us / max(cnt, 1):9.1f} us"
                 f"  {name[:100]}")
+        say_spans()
         return res
     say(f"device busy: {res['busy_ms']:.2f} ms over {res['span_ms']:.2f} ms "
         f"span ({100 * res['occupancy']:.1f}% occupancy), "
@@ -143,6 +254,7 @@ def summarize(path: str, top: int = 40, module: str | None = None,
                                      key=lambda kv: -kv[1][0])[:30]:
             say(f"{us / 1e3:10.3f} ms {cnt:8d} ev  {key[:90]}")
         res["families"] = {k: [v[0] / 1e3, v[1]] for k, v in fam.items()}
+    say_spans()
     return res
 
 
